@@ -10,3 +10,7 @@ def pytest_configure(config):
         "markers",
         "property: hypothesis state-machine suites (CI re-runs them with "
         "a fixed seed and a higher example count)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips without one")

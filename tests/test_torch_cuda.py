@@ -1,0 +1,162 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc; without them each one skips
+(decided inside the fixture, never at import).  This file imports neither
+jax nor the JAX package, so it also runs on a machine without them:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import MXWeight
+from repro_torch.core.formats import ALL_FORMATS
+from repro_torch.core.pack import pack_codes, packed_nbytes
+from repro_torch.core.spec import QuantSpec
+from repro_torch.kernels import ref
+from repro_torch.kernels.mx_decode_attn import mx_paged_decode_attention
+from repro_torch.kernels.mx_matmul import mx_matmul_2d
+from repro_torch.kernels.mx_quant import mx_quantize_2d
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+FMTS = [f.name for f in ALL_FORMATS]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _special_rows(rng, n):
+    x = rng.normal(size=(8, n)).astype(np.float32)
+    x[1] *= np.float32(1e-39)                      # f32 subnormals
+    x[2, 5] = np.nan
+    x[3, 7] = np.inf
+    x[4, 9] = -np.inf
+    x[5] = 0.0
+    x[6] = rng.standard_cauchy(size=n).astype(np.float32) * 1e4
+    x[7] *= np.exp2(rng.integers(-140, 120, size=n)).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("mode", ["paper", "ocp"])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_quant_kernel_bit_identical(dev, fmt, mode):
+    rng = np.random.default_rng(0)
+    spec = QuantSpec(fmt, mode)
+    for n in (128, 77):
+        x = torch.from_numpy(_special_rows(rng, n))
+        c_ref, s_ref = mx_quantize_2d(x, spec)
+        c, s = mx_quantize_2d(x.to(dev), spec)
+        torch.cuda.synchronize()
+        assert torch.equal(c.cpu(), c_ref) and torch.equal(s.cpu(), s_ref)
+
+
+@pytest.mark.parametrize("m", [5, 40])
+@pytest.mark.parametrize("mode", ["paper", "ocp"])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_matmul_kernel_matches_plain(dev, fmt, mode, m):
+    """Packed and unpacked storage, f32 and bf16 activations; rtol/atol
+    1e-5 relative to the output scale (f32 sums in another order)."""
+    rng = np.random.default_rng(1)
+    k, n = 256, 200
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.05)
+    for packed in (True, False):
+        mw = MXWeight.quantize(w, QuantSpec(fmt, mode, 32, packed))
+        for dt in (torch.float32, torch.bfloat16):
+            want = mx_matmul_2d(a.to(dt), mw.codes, mw.scales, mw.spec)
+            got = mx_matmul_2d(a.to(dt).to(dev), mw.codes.to(dev),
+                               mw.scales.to(dev), mw.spec)
+            torch.cuda.synchronize()
+            tol = 1e-5 * float(want.abs().max())
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=tol)
+
+
+@pytest.mark.parametrize("spec", ["e4m3@32:ocp", "e2m1@32:ocp",
+                                  "e3m2@32:paper"])
+def test_matmul_rows_do_not_depend_on_batch(dev, spec):
+    """The decode (M <= 16) and prefill (M > 16) kernels group K alike: a
+    row's output is bit-identical whatever else shares the call."""
+    rng = np.random.default_rng(4)
+    k, n = 4096, 264
+    a = torch.from_numpy(rng.normal(size=(40, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.02)
+    mw = MXWeight.quantize(w.to(dev), QuantSpec.parse(spec))
+    a = a.to(dev).to(torch.bfloat16)
+    full = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
+    for lo, hi in ((0, 8), (3, 4), (8, 24), (24, 40), (0, 16)):
+        part = mx_matmul_2d(a[lo:hi].contiguous(), mw.codes, mw.scales,
+                            mw.spec)
+        assert torch.equal(part, full[lo:hi])
+
+
+def _paged_case(rng, kspec, vspec, b=3, hq=4, hkv=2, d=64, page=8, npg=5):
+    n_pool = b * npg + 1
+    q = torch.from_numpy(rng.normal(size=(b, 1, hq, d)).astype(np.float32))
+
+    def pool(spec):
+        x = torch.from_numpy(
+            rng.normal(size=(n_pool * page * hkv, d)).astype(np.float32))
+        c, s = mx_quantize_2d(x, spec)
+        if spec.packed:
+            c = pack_codes(c, spec.fmt)
+        cb = spec.storage_nbytes(d)
+        return (c.reshape(n_pool, page, hkv, cb),
+                s.reshape(n_pool, page, hkv, d // 32))
+
+    kc, ks = pool(kspec)
+    vc, vs = pool(vspec)
+    perm = rng.permutation(np.arange(1, n_pool))[:b * npg]
+    bt = torch.from_numpy(perm.reshape(b, npg).astype(np.int32))
+    bt[2, 2:] = 0                                  # trash-padded row
+    lengths = torch.tensor([npg * page - 1, 0, 2 * page - 3],
+                           dtype=torch.int32)
+    return q, kc, ks, vc, vs, bt, lengths
+
+
+@pytest.mark.parametrize("kv", ["int8@32:ocp/int8@32:ocp",
+                                "e4m3@32:ocp/e4m3@32:ocp",
+                                "e2m1@32:ocp/e2m1@32:ocp",
+                                "int8@32:ocp/e2m1@32:ocp",
+                                "e3m2@32:paper/e2m3@32:paper"])
+def test_paged_attention_kernel_matches_plain(dev, kv):
+    ks_, vs_ = (QuantSpec.parse(s) for s in kv.split("/"))
+    rng = np.random.default_rng(2)
+    args = _paged_case(rng, ks_, vs_)
+    want = mx_paged_decode_attention(*args, key_spec=ks_, value_spec=vs_,
+                                     rep=2)
+    got = mx_paged_decode_attention(*(t.to(dev) for t in args),
+                                    key_spec=ks_, value_spec=vs_, rep=2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    assert packed_nbytes(vs_.fmt, 64) == args[3].shape[-1]
+
+
+def test_cuda_tensor_never_takes_the_plain_path(dev):
+    """A CUDA tensor launches the kernel: the counter moves."""
+    before = mx_quantize_2d.launches
+    mx_quantize_2d(torch.ones(2, 32, device=dev), "int8@32:ocp")
+    assert mx_quantize_2d.launches == before + 1
+    with pytest.raises(ValueError):
+        mx_quantize_2d(torch.ones(2, 32, device=dev, dtype=torch.float16),
+                       "int8@32:ocp")
+
+
+def test_paged_reference_agrees_on_card(dev):
+    """The plain version itself runs on the card and matches its CPU run."""
+    spec = QuantSpec.parse("int8@32:ocp")
+    rng = np.random.default_rng(3)
+    args = _paged_case(rng, spec, spec)
+    a = ref.mx_paged_decode_attention_ref(*args, key_spec=spec,
+                                          value_spec=spec, rep=2)
+    b = ref.mx_paged_decode_attention_ref(*(t.to(dev) for t in args),
+                                          key_spec=spec, value_spec=spec,
+                                          rep=2)
+    torch.testing.assert_close(b.cpu(), a, rtol=2e-5, atol=2e-5)
