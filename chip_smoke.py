@@ -6,18 +6,23 @@
 Run from the root of a checkout.  Phases, each of which raises on any
 failure (the script then exits non-zero and prints no result line):
 
-1. the card's name and power limit; build the three CUDA kernels from
+1. the card's name and power limit; build the five CUDA kernels from
    ``src/repro_torch/csrc`` with nvcc (timed);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, and time kernel, plain version, a
+   shapes the serving paths give it, and time kernel, plain version, a
    PyTorch library call on dequantized inputs, and the bound;
 3. serve full-width chatglm3-6b (28 layers, random weights from a seed)
    through ``ContinuousBatchingEngine`` with 8-bit MX weights, INT8 key
    pages and packed E2M1 value pages; count each kernel's launches on that
-   run and check ``sync_every`` 1 and 8 give the same tokens;
-4. the same engine at full width but 2 layers in f32, once on the card and
-   once on the CPU (the kernels' plain versions): first-prefill logits and
-   greedy tokens must agree.
+   run and check ``sync_every`` 1 and 8 give the same tokens; then serve a
+   static batch through ``ServeEngine`` on the same weights, once with the
+   MX KV cache (contiguous MX decode attention) and once with a bf16 cache
+   (flash prefill), counting launches of each run, and check the
+   continuous engine gives the static engine's tokens;
+4. the continuous engine at full width but 2 layers in f32, once on the
+   card and once on the CPU (the kernels' plain versions): first-prefill
+   logits and greedy tokens must agree; likewise ``ServeEngine`` over an
+   fp cache (flash prefill) on 2 full-width f32 layers.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -51,7 +56,8 @@ PROJ = {"wq/wo": (4096, 4096), "wk/wv": (4096, 256),
         "w1/w3": (4096, 13696), "w2": (13696, 4096)}
 MATMUL_TOL = 1e-4      # max |kernel - plain| / max |plain|: f32 sums of up
 #                        to 13696 products in another order
-ATTN_TOL_F32 = 2e-5    # the reference's own paged-attention tolerance
+ATTN_TOL_F32 = 2e-5    # the reference's own attention-kernel tolerance
+FLASH_TOL_BF16 = 2e-2  # tests/test_kernel_flash_attn.py's bf16 tolerance
 LOGITS_TOL = 2e-3      # phase 4: card vs CPU, f32, two full-width layers.
 #                        The two sum in other orders, so now and then a
 #                        K/V element lands on the other side of an MX
@@ -319,15 +325,189 @@ def _gathered(torch, ref, kc, ks, vc, vs, bt, kspec, vspec):
     return one(kc, ks, kspec), one(vc, vs, vspec)
 
 
+def check_decode_attention(torch, flush):
+    """Contiguous MX decode attention at the static path's shapes (8 rows,
+    S 640, 32 query heads over 2 KV heads, D 128)."""
+    import torch.nn.functional as F
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_decode_attn import mx_decode_attention
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, s, hq, hkv, d = 8, 640, 32, 2, 128
+    worst, n_checked, row = 0.0, 0, None
+    for kv in ("int8@32:ocp/int8@32:ocp", "int8@32:ocp/e2m1@32:ocp",
+               "e4m3@32:paper/e4m3@32:paper"):
+        kspec, vspec = (QuantSpec.parse(x) for x in kv.split("/"))
+        cache = []
+        for spec in (kspec, vspec):           # one code per byte, any format
+            x = torch.randn(b * s * hkv, d, generator=gen, device="cuda")
+            c, sc = mx_quantize_2d(x, spec)
+            cache += [c.reshape(b, s, hkv, d), sc.reshape(b, s, hkv, d // 32)]
+        q32 = torch.randn(b, 1, hq, d, generator=gen, device="cuda")
+        kw = dict(key_spec=kspec, value_spec=vspec, rep=hq // hkv)
+        for pos in (0, 1, 300, 575, 639):
+            lengths = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+            for dt in (torch.float32, torch.bfloat16):
+                q = q32.to(dt)
+                got = mx_decode_attention(q, *cache, pos, **kw)
+                want = ref.mx_decode_attention_ref(q, *cache, lengths, **kw)
+                if dt == torch.float32:
+                    torch.testing.assert_close(got, want, rtol=ATTN_TOL_F32,
+                                               atol=ATTN_TOL_F32)
+                    worst = max(worst, float((got - want).abs().max()))
+                else:                  # one bf16 rounding of f32 results
+                    torch.testing.assert_close(got, want)
+                n_checked += 1
+        if vspec.fmt != "e2m1":
+            continue
+        # timing at the static path's types: bf16 q, INT8 K / E2M1 V
+        pos, q = 575, q32.to(torch.bfloat16)
+        lengths = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+        live = pos + 1
+        nbytes = b * live * hkv * 2 * (d + d // 32) + 2 * q.numel() * 2
+        tb, by = bound(nbytes, 4.0 * b * hq * live * d, BF16_FLOPS)
+        # the library yardstick: SDPA over the dequantized cache
+        kd, vd = (ref._dequant_cache_ref(c, sc, spec).transpose(1, 2)
+                  .to(torch.bfloat16).contiguous()
+                  for c, sc, spec in ((cache[0], cache[1], kspec),
+                                      (cache[2], cache[3], vspec)))
+        mask = (torch.arange(s, device="cuda") <= pos)[None, None, None, :]
+        qt = q.transpose(1, 2)
+        row = dict(kernel="mx_decode_attention",
+                   shape="8 rows, pos 575 of S 640, Hq 32, Hkv 2, D 128",
+                   spec=kv, max_abs_err=worst,
+                   ms=time_ms(torch, lambda: mx_decode_attention(
+                       q, *cache, pos, **kw), flush=flush),
+                   plain_ms=time_ms(torch, lambda: ref
+                                    .mx_decode_attention_ref(
+                                        q, *cache, lengths, **kw),
+                                    flush=flush),
+                   library_ms=time_ms(torch, lambda: F
+                                      .scaled_dot_product_attention(
+                                          qt, kd, vd, attn_mask=mask,
+                                          enable_gqa=True), flush=flush),
+                   bound_ms=tb, bound_by=by, live_tokens=live)
+        emit("time", **row)
+    emit("check", kernel="mx_decode_attention", compared=n_checked,
+         max_abs_err=worst,
+         criterion=f"f32 within {ATTN_TOL_F32}; bf16 within torch's bf16 "
+                   f"defaults")
+    return row, worst
+
+
+def check_flash(torch, flush):
+    """Flash attention at the static fp-KV prefill's shapes (8 prompts of
+    512, 32 heads over 2 KV heads, D 128), ragged lengths and a causal
+    Sq != Sk case (top-left alignment)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h, hkv, d = 32, 2, 128
+    worst, n_checked = 0.0, 0
+    for b, sq, sk, causal in ((8, 512, 512, True), (8, 512, 512, False),
+                              (8, 77, 77, True), (8, 300, 300, True),
+                              (2, 256, 1024, True)):
+        qkv = [torch.randn(b, n, nh, d, generator=gen, device="cuda")
+               for n, nh in ((sq, h), (sk, hkv), (sk, hkv))]
+        for dt, tol in ((torch.float32, ATTN_TOL_F32),
+                        (torch.bfloat16, FLASH_TOL_BF16)):
+            args = [t.to(dt) for t in qkv]
+            got = flash_attention(*args, causal=causal)
+            want = ref.flash_attention_ref(*args, causal)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            if dt == torch.float32:
+                worst = max(worst, float((got - want).abs().max()))
+            n_checked += 1
+    b, s = 8, 512
+    q, k, v = (torch.randn(b, s, nh, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for nh in (h, hkv, hkv))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    pairs = b * h * s * (s + 1) / 2            # causal (query, key) pairs
+    tb, by = bound(nbytes, 4.0 * pairs * d, BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row = dict(kernel="flash_attention",
+               shape="8 x 512 tokens, causal, H 32, Hkv 2, D 128",
+               spec="bf16", max_abs_err=worst,
+               ms=time_ms(torch, lambda: flash_attention(q, k, v),
+                          flush=flush),
+               plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
+                   q, k, v, True), flush=flush),
+               library_ms=time_ms(torch, lambda: F
+                                  .scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True,
+                                      enable_gqa=True), flush=flush),
+               bound_ms=tb, bound_by=by)
+    emit("time", **row)
+    emit("check", kernel="flash_attention", compared=n_checked,
+         max_abs_err=worst,
+         criterion=f"f32 within {ATTN_TOL_F32}; bf16 within "
+                   f"{FLASH_TOL_BF16}")
+    return row, worst
+
+
 # =============================================================================
 # phase 3: full-width serving
 # =============================================================================
 def _counters():
-    from repro_torch.kernels.mx_decode_attn import mx_paged_decode_attention
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
+                                                    mx_paged_decode_attention)
     from repro_torch.kernels.mx_matmul import mx_matmul_2d
     from repro_torch.kernels.mx_quant import mx_quantize_2d
     return {"mx_quantize_2d": mx_quantize_2d, "mx_matmul_2d": mx_matmul_2d,
-            "mx_paged_decode_attention": mx_paged_decode_attention}
+            "mx_paged_decode_attention": mx_paged_decode_attention,
+            "mx_decode_attention": mx_decode_attention,
+            "flash_attention": flash_attention}
+
+
+def _drive(torch, fn):
+    """Run ``fn`` as a main path: every launch count set to 0 just before,
+    read just after.  Returns (fn's result, launches, wall seconds)."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {name: c.launches for name, c in counters.items()}, wall
+
+
+def _check_launches(path, launches, want):
+    """Each kernel launched exactly as often as the path implies; every
+    kernel the path runs at least once."""
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{path}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+
+
+def _flips(torch, model, params, prompts, got, want):
+    """Token streams ``got`` against ``want`` per prompt: a stream may
+    differ only from a step where the logits that chose the token have a
+    top-2 gap below LOGITS_TOL (traced through ``model`` on ``want``'s
+    context); returns those steps, raises on any other difference."""
+    import numpy as np
+    vocab = model.cfg.vocab
+    flips = []
+    for prompt, a, b in zip(prompts, got, want):
+        a, b = list(a), list(b)
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        ctx = np.concatenate([prompt, np.asarray(b[:i], np.int32)])
+        lg, _, _ = model.prefill(params, torch.from_numpy(ctx[None]).to(
+            model.device), max_len=len(ctx))
+        top2 = torch.topk(lg[0, -1, :vocab], 2).values
+        gap = float(top2[0] - top2[1])
+        if gap >= LOGITS_TOL:
+            raise AssertionError(f"tokens differ at step {i} with a top-2 "
+                                 f"logit gap of {gap}")
+        flips.append({"step": i, "top2_gap": gap})
+    return flips
 
 
 def _serve(eng, prompts, new_tokens):
@@ -357,14 +537,7 @@ def serve_full_width(torch):
     eng = ContinuousBatchingEngine(
         model, params, max_slots=8, page_size=16,
         max_len=int(lens.max()) + new + 1, sync_every=8, prefill_bucket=64)
-    counters = _counters()
-    for fn in counters.values():              # the main path starts here
-        fn.launches = 0
-    t0 = time.perf_counter()
-    outs = _serve(eng, prompts, new)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    outs, launches, wall = _drive(torch, lambda: _serve(eng, prompts, new))
     ph = eng.phase
     steps, batches = eng.n_steps, eng.n_prefill_batches
     decode_tokens = eng.n_generated - len(prompts)
@@ -379,13 +552,10 @@ def serve_full_width(torch):
          weight_pool_nbytes=eng.weight_pool_nbytes, launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     n_l = cfg.n_layers
-    want = {"mx_matmul_2d": 7 * n_l * (steps + batches),
-            "mx_quantize_2d": 2 * n_l * (steps + batches),
-            "mx_paged_decode_attention": n_l * steps}
-    for name, n in launches.items():
-        if n <= 0 or n != want[name]:
-            raise AssertionError(f"{name}: {n} launches on the serving run, "
-                                 f"expected {want[name]} (> 0)")
+    _check_launches("continuous serving", launches, {
+        "mx_matmul_2d": 7 * n_l * (steps + batches),
+        "mx_quantize_2d": 2 * n_l * (steps + batches),
+        "mx_paged_decode_attention": n_l * steps})
     for p, o in zip(prompts, outs):
         if len(o) != new or o.min() < 0 or o.max() >= cfg.vocab:
             raise AssertionError(f"bad output for a {len(p)}-token prompt")
@@ -407,9 +577,63 @@ def serve_full_width(torch):
     if toks[0] != toks[1]:
         raise AssertionError("sync_every=1 and sync_every=8 disagree")
     emit("sync_check", requests=8, new_tokens=16, identical=True)
+    static = serve_static(torch, model, params)
     del params, model, eng
     torch.cuda.empty_cache()
-    return launches, decode_tokens / ph["decode"]
+    return {**launches, **static}
+
+
+def serve_static(torch, model, params):
+    """``ServeEngine`` on the full-width weights: 8 equal prompts of 512
+    tokens, 64 new tokens, greedy; once over the MX KV cache of ``model``'s
+    policy (decode through the contiguous MX decode kernel) and once over a
+    bf16 cache (prefill through the flash kernel), each a main path of its
+    own.  Then the continuous engine serves the same prompts under the MX
+    policy and must give the static engine's tokens."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.models import Model
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   GenerationConfig, ServeEngine)
+    cfg = model.cfg
+    b, s, new, n_l = 8, 512, 64, cfg.n_layers
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, size=(b, s))
+    tokens = tokens.astype(np.int32)
+    fp_kv = Model(dataclasses.replace(cfg, mx=QuantPolicy(
+        weights=cfg.mx.weights)), device=model.device)
+    runs = (("mx_kv", model, {"mx_decode_attention": n_l * (new - 1),
+                              "mx_matmul_2d": 7 * n_l * new,
+                              "mx_quantize_2d": 2 * n_l * new}),
+            ("bf16_kv", fp_kv, {"flash_attention": n_l,
+                                "mx_matmul_2d": 7 * n_l * new}))
+    gen = GenerationConfig(max_new_tokens=new)
+    outs, counts = {}, {}
+    for name, m, want in runs:
+        eng = ServeEngine(m, params, max_len=s + new + 8)
+        out, launches, wall = _drive(
+            torch, lambda: eng.generate({"tokens": tokens}, gen))
+        _check_launches(f"static serving, {name}", launches, want)
+        if out.shape != (b, new) or out.min() < 0 or out.max() >= cfg.vocab:
+            raise AssertionError(f"static serving, {name}: bad output")
+        ph = eng.phase
+        emit("serve_static", kv=name, policy=str(m.cfg.mx), batch=b,
+             prompt_len=s, new_tokens=new, wall_s=wall,
+             prefill_s=ph["prefill"], decode_s=ph["decode"],
+             decode_tokens_per_s=b * (new - 1) / ph["decode"],
+             kv_cache_nbytes=eng.kv_cache_nbytes,
+             weight_pool_nbytes=eng.weight_pool_nbytes, launches=launches)
+        outs[name], counts[name] = out, launches
+    eng = ContinuousBatchingEngine(model, params, max_slots=8, page_size=16,
+                                   max_len=s + new + 1, sync_every=8,
+                                   prefill_bucket=64)
+    prompts = list(tokens)
+    cont = _serve(eng, prompts, new)
+    flips = _flips(torch, model, params, prompts, cont, outs["mx_kv"])
+    emit("static_vs_continuous", requests=b, new_tokens=new,
+         identical=not flips, flips=flips)
+    return {"mx_decode_attention": counts["mx_kv"]["mx_decode_attention"],
+            "flash_attention": counts["bf16_kv"]["flash_attention"]}
 
 
 # =============================================================================
@@ -455,23 +679,47 @@ def card_vs_cpu(torch):
                                        max_len=64 + 4, sync_every=8,
                                        prefill_bucket=64)
         outs.append([o.tolist() for o in _serve(eng, prompts, 3)])
-    flips = []
-    for prompt, card, cpu in zip(prompts, *outs):
-        if card == cpu:
-            continue
-        # a token flip is accepted only where the logits that chose it
-        # have a top-2 gap below the tolerance (traced on the card)
-        i = next(j for j, (a, b) in enumerate(zip(card, cpu)) if a != b)
-        ctx = np.concatenate([prompt, np.asarray(cpu[:i], np.int32)])
-        lg, _, _ = model.prefill(params, torch.from_numpy(ctx[None]).cuda(),
-                                 max_len=len(ctx))
-        top2 = torch.topk(lg[0, -1, :vocab], 2).values
-        gap = float(top2[0] - top2[1])
-        if gap >= LOGITS_TOL:
-            raise AssertionError(f"card vs CPU tokens differ at step {i} "
-                                 f"with a top-2 logit gap of {gap}")
-        flips.append({"step": i, "top2_gap": gap})
+    # a token flip is accepted only where the logits that chose it have a
+    # top-2 gap below the tolerance (traced on the card)
+    flips = _flips(torch, model, params, prompts, *outs)
     emit("card_vs_cpu", layers=2, dtype="float32",
+         logits_max_abs_err=err, tolerance=LOGITS_TOL, tokens=outs[0],
+         cpu_tokens=outs[1], flips=flips, seconds=time.perf_counter() - t0)
+    del params, model
+    torch.cuda.empty_cache()
+    static_card_vs_cpu(torch)
+
+
+def static_card_vs_cpu(torch):
+    """``ServeEngine`` over an fp KV cache (the f32 of the layers; prefill
+    through the flash kernel) on 2 full-width f32 layers with fp weights,
+    card against CPU."""
+    import numpy as np
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models import Model
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    model, params = build_model("chatglm3_6b", reduced=False, quant="none",
+                                weight_resident=False, device="cuda", seed=2,
+                                n_layers=2, dtype="float32")
+    cpu_model = Model(model.cfg, device="cpu")
+    cpu_params = _to_cpu(params)
+    vocab = model.cfg.vocab
+    tokens = np.random.default_rng(6).integers(0, vocab, size=(2, 61))
+    tokens = tokens.astype(np.int32)
+    t0 = time.perf_counter()
+    tok = torch.from_numpy(tokens[:1])
+    lg, _, _ = model.prefill(params, tok.cuda(), max_len=tok.shape[1])
+    lc, _, _ = cpu_model.prefill(cpu_params, tok, max_len=tok.shape[1])
+    err = float((lg.cpu()[..., :vocab] - lc[..., :vocab]).abs().max())
+    if not err <= LOGITS_TOL:
+        raise AssertionError(f"card vs CPU fp-KV prefill logits differ by "
+                             f"{err}")
+    gen = GenerationConfig(max_new_tokens=4)
+    outs = [ServeEngine(m, p, max_len=61 + 4 + 8).generate(
+        {"tokens": tokens}, gen).tolist()
+        for m, p in ((model, params), (cpu_model, cpu_params))]
+    flips = _flips(torch, model, params, list(tokens), *outs)
+    emit("static_card_vs_cpu", layers=2, dtype="float32", kv="fp (f32)",
          logits_max_abs_err=err, tolerance=LOGITS_TOL, tokens=outs[0],
          cpu_tokens=outs[1], flips=flips, seconds=time.perf_counter() - t0)
     del params, model
@@ -516,24 +764,33 @@ def main() -> int:
     q_row, q_err = check_converter(torch, flush)
     m_row, m_err = check_matmul(torch, flush)
     a_row, a_err = check_paged_attention(torch, flush)
+    d_row, d_err = check_decode_attention(torch, flush)
+    f_row, f_err = check_flash(torch, flush)
     del flush
     torch.cuda.empty_cache()
-    launches, _ = serve_full_width(torch)
+    launches = serve_full_width(torch)
     card_vs_cpu(torch)
 
     sources = {"mx_quantize_2d": "src/repro_torch/csrc/mx_quant.cu",
                "mx_matmul_2d": "src/repro_torch/csrc/mx_matmul.cu",
                "mx_paged_decode_attention":
-                   "src/repro_torch/csrc/mx_paged_decode_attn.cu"}
+                   "src/repro_torch/csrc/mx_paged_decode_attn.cu",
+               "mx_decode_attention":
+                   "src/repro_torch/csrc/mx_decode_attn.cu",
+               "flash_attention": "src/repro_torch/csrc/flash_attn.cu"}
     replaces = {
         "mx_quantize_2d": "src/repro/kernels/mx_quant.py:117",
         "mx_matmul_2d": "src/repro/kernels/mx_matmul.py:140",
         "mx_paged_decode_attention":
-            "src/repro/kernels/mx_decode_attn.py:310"}
+            "src/repro/kernels/mx_decode_attn.py:310",
+        "mx_decode_attention": "src/repro/kernels/mx_decode_attn.py:162",
+        "flash_attention": "src/repro/kernels/flash_attn.py:99"}
     kernels = []
     for name, row, err in (("mx_quantize_2d", q_row, q_err),
                            ("mx_matmul_2d", m_row, m_err),
-                           ("mx_paged_decode_attention", a_row, a_err)):
+                           ("mx_paged_decode_attention", a_row, a_err),
+                           ("mx_decode_attention", d_row, d_err),
+                           ("flash_attention", f_row, f_err)):
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],

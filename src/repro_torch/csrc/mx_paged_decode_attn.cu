@@ -31,23 +31,13 @@
 // lookup, a multiply and two FMAs per query head) sits under the memory
 // line.  Splitting the pages over blocks is what puts enough of them in
 // flight at small batch.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mx_decode_attn_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ float load_q(const float* p) { return *p; }
-__device__ __forceinline__ float load_q(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_o(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_o(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using mxattn::kNegInf;
+using mxattn::kThreads;
+using mxattn::load_q;
 
 // Codes 4q .. 4q+3 of one token-head row, packed into one word (byte i =
 // code 4q+i).  kind: 0 one code per byte, 1 4-bit, 2 6-bit.
@@ -93,7 +83,6 @@ __global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
   const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int nsplit = gridDim.z, tid = threadIdx.x;
   const int nbl = d / 32, nq = d / 4;
-  const float sqrt_d = sqrtf((float)d);
   const int len = lengths[b];
   const int npg = min(len / page + 1, max_pages);
   const int pg0 = split * pages_per_split;
@@ -142,70 +131,14 @@ __global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
       }
     }
     __syncthreads();
-    for (int i = tid; i < rep * page; i += kThreads) {
-      const int h = i / page, t = i % page;
-      const float* qh = q_s + h * d;
-      const float* kt = k_s + t * ds;
-      float dot = 0.f;
-      for (int dd = 0; dd < d; ++dd) dot = fmaf(qh[dd], kt[dd], dot);
-      const float s = dot / sqrt_d;
-      p_s[i] = (pg * page + t <= len) ? s : kNegInf;
-    }
-    __syncthreads();
-    for (int h = tid; h < rep; h += kThreads) {
-      float* ph = p_s + h * page;
-      const float m_prev = m_s[h];
-      float m_new = m_prev;
-      for (int t = 0; t < page; ++t) m_new = fmaxf(m_new, ph[t]);
-      float sum = 0.f;
-      for (int t = 0; t < page; ++t) {
-        const float e = expf(ph[t] - m_new);
-        ph[t] = e;
-        sum += e;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[h] = l_s[h] * alpha + sum;
-      m_s[h] = m_new;
-      a_s[h] = alpha;
-    }
-    __syncthreads();
-    for (int i = tid; i < rep * d; i += kThreads) {
-      const int h = i / d, dd = i % d;
-      const float* ph = p_s + h * page;
-      float o = acc[i] * a_s[h];
-      for (int t = 0; t < page; ++t) o = fmaf(ph[t], v_s[t * d + dd], o);
-      acc[i] = o;
-    }
+    mxattn::tile_update(q_s, k_s, v_s, p_s, acc, m_s, l_s, a_s, rep, d,
+                        page, len - pg * page + 1);
   }
   __syncthreads();
   for (int i = tid; i < rep * d; i += kThreads) out[i] = acc[i];
   for (int h = tid; h < rep; h += kThreads) {
     out[rep * d + h] = m_s[h];
     out[rep * d + rep + h] = l_s[h];
-  }
-}
-
-// Merge the splits of one (slot, KV head) in split order.
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads) paged_attn_merge_kernel(
-    const float* __restrict__ part, TQ* __restrict__ out, int hq, int hkv,
-    int d, int nsplit) {
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int rep = hq / hkv, rec = rep * d + 2 * rep;
-  const float* base = part + ((long long)b * hkv + g) * nsplit * rec;
-  TQ* ob = out + ((long long)b * hq + g * rep) * d;
-  for (int i = threadIdx.x; i < rep * d; i += kThreads) {
-    const int h = i / d;
-    float m = kNegInf;
-    for (int s = 0; s < nsplit; ++s) m = fmaxf(m, base[s * rec + rep * d + h]);
-    float l = 0.f, o = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float* r = base + s * rec;
-      const float w = expf(r[rep * d + h] - m);
-      l = fmaf(r[rep * d + rep + h], w, l);
-      o = fmaf(r[i], w, o);
-    }
-    store_o(ob + i, o / (l == 0.f ? 1.f : l));
   }
 }
 
@@ -236,7 +169,7 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
       cb_v, kpack, vpack, pages_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_attn_merge_kernel<TQ><<<dim3(hkv, bsz), kThreads, 0, st>>>(
+  mxattn::merge_splits_kernel<TQ><<<dim3(hkv, bsz), kThreads, 0, st>>>(
       (const float*)part, (TQ*)out, hq, hkv, d, nsplit);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,15 @@
-"""Paged MX decode attention as a CUDA kernel
+"""MX decode attention as CUDA kernels: over a contiguous cache
+(csrc/mx_decode_attn.cu) and over a page pool
 (csrc/mx_paged_decode_attn.cu).
 
-Port of src/repro/kernels/mx_decode_attn.py::mx_paged_decode_attention.
-On CUDA tensors the wrapper launches the kernel (or raises); on CPU
-tensors it computes the plain version,
-``ref.mx_paged_decode_attention_ref``.
+Ports of src/repro/kernels/mx_decode_attn.py::mx_decode_attention and
+::mx_paged_decode_attention.  On CUDA tensors each wrapper launches its
+kernel (or raises); on CPU tensors it computes the plain version,
+``ref.mx_decode_attention_ref`` / ``ref.mx_paged_decode_attention_ref``.
 """
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -15,6 +18,7 @@ from repro_torch.kernels import build, ref, tables
 
 PAGES_PER_SPLIT = 2     # pages one block walks; a slot's pages spread over
 #                         ceil(max_pages / 2) blocks per KV head
+TOKENS_PER_SPLIT = 32   # contiguous cache: positions one block walks
 
 
 def _require_block32(key_spec, value_spec) -> None:
@@ -23,6 +27,81 @@ def _require_block32(key_spec, value_spec) -> None:
             raise ValueError(
                 f"mx_paged_decode_attention: {role}={spec} has block="
                 f"{spec.block}; only block=32 scale layouts are supported")
+
+
+def _check_cuda_operands(name, q, operands, int_operands=()) -> None:
+    """The kernels' common contract: one CUDA device, f32/bf16 q, u8
+    codes and scales, int32 tables, all contiguous."""
+    if q.device.type != "cuda" or any(
+            t.device != q.device for t in (*operands, *int_operands)):
+        raise ValueError(f"{name}: all operands must lie on one CUDA "
+                         f"device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if any(t.dtype != torch.uint8 for t in operands) \
+            or any(t.dtype != torch.int32 for t in int_operands):
+        raise ValueError(f"{name}: codes and scales must be uint8, "
+                         f"tables int32")
+    if not all(t.is_contiguous() for t in (q, *operands, *int_operands)):
+        raise ValueError(f"{name}: operands must be contiguous")
+
+
+def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
+                        key_spec, value_spec, rep: int = 1) -> torch.Tensor:
+    """Decode attention over a contiguous MX KV cache.
+
+    q             (B, 1, Hq, D) f32 or bf16
+    k/v_codes     (B, S, Hkv, D) u8, one code per byte (every format)
+    k/v_scales    (B, S, Hkv, D/32) u8 E8M0 scales
+    pos           host int >= 0: every row attends positions <= pos
+
+    Returns (B, 1, Hq, D) in q's dtype."""
+    key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
+    _require_block32(key_spec, value_spec)
+    pos = operator.index(pos)
+    b, s1, hq, d = q.shape
+    _, s_len, hkv, _ = k_codes.shape
+    if s1 != 1 or hq != hkv * rep or d % 32:
+        raise ValueError(f"mx_decode_attention: q {tuple(q.shape)} does not "
+                         f"match Hkv={hkv} x rep={rep} with D a multiple "
+                         f"of 32")
+    cshape, sshape = (b, s_len, hkv, d), (b, s_len, hkv, d // 32)
+    if any(tuple(t.shape) != cshape for t in (k_codes, v_codes)) \
+            or any(tuple(t.shape) != sshape for t in (k_scales, v_scales)):
+        raise ValueError(f"mx_decode_attention: the kernel takes unpadded "
+                         f"codes {cshape} and scales {sshape}, got "
+                         f"{tuple(k_codes.shape)}/{tuple(v_codes.shape)} "
+                         f"and {tuple(k_scales.shape)}/"
+                         f"{tuple(v_scales.shape)}")
+    if pos < 0:
+        raise ValueError(f"mx_decode_attention: pos must be >= 0, got {pos}")
+    if q.device.type == "cpu":
+        return ref.mx_decode_attention_ref(
+            q, k_codes, k_scales, v_codes, v_scales,
+            torch.full((b,), pos, dtype=torch.int32), key_spec=key_spec,
+            value_spec=value_spec, rep=rep)
+    operands = (k_codes, k_scales, v_codes, v_scales)
+    _check_cuda_operands("mx_decode_attention", q, operands)
+    if k_codes.data_ptr() % 4 or v_codes.data_ptr() % 4:
+        raise ValueError("mx_decode_attention: code caches must be "
+                         "word-aligned")
+    dev = q.device
+    nsplit = -(-min(pos + 1, s_len) // TOKENS_PER_SPLIT)
+    part = torch.empty((b, hkv, nsplit, rep * (d + 2)), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty_like(q)
+    err = build.lib().mx_decode_attn_launch(
+        q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
+        v_codes.data_ptr(), v_scales.data_ptr(),
+        tables.elem_table(key_spec, dev).data_ptr(),
+        tables.elem_table(value_spec, dev).data_ptr(),
+        tables.scale_table(dev).data_ptr(), part.data_ptr(), out.data_ptr(),
+        b, hq, hkv, d, s_len, pos, int(q.dtype == torch.bfloat16),
+        TOKENS_PER_SPLIT, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "mx_decode_attention")
+    mx_decode_attention.launches += 1
+    return out
 
 
 def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
@@ -66,21 +145,8 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
         return ref.mx_paged_decode_attention_ref(
             q, kc_pool, ks_pool, vc_pool, vs_pool, block_tables, lengths,
             key_spec=key_spec, value_spec=value_spec, rep=rep)
-    if q.device.type != "cuda" or any(t.device != q.device
-                                      for t in operands):
-        raise ValueError("mx_paged_decode_attention: all operands must lie "
-                         "on one CUDA device")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"mx_paged_decode_attention: q must be float32 or "
-                         f"bfloat16, got {q.dtype}")
-    if any(t.dtype != torch.uint8 for t in operands[1:5]) \
-            or block_tables.dtype != torch.int32 \
-            or lengths.dtype != torch.int32:
-        raise ValueError("mx_paged_decode_attention: pools must be uint8, "
-                         "block_tables and lengths int32")
-    if not all(t.is_contiguous() for t in operands):
-        raise ValueError("mx_paged_decode_attention: operands must be "
-                         "contiguous")
+    _check_cuda_operands("mx_paged_decode_attention", q, operands[1:5],
+                         operands[5:])
     kkind, vkind = tables.pack_kind(key_spec), tables.pack_kind(value_spec)
     for kind, pool in ((kkind, kc_pool), (vkind, vc_pool)):
         if pool.data_ptr() % (4 if kind == 0 else 2):
@@ -106,4 +172,5 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
     return out
 
 
+mx_decode_attention.launches = 0
 mx_paged_decode_attention.launches = 0

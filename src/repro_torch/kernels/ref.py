@@ -80,6 +80,26 @@ def mx_decode_attention_ref(q, k_codes, k_scales, v_codes, v_scales,
     return out.to(q.dtype)
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Dense attention in f32 (the reference's ``flash_attn._dense_ref``):
+    q (B, Sq, H, D), k/v (B, Sk, Hkv, D), query head h reads KV head
+    h // (H / Hkv); causal is top-left aligned (col <= row, also when
+    Sq != Sk).  Returns (B, Sq, H, D) in q's dtype."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, d).to(torch.float32)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(torch.float32)) \
+        / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    if causal:
+        mask = torch.arange(sk, device=q.device)[None, :] \
+            <= torch.arange(sq, device=q.device)[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(torch.float32))
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
 def mx_paged_decode_attention_ref(q, kc_pool, ks_pool, vc_pool, vs_pool,
                                   block_tables, lengths, *, key_spec,
                                   value_spec, rep: int = 1) -> torch.Tensor:

@@ -1,7 +1,10 @@
-"""Serving launcher of the port: weight-resident MX decode with continuous
-batching over the paged MX KV cache (the paged subset of
-src/repro/launch/serve.py).
+"""Serving launcher of the port (a subset of src/repro/launch/serve.py):
+static-batch serving over a contiguous (MX) KV cache, or with --paged
+continuous batching over the paged MX KV cache.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \\
+        --batch 2 --prompt-len 24 --new-tokens 6 \\
+        --quant weights=e4m3@32:ocp,kv_key=int8@32:ocp,kv_value=e2m1@32:ocp
     PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \\
         --paged --weight-resident --batch 8 --requests 16 --mixed \\
         --prompt-len 256 --new-tokens 64 --prefill-bucket 64 \\
@@ -23,7 +26,8 @@ import numpy as np
 from repro_torch.core.spec import QuantPolicy
 from repro_torch.models import Model, load_config, load_reduced
 from repro_torch.obs.metrics import rate
-from repro_torch.serve import ContinuousBatchingEngine
+from repro_torch.serve import (ContinuousBatchingEngine, GenerationConfig,
+                               ServeEngine)
 
 
 def build_model(arch: str, *, reduced: bool, quant: str,
@@ -60,14 +64,14 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--paged", action="store_true",
                     help="continuous batching over the paged KV cache "
-                         "(the only serving mode of the port)")
+                         "(default: the static engine)")
     ap.add_argument("--weight-resident", action="store_true",
                     help="keep matmul weights as MX codes + scales")
     ap.add_argument("--quant", default=None,
                     help="policy, e.g. weights=e4m3@32:ocp,"
                          "kv_key=int8@32:ocp,kv_value=e2m1@32:ocp")
     ap.add_argument("--batch", type=int, default=8,
-                    help="decode slots (requests in flight)")
+                    help="static batch, or decode slots with --paged")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--sync-every", type=int, default=8)
     ap.add_argument("--prefill-bucket", type=int, default=0,
@@ -82,9 +86,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cpu computes every kernel's plain version")
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("the port serves with --paged (continuous batching); the "
-                 "static engine is not ported")
     t0 = time.perf_counter()
     model, params = build_model(args.arch, reduced=args.reduced,
                                 quant=args.quant,
@@ -94,6 +95,9 @@ def main(argv=None) -> None:
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
           f"policy {cfg.mx}, built on {model.device} in "
           f"{time.perf_counter() - t0:.2f}s")
+    if not args.paged:
+        _serve_static(args, model, params)
+        return
     prompts = make_prompts(args.requests or 2 * args.batch, args.prompt_len,
                            args.mixed, cfg.vocab)
     max_len = max(len(p) for p in prompts) + args.new_tokens + 1
@@ -119,6 +123,31 @@ def main(argv=None) -> None:
     first = min(out)
     print(f"[serve] sample tokens (request {first}): "
           f"{out[first][:16].tolist()}")
+
+
+def _serve_static(args, model: Model, params) -> None:
+    """Equal-length seeded prompts through ``ServeEngine``, twice: the
+    first call, then a steady one."""
+    cfg = model.cfg
+    tokens = np.stack(make_prompts(args.batch, args.prompt_len, False,
+                                   cfg.vocab))
+    eng = ServeEngine(model, params,
+                      max_len=args.prompt_len + args.new_tokens + 8)
+    gen = GenerationConfig(max_new_tokens=args.new_tokens)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = eng.generate({"tokens": tokens}, gen)
+        times.append(time.perf_counter() - t0)
+    ph = eng.phase
+    print(f"[serve] {cfg.name} quant={cfg.mx}: generated {out.size} tokens;"
+          f" first {times[0]:.2f}s, steady {times[1]:.2f}s "
+          f"({rate(out.size, times[1]):.1f} tok/s; prefill "
+          f"{ph['prefill']:.3f}s, decode {ph['decode']:.3f}s)")
+    print(f"[serve] weights {eng.weight_pool_nbytes / 2**20:.1f} MiB"
+          f"{' (MX-resident)' if args.weight_resident else ' (fp)'}, "
+          f"kv cache {eng.kv_cache_nbytes / 2**20:.2f} MiB")
+    print("[serve] sample output tokens:", out[0][:12].tolist())
 
 
 if __name__ == "__main__":

@@ -131,7 +131,7 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(lp, x, cfg: ModelConfig, *, positions=None, cache=None,
-           paged=None):
+           cache_pos: int = 0, paged=None):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if paged is not None:
         block_tables, lengths = paged
@@ -140,7 +140,7 @@ def _block(lp, x, cfg: ModelConfig, *, positions=None, cache=None,
             lengths=lengths)
     else:
         a, cache = L.attention(lp["attn"], h, cfg, positions=positions,
-                               cache=cache, cache_pos=0)
+                               cache=cache, cache_pos=cache_pos)
     x = x + a
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + L.mlp(lp["mlp"], h2, cfg), cache
@@ -163,6 +163,17 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                                  cfg.hd, device, layers_dim=(cfg.n_layers,))
 
 
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full causal forward over tokens (B, S) with no cache; returns
+    logits (B, S, Vp) f32."""
+    x = _embed(params, cfg, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    for lp in params["layers"]:
+        x, _ = _block(lp, x, cfg, positions=positions)
+    return _head(params, cfg, x)
+
+
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             max_len: int):
     """Process the prompts, fill a contiguous cache at [0, S); returns
@@ -175,6 +186,21 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         x, _ = _block(lp, x, cfg, positions=positions,
                       cache=_layer_view(cache, i))
     return _head(params, cfg, x), cache, s
+
+
+def decode_step(params, token: torch.Tensor, cache, pos: int,
+                cfg: ModelConfig):
+    """One decode step over the contiguous cache: token (B,) int32 sits at
+    position ``pos`` (a host int, the cache length so far) and attends
+    positions <= pos.  Returns (logits (B, 1, Vp) f32, cache) — the cache
+    is updated in place."""
+    x = _embed(params, cfg, token[:, None])
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        x, _ = _block(lp, x, cfg, positions=positions,
+                      cache=_layer_view(cache, i), cache_pos=pos)
+    return _head(params, cfg, x), cache
 
 
 def scatter_prefill(cfg: ModelConfig, pool, cache, page_ids):

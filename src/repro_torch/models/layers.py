@@ -3,8 +3,9 @@
 Every projection routes through ``dense()``: an ``MXWeight`` operand goes
 to the dequant x matmul kernel, an fp weight to ``torch.matmul``.  KV
 caches are quantized along the head dim per the ``kv_key``/``kv_value``
-policy roles through the converter kernel, and paged decode attention
-reads the quantized pages through its kernel.
+policy roles through the converter kernel; decode attention reads the
+quantized contiguous cache or pages through its kernels, and a prompt
+over fp k/v attends through the flash kernel.
 
 Unlike the functional reference, cache and page-pool writes update the
 given tensors in place (the pools are the largest serving allocation;
@@ -22,7 +23,9 @@ from repro_torch.core.convert import MXArray, mx_dequantize
 from repro_torch.core.mx_weight import MXWeight
 from repro_torch.core.pack import pack_codes, unpack_codes
 from repro_torch.core.spec import QuantSpec
-from repro_torch.kernels.mx_decode_attn import mx_paged_decode_attention
+from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
+                                                mx_paged_decode_attention)
 from repro_torch.kernels.ops import mx_matmul_resident, mx_quantize
 from repro_torch.models.config import ModelConfig
 
@@ -168,29 +171,43 @@ def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, cache=None,
               cache_pos: int = 0) -> Tuple[torch.Tensor, Any]:
-    """GQA self-attention over x (B, S, d), causal.  With a cache (the
-    prefill of the serving engine) k/v are written at ``cache_pos``;
-    under an MX policy the queries attend the *dequantized* cache view,
-    as the reference's quantized prefill does, so a later suffix prefill
-    over shared pages can be bit-identical to it."""
+    """GQA self-attention over x (B, S, d), causal.  Without a cache, or
+    with an fp cache, the prompt attends its fresh k/v through the flash
+    kernel.  With a cache, k/v are first written at ``cache_pos`` (a host
+    int).  Decode (S == 1) attends the cache's positions <= cache_pos:
+    under an MX policy through the contiguous MX decode kernel, an fp
+    cache densely.  An MX prefill attends the *dequantized* cache view
+    densely, as the reference's quantized prefill does, so a later suffix
+    prefill over shared pages can be bit-identical to it."""
     b, s, d = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    if cache is not None and s == 1:
-        raise NotImplementedError(
-            "contiguous-cache decode (the static ServeEngine path) is not "
-            "ported; serve through the paged engine")
+    mx_kv = cfg.mx.kv_key is not None
     q = dense(x, p["wq"]).reshape(b, s, nh, hd)
     k = dense(x, p["wk"]).reshape(b, s, nkv, hd)
     v = dense(x, p["wv"]).reshape(b, s, nkv, hd)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
+    out = None
     if cache is not None:
         cache = cache_write(cache, k, v, cache_pos, cfg)
-        if cfg.mx.kv_key is not None:
+        if s == 1 and mx_kv:
+            out = mx_decode_attention(
+                q.contiguous(), cache["k_codes"], cache["k_scales"],
+                cache["v_codes"], cache["v_scales"], cache_pos,
+                key_spec=cfg.mx.kv_key, value_spec=cfg.mx.kv_value,
+                rep=nh // nkv)
+        elif s == 1:
+            k, v = cache_read(cache, cfg, x.dtype, hd)
+            mask = torch.arange(k.shape[1], device=x.device) <= cache_pos
+            out = _sdpa_gqa(q, k, v, mask)
+        elif mx_kv:
             kq, vq = cache_read(cache, cfg, x.dtype, hd)
             k, v = kq[:, :s], vq[:, :s]
-    out = _sdpa_gqa(q, k, v, _causal_mask(s, k.shape[1], x.device))
+            out = _sdpa_gqa(q, k, v, _causal_mask(s, s, x.device))
+    if out is None:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True)
     out = dense(out.reshape(b, s, nh * hd), p["wo"])
     return out, cache
 

@@ -56,8 +56,17 @@ class Model:
         return decoder.init_paged_cache(self.cfg, num_pages, page_size,
                                         self.device)
 
+    def forward(self, params, tokens):
+        return decoder.forward(params, tokens, self.cfg)
+
+    def init_cache(self, batch: int, max_len: int):
+        return decoder.init_cache(self.cfg, batch, max_len, self.device)
+
     def prefill(self, params, tokens, *, max_len: int):
         return decoder.prefill(params, tokens, self.cfg, max_len=max_len)
+
+    def decode_step(self, params, token, cache, pos: int):
+        return decoder.decode_step(params, token, cache, pos, self.cfg)
 
     def scatter_prefill(self, pool, cache, page_ids):
         return decoder.scatter_prefill(self.cfg, pool, cache, page_ids)

@@ -1,7 +1,10 @@
-"""Continuous batching over a paged MX KV cache (mirrors
-``ContinuousBatchingEngine`` of src/repro/serve/engine.py).
+"""Serving engines (mirror src/repro/serve/engine.py).
 
-Variable-length prompts are admitted into decode slots mid-flight; each
+``ServeEngine`` — static batch: equal-length prompts are prefilled once
+into a contiguous (MX) KV cache, then stepped greedily.
+
+``ContinuousBatchingEngine`` — continuous batching over a paged MX KV
+cache.  Variable-length prompts are admitted into decode slots mid-flight; each
 slot's K/V lives in fixed-size pages of (bit-packed) codes + E8M0 scales
 referenced through a per-slot block table, and finished requests are
 evicted so their pages recycle at once.  Admissions are bucket-batched:
@@ -18,6 +21,7 @@ fault injection and health guards, tracing, temperature sampling.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -30,6 +34,65 @@ from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve.paging import TRASH_PAGE, BlockManager, pages_needed
 from repro_torch.serve.scheduler import Request, Scheduler
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0        # 0 => greedy (the only mode ported)
+
+
+class ServeEngine:
+    """Static-batch serving over a contiguous KV cache of ``max_len``
+    positions: one prefill, then greedy decode steps at host-side
+    positions (no host sync inside the decode loop)."""
+
+    def __init__(self, model: Model, params, max_len: int):
+        self.model = model
+        self.params = params
+        self.max_len = int(max_len)
+        self.kv_cache_nbytes = 0     # the last generate call's cache
+        self.phase = {"prefill": 0.0, "decode": 0.0}   # last call, seconds
+
+    @property
+    def weight_pool_nbytes(self) -> int:
+        """Serve-time weight bytes as stored (MXWeight leaves count their
+        codes + E8M0 scales, fp params their dtype width)."""
+        return params_nbytes(self.params)
+
+    def generate(self, batch: Dict[str, np.ndarray],
+                 gen: GenerationConfig = GenerationConfig()) -> np.ndarray:
+        """batch: {"tokens": (B, S) int32} of equal-length prompts.
+        Returns (B, max_new_tokens) int32 greedy tokens."""
+        if gen.temperature > 0.0:
+            raise NotImplementedError(
+                "ServeEngine samples greedily; temperature sampling is not "
+                "ported")
+        tokens = torch.as_tensor(np.asarray(batch["tokens"], np.int32))
+        s = tokens.shape[1]
+        if s + gen.max_new_tokens - 1 > self.max_len:
+            raise ValueError(f"prompt {s} + {gen.max_new_tokens} new tokens "
+                             f"do not fit max_len={self.max_len}")
+        vocab = self.model.cfg.vocab
+        t0 = time.perf_counter()
+        logits, cache, pos = self.model.prefill(
+            self.params, tokens.to(self.model.device), max_len=self.max_len)
+        tok = sample_tokens(logits[:, -1, :vocab])
+        out = [tok.cpu()[:, None]]        # ends the prefill phase
+        t1 = time.perf_counter()
+        steps = []
+        for i in range(gen.max_new_tokens - 1):
+            logits, cache = self.model.decode_step(self.params, tok, cache,
+                                                   pos + i)
+            tok = sample_tokens(logits[:, -1, :vocab])
+            steps.append(tok)
+        if steps:
+            out.append(torch.stack(steps, dim=1).cpu())
+        self.phase = {"prefill": t1 - t0,
+                      "decode": time.perf_counter() - t1}
+        self.kv_cache_nbytes = int(sum(t.numel() * t.element_size()
+                                       for t in cache.values()))
+        return torch.cat(out, dim=1).numpy()
 
 
 class ContinuousBatchingEngine:

@@ -15,7 +15,9 @@ from repro_torch.core.formats import ALL_FORMATS
 from repro_torch.core.pack import pack_codes, packed_nbytes
 from repro_torch.core.spec import QuantSpec
 from repro_torch.kernels import ref
-from repro_torch.kernels.mx_decode_attn import mx_paged_decode_attention
+from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
+                                                mx_paged_decode_attention)
 from repro_torch.kernels.mx_matmul import mx_matmul_2d
 from repro_torch.kernels.mx_quant import mx_quantize_2d
 
@@ -139,6 +141,63 @@ def test_paged_attention_kernel_matches_plain(dev, kv):
     assert packed_nbytes(vs_.fmt, 64) == args[3].shape[-1]
 
 
+def _contiguous_case(rng, kspec, vspec, b=3, s=80, hq=8, hkv=2, d=64):
+    q = torch.from_numpy(rng.normal(size=(b, 1, hq, d)).astype(np.float32))
+    out = [q]
+    for spec in (kspec, vspec):
+        x = torch.from_numpy(
+            rng.normal(size=(b * s * hkv, d)).astype(np.float32))
+        c, sc = mx_quantize_2d(x, spec)
+        out += [c.reshape(b, s, hkv, d), sc.reshape(b, s, hkv, d // 32)]
+    return out
+
+
+@pytest.mark.parametrize("kv", ["int8@32:ocp/int8@32:ocp",
+                                "int8@32:ocp/e2m1@32:ocp",
+                                "e4m3@32:paper/e4m3@32:paper"])
+def test_decode_attention_kernel_matches_plain(dev, kv):
+    """Every position count from one tile to past a split boundary;
+    f32 q within 2e-5, bf16 q within torch's bf16 defaults."""
+    ks_, vs_ = (QuantSpec.parse(s) for s in kv.split("/"))
+    args = _contiguous_case(np.random.default_rng(5), ks_, vs_)
+    kw = dict(key_spec=ks_, value_spec=vs_, rep=4)
+    for pos in (0, 1, 15, 31, 32, 57, 79, 200):
+        for dt in (torch.float32, torch.bfloat16):
+            q = args[0].to(dt)
+            want = mx_decode_attention(q, *args[1:], pos, **kw)
+            got = mx_decode_attention(q.to(dev),
+                                      *(t.to(dev) for t in args[1:]), pos,
+                                      **kw)
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                torch.testing.assert_close(got.cpu(), want, rtol=2e-5,
+                                           atol=2e-5)
+            else:
+                torch.testing.assert_close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", [
+    (2, 128, 128, 4, 2, 32, True),
+    (1, 77, 77, 4, 1, 64, True),          # ragged S
+    (2, 300, 300, 4, 2, 128, True),
+    (1, 64, 256, 2, 2, 128, True),        # Sq != Sk: top-left causal
+    (1, 200, 100, 2, 1, 64, True),        # Sq > Sk
+    (2, 64, 130, 4, 2, 64, False),        # non-causal, ragged Sk
+])
+def test_flash_kernel_matches_plain(dev, case):
+    b, sq, sk, h, hkv, d, causal = case
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        args = [t.to(dt) for t in (q, k, v)]
+        want = flash_attention(*args, causal=causal)
+        got = flash_attention(*(t.to(dev) for t in args), causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+
+
 def test_cuda_tensor_never_takes_the_plain_path(dev):
     """A CUDA tensor launches the kernel: the counter moves."""
     before = mx_quantize_2d.launches
@@ -147,6 +206,26 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
     with pytest.raises(ValueError):
         mx_quantize_2d(torch.ones(2, 32, device=dev, dtype=torch.float16),
                        "int8@32:ocp")
+    spec = QuantSpec.parse("int8@32:ocp")
+    codes = torch.zeros(1, 40, 2, 64, dtype=torch.uint8, device=dev)
+    scales = torch.full((1, 40, 2, 2), 127, dtype=torch.uint8, device=dev)
+    before = mx_decode_attention.launches
+    mx_decode_attention(torch.ones(1, 1, 4, 64, device=dev), codes, scales,
+                        codes, scales, 39, key_spec=spec, value_spec=spec,
+                        rep=2)
+    assert mx_decode_attention.launches == before + 1
+    with pytest.raises(ValueError):             # f16 q: raise, no plain path
+        mx_decode_attention(torch.ones(1, 1, 4, 64, device=dev,
+                                       dtype=torch.float16),
+                            codes, scales, codes, scales, 39,
+                            key_spec=spec, value_spec=spec, rep=2)
+    x = torch.ones(1, 16, 4, 64, device=dev)
+    before = flash_attention.launches
+    flash_attention(x, x, x)
+    assert flash_attention.launches == before + 1
+    with pytest.raises(ValueError):             # head dim 48: no kernel
+        y = torch.ones(1, 16, 4, 48, device=dev)
+        flash_attention(y, y, y)
 
 
 def test_paged_reference_agrees_on_card(dev):

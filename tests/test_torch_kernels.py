@@ -18,9 +18,13 @@ from repro.core.pack import pack_codes as jpack_codes
 from repro.core.pack import pack_codes_rows as jpack_codes_rows
 from repro.core.spec import QuantSpec as JSpec
 from repro.kernels import ref as jref
+from repro.kernels.flash_attn import flash_attention as j_flash
+from repro.kernels.mx_decode_attn import mx_decode_attention as j_decode_attn
 from repro.kernels.mx_quant import mx_quantize_2d as j_quant_2d
 from repro_torch.core.spec import QuantSpec as TSpec
-from repro_torch.kernels.mx_decode_attn import mx_paged_decode_attention
+from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
+                                                mx_paged_decode_attention)
 from repro_torch.kernels.mx_matmul import mx_matmul_2d, split_count
 from repro_torch.kernels.mx_quant import mx_quantize_2d
 
@@ -148,3 +152,94 @@ def test_wrappers_validate_shapes():
             torch.zeros(1, 2, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32),
             key_spec=TSpec("int8", "ocp", 16), value_spec=spec, rep=2)
+
+
+def _contiguous_cache(kspec, vspec, b=2, s=64, hkv=2, d=64, seed=0):
+    """A contiguous MX cache filled by the reference converter (one code
+    per byte, every format)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for spec in (kspec, vspec):
+        x = rng.normal(size=(b * s * hkv, d)).astype(np.float32)
+        codes, scales = jref.mx_quantize_2d_ref(jnp.asarray(x), spec)
+        out += [np.array(codes).reshape(b, s, hkv, d),
+                np.array(scales).reshape(b, s, hkv, d // 32)]
+    return out
+
+
+@pytest.mark.parametrize("pos", [0, 63])
+@pytest.mark.parametrize("kv", ["int8@32:ocp/int8@32:ocp",
+                                "e4m3@32:paper/e4m3@32:paper",
+                                "int8@32:ocp/e2m1@32:ocp"])
+def test_plain_decode_attention_matches_pallas_interpret(kv, pos):
+    kt, vt = kv.split("/")
+    cache = _contiguous_cache(JSpec.parse(kt), JSpec.parse(vt))
+    q = np.random.default_rng(1).normal(size=(2, 1, 4, 64)).astype(
+        np.float32)
+    want = np.asarray(j_decode_attn(
+        jnp.asarray(q), *(jnp.asarray(a) for a in cache),
+        jnp.asarray(pos, jnp.int32), key_spec=JSpec.parse(kt),
+        value_spec=JSpec.parse(vt), rep=2, interpret=True))
+    before = mx_decode_attention.launches
+    got = mx_decode_attention(
+        torch.from_numpy(q), *(torch.from_numpy(a) for a in cache), pos,
+        key_spec=TSpec.parse(kt), value_spec=TSpec.parse(vt), rep=2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    assert mx_decode_attention.launches == before
+
+
+def _qkv(b, sq, sk, h, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, h, d)).astype(np.float32),
+            rng.normal(size=(b, sk, hkv, d)).astype(np.float32),
+            rng.normal(size=(b, sk, hkv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", [
+    (2, 128, 128, 4, 2, 32, True, "float32"),     # causal GQA 2:1
+    (1, 77, 77, 4, 1, 64, True, "float32"),       # ragged S, GQA 4:1
+    (1, 64, 256, 2, 2, 32, True, "float32"),      # causal Sq != Sk: top-left
+    (2, 64, 128, 4, 2, 32, False, "float32"),     # non-causal
+    (2, 128, 128, 4, 2, 32, True, "bfloat16"),
+])
+def test_plain_flash_attention_matches_pallas_interpret(case):
+    b, sq, sk, h, hkv, d, causal, dtype = case
+    q, k, v = _qkv(b, sq, sk, h, hkv, d, seed=sq + sk)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = j_flash(*(jnp.asarray(a, dtype=jdt) for a in (q, k, v)), causal,
+                   True)
+    before = flash_attention.launches
+    got = flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                          causal=causal)
+    assert got.dtype == tdt and got.shape == (b, sq, h, d)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+    assert flash_attention.launches == before
+
+
+def test_attention_wrappers_validate():
+    spec = TSpec.parse("int8@32:ocp")
+    q = torch.zeros(1, 1, 4, 64)
+    codes = torch.zeros(1, 8, 2, 64, dtype=torch.uint8)
+    scales = torch.zeros(1, 8, 2, 2, dtype=torch.uint8)
+    ok = dict(key_spec=spec, value_spec=spec, rep=2)
+    assert mx_decode_attention(q, codes, scales, codes, scales, 3,
+                               **ok).shape == q.shape
+    padded = torch.zeros(1, 8, 2, 96, dtype=torch.uint8)   # D=64 padded
+    for args, kw in [((q, padded, scales, codes, scales, 3), ok),
+                     ((q, codes, scales, codes, scales, -1), ok),
+                     ((q, codes, scales, codes, scales, 3),
+                      dict(ok, rep=4)),                    # Hq != Hkv x rep
+                     ((q, codes, scales, codes, scales, 3),
+                      dict(ok, key_spec=TSpec("int8", "ocp", 16)))]:
+        with pytest.raises(ValueError):
+            mx_decode_attention(*args, **kw)
+    fq, fk = torch.zeros(1, 5, 4, 32), torch.zeros(1, 5, 3, 32)
+    with pytest.raises(ValueError):                        # 4 % 3 heads
+        flash_attention(fq, fk, fk)
+    with pytest.raises(ValueError):                        # k/v differ
+        flash_attention(fq, fq, torch.zeros(1, 6, 4, 32))
+    with pytest.raises(ValueError):                        # no keys
+        flash_attention(fq, fq[:, :0], fq[:, :0])

@@ -43,10 +43,12 @@ def einsum_matmul(monkeypatch):
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(policy=POLICY):
+def _pair(policy=POLICY, attn_impl="dense"):
     """Reference config + params and their port twins (built once per
-    policy; the tests only read them)."""
-    jcfg = j_load_reduced("chatglm3_6b", mx=JPolicy.parse(policy))
+    policy; the tests only read them).  ``attn_impl="flash"`` sends the
+    reference through its Pallas attention kernels (interpret mode)."""
+    jcfg = j_load_reduced("chatglm3_6b", mx=JPolicy.parse(policy),
+                          attn_impl=attn_impl)
     tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy))
     jm = JModel(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
@@ -230,3 +232,86 @@ def test_prefill_logits_match(einsum_matmul):
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
                                rtol=0)
     assert tcache["k_codes"].shape == jcache["layers"]["k_codes"].shape
+
+
+def _random_cache(jcfg, b=2, max_len=16, filled=12, seed=7):
+    """Layer-stacked contiguous caches whose first ``filled`` positions
+    hold random k/v, quantized by the reference's converter under an MX
+    policy (the state a prefill leaves)."""
+    rng = np.random.default_rng(seed)
+    shape = (jcfg.n_layers, b, max_len, jcfg.n_kv_heads, jcfg.hd)
+    out = {}
+    for side, spec in (("k", jcfg.mx.kv_key), ("v", jcfg.mx.kv_value)):
+        x = rng.normal(size=shape).astype(np.float32)
+        x[:, :, filled:] = 0.0
+        if spec is None:
+            out[side] = x
+            continue
+        codes, scales = JL._kv_quant(jnp.asarray(x), spec)
+        out[f"{side}_codes"] = np.array(codes)
+        out[f"{side}_scales"] = np.array(scales)
+    return out
+
+
+@pytest.mark.parametrize("policy", [POLICY, "weights=e4m3@32:ocp"])
+def test_decode_step_logits_match(einsum_matmul, policy):
+    """Two decode steps over a contiguous cache holding 12 positions:
+    through the MX decode kernel under an MX KV policy, densely over an fp
+    cache (the reference at attn_impl="flash")."""
+    jcfg, tcfg, jp, tp = _pair(policy, "flash")
+    cache = _random_cache(jcfg)
+    jcache = {"layers": {n: jnp.asarray(a) for n, a in cache.items()}}
+    tcache = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
+    steps = np.random.default_rng(8).integers(0, 512, size=(2, 2))
+    steps = steps.astype(np.int32)
+    jstep = jax.jit(lambda *a: jdec.decode_step(*a, jcfg))
+    for pos in (12, 13):
+        jlog, jcache = jstep(jp, jnp.asarray(steps[:, pos - 12]), jcache,
+                             jnp.asarray(pos, jnp.int32))
+        tlog, tcache = tdec.decode_step(
+            tp, torch.from_numpy(steps[:, pos - 12]), tcache, pos, tcfg)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   atol=1e-4, rtol=0)
+
+
+def test_fp_kv_prefill_logits_match(einsum_matmul):
+    """Prefill over an fp cache: the port's flash path (its plain version
+    here) against the reference's Pallas flash kernel."""
+    jcfg, tcfg, jp, tp = _pair("weights=e4m3@32:ocp", "flash")
+    tokens = np.random.default_rng(8).integers(0, 512, size=(2, 20))
+    tokens = tokens.astype(np.int32)
+    jlog, jcache, _ = jax.jit(lambda p, t: jdec.prefill(p, t, jcfg,
+                                                        max_len=24))(
+        jp, jnp.asarray(tokens))
+    tlog, tcache, _ = tdec.prefill(tp, torch.from_numpy(tokens), tcfg,
+                                   max_len=24)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(tcache["k"].numpy(),
+                               np.asarray(jcache["layers"]["k"]), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(
+        tdec.forward(tp, torch.from_numpy(tokens), tcfg).numpy(),
+        np.asarray(jlog), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("policy", [
+    "kv_key=int8@32:ocp,kv_value=e2m1@32:ocp", "kv=e3m2@32:paper"])
+def test_contiguous_cache_write_bit_identical(policy):
+    """Identical k/v in, identical contiguous cache bytes out, at a
+    position past the start (the decode write)."""
+    jcfg = j_load_reduced("chatglm3_6b", mx=JPolicy.parse(policy))
+    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy))
+    jcache = JL.init_kv_cache(jcfg, 2, 16, 2, 32)
+    tcache = TL.init_kv_cache(tcfg, 2, 16, 2, 32, "cpu")
+    rng = np.random.default_rng(9)
+    jwrite = jax.jit(lambda *a: JL.cache_write(*a, jcfg))
+    for pos, s in ((0, 5), (5, 1), (9, 1)):
+        k = rng.normal(size=(2, s, 2, 32)).astype(np.float32)
+        v = rng.normal(size=(2, s, 2, 32)).astype(np.float32)
+        jcache = jwrite(jcache, jnp.asarray(k), jnp.asarray(v),
+                        jnp.asarray(pos, jnp.int32))
+        TL.cache_write(tcache, torch.from_numpy(k), torch.from_numpy(v),
+                       pos, tcfg)
+    for name, a in jcache.items():
+        np.testing.assert_array_equal(tcache[name].numpy(), np.asarray(a))
