@@ -6,11 +6,14 @@
 Run from the root of a checkout.  Phases, each of which raises on any
 failure (the script then exits non-zero and prints no result line):
 
-1. the card's name and power limit; build the five CUDA kernels from
+1. the card's name and power limit; build the CUDA kernels (one source
+   per kernel, the MX matmul's two dtypes apart) from
    ``src/repro_torch/csrc`` with nvcc (timed);
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it, and time kernel, plain version, a
-   PyTorch library call on dequantized inputs, and the bound;
+   PyTorch library call on dequantized inputs, and the bound; the MX
+   matmul in bf16 (tensor cores) and f32 (CUDA cores), and its rows
+   bit-identical whatever the batch;
 3. serve full-width chatglm3-6b (28 layers, random weights from a seed)
    through ``ContinuousBatchingEngine`` with 8-bit MX weights, INT8 key
    pages and packed E2M1 value pages; count each kernel's launches on that
@@ -54,6 +57,10 @@ MODES = ("paper", "ocp")
 # K x N of chatglm3-6b's projections
 PROJ = {"wq/wo": (4096, 4096), "wk/wv": (4096, 256),
         "w1/w3": (4096, 13696), "w2": (13696, 4096)}
+# the M of each timed e4m3 matmul row: decode (8 slots), a prefill of
+# 1024 tokens, the static prefill (8 x 512) and a ragged M
+TIMED_M = {"wq/wo": (8, 1024), "wk/wv": (8, 1024),
+           "w1/w3": (8, 77, 1024, 4096), "w2": (8, 1024, 4096)}
 MATMUL_TOL = 1e-4      # max |kernel - plain| / max |plain|: f32 sums of up
 #                        to 13696 products in another order
 ATTN_TOL_F32 = 2e-5    # the reference's own attention-kernel tolerance
@@ -158,7 +165,41 @@ def check_converter(torch, flush):
     return rows["kv_write (8 slots x 2 heads, D=128)"], 0.0
 
 
+def _matmul_row(torch, ref, mx_matmul_2d, a, mw, codes, spec, pname, flush):
+    """Time the kernel, its plain version and torch.matmul on the
+    dequantized bf16 weight at one shape; check the kernel's error."""
+    m, k = a.shape
+    n = codes.shape[1]
+    got = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
+    want = ref.mx_matmul_2d_ref(a, codes, mw.scales, spec)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= MATMUL_TOL * scale:
+        raise AssertionError(f"mx_matmul {spec} {pname} M={m}: max error "
+                             f"{err} > {MATMUL_TOL} x {scale}")
+    wd = ref.dequant_ref(codes, mw.scales, spec).to(torch.bfloat16)
+    nbytes = a.numel() * a.element_size() + mw.nbytes + m * n * 4
+    tb, by = bound(nbytes, 2.0 * m * n * k, BF16_FLOPS)
+    row = dict(
+        kernel="mx_matmul_2d", shape=f"{pname} M={m}", m=m, k=k, n=n,
+        spec=str(spec), act=str(a.dtype).replace("torch.", ""),
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: mx_matmul_2d(a, mw.codes, mw.scales,
+                                               mw.spec), flush=flush),
+        plain_ms=time_ms(torch, lambda: ref.mx_matmul_2d_ref(
+            a, codes, mw.scales, spec), flush=flush),
+        library_ms=time_ms(torch, lambda: torch.matmul(a, wd), flush=flush),
+        bound_ms=tb, bound_by=by)
+    emit("time", **row)
+    return row
+
+
 def check_matmul(torch, flush):
+    """bf16 activations (the serving path, tensor-core kernel): 6 formats x
+    2 modes x 4 projections at M 8 and 1024; f32 activations (CUDA-core
+    kernels): one projection per format at M 8 and 1024; timed rows for
+    e4m3@32:ocp at M 8, 1024, the static prefill's 4096 and a ragged 77;
+    then rows of a call must not depend on the rest of its batch."""
     from repro_torch.core.mx_weight import MXWeight
     from repro_torch.core.pack import unpack_codes_rows
     from repro_torch.core.spec import QuantSpec
@@ -166,54 +207,86 @@ def check_matmul(torch, flush):
     from repro_torch.kernels.mx_matmul import mx_matmul_2d
     gen = torch.Generator(device="cuda").manual_seed(2)
     acts = {m: {k: torch.randn(m, k, generator=gen, device="cuda").to(
-        torch.bfloat16) for k in (4096, 13696)} for m in (8, 1024)}
+        torch.bfloat16) for k in (4096, 13696)} for m in (8, 77, 1024, 4096)}
     worst, n_checked, timed = 0.0, 0, {}
-    for fmt in FMTS:
+    for fi, fmt in enumerate(FMTS):
         for mode in MODES:
             spec = QuantSpec(fmt, mode)            # packed where sub-byte
-            for pname, (k, n) in PROJ.items():
+            for pi, (pname, (k, n)) in enumerate(PROJ.items()):
                 w = (torch.randn(k, n, generator=gen, device="cuda")
                      / math.sqrt(k)).to(torch.bfloat16)
                 mw = MXWeight.quantize(w, spec)
                 codes = unpack_codes_rows(mw.codes, fmt, k) if mw.packed \
                     else mw.codes
+                # f32 activations through the CUDA-core kernels: one
+                # projection per format
+                f32_pass = mode == "ocp" and pi == fi % len(PROJ)
                 for m in (8, 1024):
-                    a = acts[m][k]
-                    got = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
-                    want = ref.mx_matmul_2d_ref(a, codes, mw.scales, spec)
-                    err = float((got - want).abs().max())
-                    scale = float(want.abs().max())
-                    if not err <= MATMUL_TOL * scale:
-                        raise AssertionError(
-                            f"mx_matmul {spec} {pname} M={m}: max error "
-                            f"{err} > {MATMUL_TOL} x {scale}")
-                    worst = max(worst, err)
+                    for a in ((acts[m][k], acts[m][k].float()) if f32_pass
+                              else (acts[m][k],)):
+                        got = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
+                        want = ref.mx_matmul_2d_ref(a, codes, mw.scales,
+                                                    spec)
+                        err = float((got - want).abs().max())
+                        scale = float(want.abs().max())
+                        if not err <= MATMUL_TOL * scale:
+                            raise AssertionError(
+                                f"mx_matmul {spec} {pname} M={m} {a.dtype}: "
+                                f"max error {err} > {MATMUL_TOL} x {scale}")
+                        worst = max(worst, err)
+                        n_checked += 1
+                if str(spec) != "e4m3@32:ocp":
+                    continue
+                for m in TIMED_M[pname]:
+                    row = _matmul_row(torch, ref, mx_matmul_2d, acts[m][k],
+                                      mw, codes, spec, pname, flush)
+                    worst = max(worst, row["max_abs_err"])
                     n_checked += 1
-                    if str(spec) == "e4m3@32:ocp":
-                        wd = ref.dequant_ref(codes, mw.scales, spec).to(
-                            torch.bfloat16)
-                        nbytes = a.numel() * 2 + mw.nbytes + m * n * 4
-                        tb, by = bound(nbytes, 2.0 * m * n * k, BF16_FLOPS)
-                        row = dict(
-                            kernel="mx_matmul_2d", shape=f"{pname} M={m}",
-                            m=m, k=k, n=n, spec=str(spec),
-                            max_abs_err=err,
-                            ms=time_ms(torch, lambda: mx_matmul_2d(
-                                a, mw.codes, mw.scales, mw.spec),
-                                flush=flush),
-                            plain_ms=time_ms(torch, lambda: ref
-                                             .mx_matmul_2d_ref(
-                                                 a, codes, mw.scales, spec),
-                                             flush=flush),
-                            library_ms=time_ms(torch, lambda: torch.matmul(
-                                a, wd), flush=flush),
-                            bound_ms=tb, bound_by=by)
-                        emit("time", **row)
-                        timed[(pname, m)] = row
+                    timed[(pname, m)] = row
     emit("check", kernel="mx_matmul_2d", compared=n_checked,
          max_abs_err=worst,
          criterion=f"max|kernel-plain| <= {MATMUL_TOL} * max|plain|")
+    check_batch_invariance(torch, gen)
     return timed[("w1/w3", 8)], worst
+
+
+def check_batch_invariance(torch, gen):
+    """bf16 rows of M=8 and M=16 calls (the decode shape) and of slices
+    that cross the prefill kernel's 128-row tiles are bit-identical to the
+    same rows of M=1024 and M=4096 calls (the prefill shape)."""
+    from repro_torch.core.mx_weight import MXWeight
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels.mx_matmul import mx_matmul_2d
+    slices = ((0, 8), (0, 16), (120, 136), (1016, 1024), (250, 260),
+              (100, 260), (1000, 1100), (2040, 2056), (4088, 4096),
+              (3000, 3077))
+    n_checked = 0
+    for spec in ("e4m3@32:ocp", "e2m1@32:ocp", "e3m2@32:paper"):
+        spec = QuantSpec.parse(spec)               # sub-byte codes packed
+        for pname in ("w1/w3", "w2"):
+            k, n = PROJ[pname]
+            w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+            mw = MXWeight.quantize(w, spec)
+            a = torch.randn(4096, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            full = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
+            part = mx_matmul_2d(a[:1024].contiguous(), mw.codes, mw.scales,
+                                mw.spec)
+            if not torch.equal(part, full[:1024]):
+                raise AssertionError(f"mx_matmul {spec} {pname}: rows of an "
+                                     f"M=1024 call differ from an M=4096 "
+                                     f"call")
+            n_checked += 1
+            for lo, hi in slices:
+                part = mx_matmul_2d(a[lo:hi].contiguous(), mw.codes,
+                                    mw.scales, mw.spec)
+                if not torch.equal(part, full[lo:hi]):
+                    raise AssertionError(
+                        f"mx_matmul {spec} {pname}: rows {lo}:{hi} of an "
+                        f"M={hi - lo} call differ from the M=4096 call")
+                n_checked += 1
+    emit("check", kernel="mx_matmul_2d", what="batch invariance",
+         compared=n_checked, criterion="torch.equal")
 
 
 def _paged_case(torch, kspec, vspec, gen):
@@ -772,7 +845,7 @@ def main() -> int:
     card_vs_cpu(torch)
 
     sources = {"mx_quantize_2d": "src/repro_torch/csrc/mx_quant.cu",
-               "mx_matmul_2d": "src/repro_torch/csrc/mx_matmul.cu",
+               "mx_matmul_2d": "src/repro_torch/csrc/mx_matmul_tc.cu",
                "mx_paged_decode_attention":
                    "src/repro_torch/csrc/mx_paged_decode_attn.cu",
                "mx_decode_attention":

@@ -1,13 +1,14 @@
-// Dequant x matmul with MX weights for Hopper, sm_90a:
-//   out (M, N) f32 = a (M, K) @ dequant(codes, scales)
+// Dequant x matmul with MX weights for Hopper, sm_90a, f32 activations:
+//   out (M, N) f32 = a (M, K) f32 @ dequant(codes, scales)
 //
 // Replaces the Pallas kernel src/repro/kernels/mx_matmul.py::_mx_matmul_2d
-// (body _mx_matmul_kernel, dequant_tile).  codes are u8 (K, N), or
-// bit-packed along K: E2M1 two codes per byte, low nibble first (K/2, N);
-// E3M2/E2M3 four codes per three bytes, little-endian (3K/4, N) — the
-// layout of pack_codes_rows (src/repro/core/pack.py).  scales are E8M0
-// (K/32, N).  a is f32 or bf16; accumulation is f32 on the CUDA cores
-// (simple first: no wgmma or TMA yet).
+// (body _mx_matmul_kernel, dequant_tile) for an f32 `a`; a bf16 `a` (the
+// serving path's type) runs the tensor-core kernel of mx_matmul_tc.cu.
+// codes are u8 (K, N), or bit-packed along K: E2M1 two codes per byte,
+// low nibble first (K/2, N); E3M2/E2M3 four codes per three bytes,
+// little-endian (3K/4, N) — the layout of pack_codes_rows
+// (src/repro/core/pack.py).  scales are E8M0 (K/32, N).  Products and
+// sums are f32 FMAs on the CUDA cores, as the reference computes them.
 //
 // Decoding.  code -> value goes through a 256-entry table per (format,
 // mode) and the scale byte through a 256-entry table of 2^(s-127); both
@@ -26,21 +27,21 @@
 // weight tile decoded into shared memory one 32-row scale block at a
 // time; it sums K in the same groups as the decode split and adds the
 // group sums in the same order.  The grouping depends on N and K only,
-// so both shapes give every output bit-identical values: a row's result
-// never depends on the other rows of the call or on scheduling.
+// so for f32 activations both shapes give every output bit-identical
+// values: a row's result never depends on the other rows of the call or
+// on scheduling.  (The bf16 kernels of mx_matmul_tc.cu share the grouping
+// among themselves, on the tensor cores' order of sums.)
 //
 // Bound.  Decode: bytes — every weight byte once per call (w1 of
 // chatglm3-6b: 56 MB of e4m3 codes and 1.75 MB of scales, ~17 us at
-// 3.35 TB/s).  Prefill: 2*M*N*K operations.  OCP e4m3/e5m2 codes are
-// already Hopper's fp8 bit patterns: a tensor-core version can feed them
-// to wgmma and apply the block scales to its partial sums.
-#include <cuda_bf16.h>
+// 3.35 TB/s).  Prefill: 2*M*N*K operations at the f32 CUDA-core rate.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mx_matmul_common.cuh"
+
 namespace {
 
-constexpr int kChunk = 32;     // K rows per scale block
 constexpr int kSkinnyThreads = 64;
 constexpr int kSkinnyCols = 4 * kSkinnyThreads;   // N per skinny block
 
@@ -53,17 +54,7 @@ __device__ __forceinline__ void load4(const float* p, float* o) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  o[0] = __low2float(lo); o[1] = __high2float(lo);
-  o[2] = __low2float(hi); o[3] = __high2float(hi);
-}
 __device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 // ---------------------------------------------------------------- decode
 // acc[m][j] += a[m] * w[j] for one K row of this thread's four columns
@@ -299,17 +290,6 @@ __global__ void __launch_bounds__(256) mx_matmul_tiled_kernel(
   }
 }
 
-// Sum the split-K partial outputs in split order (deterministic).
-__global__ void split_sum_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ out, long long mn,
-                                 int splits) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[z * mn + i];
-  out[i] = s;
-}
-
 template <typename TA, int MT>
 void launch_skinny(const void* a, const void* codes, const void* scales,
                    const void* etab, const void* stab, float* dst, int m,
@@ -356,32 +336,24 @@ void dispatch(const void* a, const void* codes, const void* scales,
 
 }  // namespace
 
-// a (m, k) row-major f32 (a_is_bf16 = 0) or bf16, 16-byte aligned; k a
-// multiple of 32; n a multiple of 4 with codes and scales 4-byte aligned.
-// pack_kind: 0 one code per byte, 1 4-bit packed, 2 6-bit packed.
-// splits: the K grouping of mx_matmul.py's split_count (a split holds at
-// most 24 chunks).  For m <= 16 with splits > 1, `partial` needs room for
-// splits * m * n floats; otherwise it is unused.
+// a (m, k) row-major f32, 16-byte aligned; k a multiple of 32; n a
+// multiple of 4 with codes and scales 4-byte aligned.  pack_kind: 0 one
+// code per byte, 1 4-bit packed, 2 6-bit packed.  splits: the K grouping
+// of mx_matmul.py's split_count (a split holds at most 24 chunks).  For
+// m <= 16 with splits > 1, `partial` needs room for splits * m * n
+// floats; otherwise it is unused.
 extern "C" int mx_matmul_launch(const void* a, const void* codes,
                                 const void* scales, const void* elem_tab,
                                 const void* scale_tab, void* out,
                                 void* partial, int m, int n, int k,
-                                int a_is_bf16, int pack_kind, int splits,
-                                void* stream) {
+                                int pack_kind, int splits, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool staged = m <= 16 && splits > 1;
   float* dst = staged ? (float*)partial : (float*)out;
-  if (a_is_bf16) {
-    dispatch<__nv_bfloat16>(a, codes, scales, elem_tab, scale_tab, dst, m, n,
-                            k, pack_kind, splits, st);
-  } else {
-    dispatch<float>(a, codes, scales, elem_tab, scale_tab, dst, m, n, k,
-                    pack_kind, splits, st);
-  }
+  dispatch<float>(a, codes, scales, elem_tab, scale_tab, dst, m, n, k,
+                  pack_kind, splits, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !staged) return (int)err;
-  const long long mn = (long long)m * n;
-  split_sum_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-      (const float*)partial, (float*)out, mn, splits);
-  return (int)cudaGetLastError();
+  return (int)split_sum((const float*)partial, (float*)out,
+                        (long long)m * n, splits, st);
 }

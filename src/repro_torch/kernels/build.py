@@ -35,7 +35,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # p = pointer (c_void_p), i = int (c_int)
 SIGNATURES: Dict[str, str] = {
     "mx_quant_launch": "ppp" + "ii" + "i" * 11 + "p",
-    "mx_matmul_launch": "ppppppp" + "i" * 6 + "p",
+    "mx_matmul_launch": "ppppppp" + "i" * 5 + "p",
+    "mx_matmul_tc_launch": "ppppppp" + "i" * 5 + "p",
     "mx_paged_decode_attn_launch": "p" * 12 + "i" * 12 + "p",
     "mx_decode_attn_launch": "p" * 10 + "i" * 8 + "p",
     "flash_attn_launch": "pppp" + "i" * 8 + "p",

@@ -1,8 +1,11 @@
-"""Dequant x matmul with MX weights as a CUDA kernel (csrc/mx_matmul.cu).
+"""Dequant x matmul with MX weights as CUDA kernels.
 
-Port of src/repro/kernels/mx_matmul.py::mx_matmul_2d.  On a CUDA tensor
-the wrapper launches the kernel (or raises); on a CPU tensor it computes
-the plain version, ``ref.mx_matmul_2d_ref``, after undoing the packing.
+Port of src/repro/kernels/mx_matmul.py::mx_matmul_2d.  Each activation
+dtype has one kernel: bf16 (the serving path) runs the tensor-core kernel
+of csrc/mx_matmul_tc.cu, f32 the CUDA-core kernel of csrc/mx_matmul.cu.
+On a CUDA tensor the wrapper launches that kernel (or raises); on a CPU
+tensor it computes the plain version, ``ref.mx_matmul_2d_ref``, after
+undoing the packing.
 """
 from __future__ import annotations
 
@@ -12,9 +15,9 @@ from repro_torch.core.pack import packed_nbytes, unpack_codes_rows
 from repro_torch.core.spec import as_spec
 from repro_torch.kernels import build, ref, tables
 
-SMALL_M = 16        # rows up to which the decode (skinny) kernel runs
-STRIP = 256         # output columns per decode block
-MAX_SPLIT_CHUNKS = 24   # 32-row chunks per split: the decode block's
+SMALL_M = 16        # rows up to which the decode shape runs (split K)
+STRIP = 256         # output columns per f32 decode block
+MAX_SPLIT_CHUNKS = 24   # 32-row chunks per split: the f32 decode block's
 #                         slice of A (<= 16 rows) fits 48 KB of shared memory
 
 
@@ -32,11 +35,15 @@ def _is_packed(spec, k: int, kc: int) -> bool:
 
 def split_count(n: int, k: int, sms: int) -> int:
     """How K is grouped: into this many consecutive runs of whole 32-row
-    chunks.  Chosen so the decode kernel's N strips times the splits cover
-    the card about four times, with at least two and at most 24 chunks per
-    split.  The count depends on N and K only, never on M: the prefill
-    kernel sums K in the same groups, so every output row gets the same
-    value whatever the batch and whichever kernel computes it."""
+    chunks.  Chosen so the f32 decode kernel's 256-column strips times
+    the splits cover the card about four times, with at least two and at
+    most 24 chunks per split.  The count depends on N and K only, never on
+    M.  Within one activation dtype both shapes sum K in these groups and
+    add the group sums in split order on the same instructions — bf16:
+    mma.sync bf16 -> f32 in the decode and prefill shapes of
+    csrc/mx_matmul_tc.cu; f32: FMAs in the two kernels of
+    csrc/mx_matmul.cu — so every output row gets the same value whatever
+    the batch."""
     chunks = k // 32
     strips = -(-n // STRIP)
     want = -(-4 * sms // strips)
@@ -93,12 +100,14 @@ def mx_matmul_2d(a: torch.Tensor, codes: torch.Tensor,
     staged = m <= SMALL_M and splits > 1       # decode: split-K partials
     partial = torch.empty((splits, m, n) if staged else (1,),
                           dtype=torch.float32, device=dev)
-    err = build.lib().mx_matmul_launch(
+    launch = build.lib().mx_matmul_tc_launch if a.dtype == torch.bfloat16 \
+        else build.lib().mx_matmul_launch
+    err = launch(
         a.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         tables.elem_table(spec, dev).data_ptr(),
         tables.scale_table(dev).data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, n, k, int(a.dtype == torch.bfloat16), kind,
-        splits, torch.cuda.current_stream(dev).cuda_stream)
+        partial.data_ptr(), m, n, k, kind, splits,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mx_matmul_2d")
     mx_matmul_2d.launches += 1
     return out

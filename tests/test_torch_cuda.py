@@ -99,6 +99,46 @@ def test_matmul_rows_do_not_depend_on_batch(dev, spec):
         assert torch.equal(part, full[lo:hi])
 
 
+@pytest.mark.parametrize("spec", ["e4m3@32:ocp", "e2m1@32:ocp",
+                                  "e3m2@32:paper"])
+def test_matmul_rows_do_not_depend_on_tile_edges(dev, spec):
+    """bf16 rows of slices that cross the 128-row prefill tiles of an
+    M=300 call (decode-shape slices of 16 and 10 rows, a prefill-shape
+    slice of 60 rows at another tile offset) are bit-identical to the same
+    rows of the full call."""
+    rng = np.random.default_rng(7)
+    k, n = 4096, 264
+    a = torch.from_numpy(rng.normal(size=(300, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.02)
+    mw = MXWeight.quantize(w.to(dev), QuantSpec.parse(spec))
+    a = a.to(dev).to(torch.bfloat16)
+    full = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
+    for lo, hi in ((120, 136), (250, 260), (100, 160), (127, 129)):
+        part = mx_matmul_2d(a[lo:hi].contiguous(), mw.codes, mw.scales,
+                            mw.spec)
+        assert torch.equal(part, full[lo:hi])
+
+
+@pytest.mark.parametrize("m", [8, 300])
+@pytest.mark.parametrize("spec", ["e4m3@32:ocp", "e2m1@32:ocp",
+                                  "e3m2@32:paper"])
+def test_matmul_bf16_at_w1_width(dev, spec, m):
+    """bf16 activations at chatglm3-6b's w1 shape (K 4096, N 13696), both
+    shapes of the tensor-core kernel, against the plain version on the
+    card; rtol/atol 1e-5 relative to the output scale, as above."""
+    rng = np.random.default_rng(8)
+    k, n = 4096, 13696
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.016)
+    mw = MXWeight.quantize(w.to(dev), QuantSpec.parse(spec))
+    a = a.to(dev).to(torch.bfloat16)
+    got = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
+    want = mx_matmul_2d(a.cpu(), mw.codes.cpu(), mw.scales.cpu(), mw.spec)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=tol)
+
+
 def _paged_case(rng, kspec, vspec, b=3, hq=4, hkv=2, d=64, page=8, npg=5):
     n_pool = b * npg + 1
     q = torch.from_numpy(rng.normal(size=(b, 1, hq, d)).astype(np.float32))
