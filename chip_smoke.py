@@ -7,13 +7,13 @@ Run from the root of a checkout.  Phases, each of which raises on any
 failure (the script then exits non-zero and prints no result line):
 
 1. the card's name and power limit; build the CUDA kernels (one source
-   per kernel, the MX matmul's two dtypes apart) from
+   per kernel, the MX matmul's and flash attention's two dtypes apart) from
    ``src/repro_torch/csrc`` with nvcc (timed);
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it, and time kernel, plain version, a
    PyTorch library call on dequantized inputs, and the bound; the MX
-   matmul in bf16 (tensor cores) and f32 (CUDA cores), and its rows
-   bit-identical whatever the batch;
+   matmul and flash attention in bf16 (tensor cores) and f32 (CUDA
+   cores), and the matmul's rows bit-identical whatever the batch;
 3. serve full-width chatglm3-6b (28 layers, random weights from a seed)
    through ``ContinuousBatchingEngine`` with 8-bit MX weights, INT8 key
    pages and packed E2M1 value pages; count each kernel's launches on that
@@ -472,53 +472,81 @@ def check_decode_attention(torch, flush):
 def check_flash(torch, flush):
     """Flash attention at the static fp-KV prefill's shapes (8 prompts of
     512, 32 heads over 2 KV heads, D 128), ragged lengths and a causal
-    Sq != Sk case (top-left alignment)."""
+    Sq != Sk case (top-left alignment), in f32 (CUDA-core kernel) and bf16
+    (tensor-core kernel, the main path's); bf16 also at D 32 and 64, and
+    with scores scaled x8 (a peaked softmax: the online rescale with P in
+    bf16).  Times bf16 and f32 at the serving shape, and bf16 with 32 KV
+    heads (no K/V tile shared between heads) beside the serving 2."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attn import flash_attention
     gen = torch.Generator(device="cuda").manual_seed(8)
-    h, hkv, d = 32, 2, 128
-    worst, n_checked = 0.0, 0
-    for b, sq, sk, causal in ((8, 512, 512, True), (8, 512, 512, False),
-                              (8, 77, 77, True), (8, 300, 300, True),
-                              (2, 256, 1024, True)):
+    h, hkv = 32, 2
+    both = (torch.float32, torch.bfloat16)
+    worst = {dt: 0.0 for dt in both}
+    tols = {torch.float32: ATTN_TOL_F32, torch.bfloat16: FLASH_TOL_BF16}
+    n_checked, errors = 0, []
+    # (b, sq, sk, causal, d, scale of q, dtypes)
+    cases = [(8, 512, 512, True, 128, 1.0, both),
+             (8, 512, 512, False, 128, 1.0, both),
+             (8, 77, 77, True, 128, 1.0, both),
+             (8, 300, 300, True, 128, 1.0, both),
+             (2, 256, 1024, True, 128, 1.0, both),
+             (8, 512, 512, True, 32, 1.0, (torch.bfloat16,)),
+             (8, 512, 512, True, 64, 1.0, (torch.bfloat16,)),
+             (8, 512, 512, True, 128, 8.0, (torch.bfloat16,))]
+    for b, sq, sk, causal, d, qscale, dtypes in cases:
         qkv = [torch.randn(b, n, nh, d, generator=gen, device="cuda")
                for n, nh in ((sq, h), (sk, hkv), (sk, hkv))]
-        for dt, tol in ((torch.float32, ATTN_TOL_F32),
-                        (torch.bfloat16, FLASH_TOL_BF16)):
+        qkv[0] *= qscale
+        for dt in dtypes:
             args = [t.to(dt) for t in qkv]
             got = flash_attention(*args, causal=causal)
             want = ref.flash_attention_ref(*args, causal)
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                       atol=tol)
-            if dt == torch.float32:
-                worst = max(worst, float((got - want).abs().max()))
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=tols[dt], atol=tols[dt])
+            err = float((got.float() - want.float()).abs().max())
+            worst[dt] = max(worst[dt], err)
+            errors.append(dict(case=f"{b}x{sq}/{sk} causal={causal} D {d} "
+                                    f"q x{qscale:g}",
+                               dtype=str(dt).replace("torch.", ""),
+                               max_abs_err=err,
+                               max_abs_want=float(want.float().abs().max())))
             n_checked += 1
-    b, s = 8, 512
-    q, k, v = (torch.randn(b, s, nh, d, generator=gen, device="cuda")
-               .to(torch.bfloat16) for nh in (h, hkv, hkv))
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b, s, d = 8, 512, 128
     pairs = b * h * s * (s + 1) / 2            # causal (query, key) pairs
-    tb, by = bound(nbytes, 4.0 * pairs * d, BF16_FLOPS)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    row = dict(kernel="flash_attention",
-               shape="8 x 512 tokens, causal, H 32, Hkv 2, D 128",
-               spec="bf16", max_abs_err=worst,
-               ms=time_ms(torch, lambda: flash_attention(q, k, v),
-                          flush=flush),
-               plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
-                   q, k, v, True), flush=flush),
-               library_ms=time_ms(torch, lambda: F
-                                  .scaled_dot_product_attention(
-                                      qt, kt, vt, is_causal=True,
-                                      enable_gqa=True), flush=flush),
-               bound_ms=tb, bound_by=by)
-    emit("time", **row)
+    rows = {}
+    for dt, nkv, rate in ((torch.bfloat16, hkv, BF16_FLOPS),
+                          (torch.float32, hkv, F32_CUDA_CORE_FLOPS),
+                          (torch.bfloat16, h, BF16_FLOPS)):
+        q, k, v = (torch.randn(b, s, nh, d, generator=gen, device="cuda")
+                   .to(dt) for nh in (h, nkv, nkv))
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        tb, by = bound(nbytes, 4.0 * pairs * d, rate)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        spec = str(dt).replace("torch.", "")
+        row = dict(kernel="flash_attention",
+                   shape=f"8 x 512 tokens, causal, H 32, Hkv {nkv}, D 128",
+                   spec=spec, max_abs_err=worst[dt],
+                   ms=time_ms(torch, lambda: flash_attention(q, k, v),
+                              flush=flush),
+                   plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
+                       q, k, v, True), flush=flush),
+                   library_ms=time_ms(torch, lambda: F
+                                      .scaled_dot_product_attention(
+                                          qt, kt, vt, is_causal=True,
+                                          enable_gqa=True), flush=flush),
+                   bound_ms=tb, bound_by=by)
+        emit("time", **row)
+        rows[(spec, nkv)] = row
     emit("check", kernel="flash_attention", compared=n_checked,
-         max_abs_err=worst,
-         criterion=f"f32 within {ATTN_TOL_F32}; bf16 within "
-                   f"{FLASH_TOL_BF16}")
-    return row, worst
+         max_abs_err_bf16=worst[torch.bfloat16],
+         max_abs_err_f32=worst[torch.float32], cases=errors,
+         criterion=f"|kernel - plain| <= tol + tol * |plain|, tol "
+                   f"{ATTN_TOL_F32} (f32) / {FLASH_TOL_BF16} (bf16)")
+    row = dict(rows[("bfloat16", hkv)],
+               max_abs_err_f32=worst[torch.float32])
+    return row, worst[torch.bfloat16]
 
 
 # =============================================================================
@@ -850,7 +878,7 @@ def main() -> int:
                    "src/repro_torch/csrc/mx_paged_decode_attn.cu",
                "mx_decode_attention":
                    "src/repro_torch/csrc/mx_decode_attn.cu",
-               "flash_attention": "src/repro_torch/csrc/flash_attn.cu"}
+               "flash_attention": "src/repro_torch/csrc/flash_attn_tc.cu"}
     replaces = {
         "mx_quantize_2d": "src/repro/kernels/mx_quant.py:117",
         "mx_matmul_2d": "src/repro/kernels/mx_matmul.py:140",
@@ -870,6 +898,8 @@ def main() -> int:
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})
+        if "max_abs_err_f32" in row:      # flash: its f32 kernel's error
+            kernels[-1]["max_abs_err_f32"] = row["max_abs_err_f32"]
     RESULTS["kernels"] = kernels
     RESULTS["seconds"] = time.perf_counter() - t_start
     if args.out:

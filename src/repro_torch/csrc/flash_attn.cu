@@ -1,11 +1,12 @@
-// Forward flash attention for Hopper, sm_90a.
+// Forward flash attention for f32 on Hopper's CUDA cores, sm_90a.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attn.py::
-// flash_attention_bhsd (body _flash_kernel; GQA wrapper _flash_bshd_fwd).
-// q (B, Sq, H, D), k/v (B, Sk, Hkv, D), all f32 or all bf16, computed in
-// f32 as the reference computes (scores * 1/sqrt(D), NEG_INF = -1e30),
-// causal with top-left alignment (key col attends query row iff col <=
-// row, also when Sq != Sk) or not; the output is cast to q's dtype.
+// flash_attention_bhsd (body _flash_kernel; GQA wrapper _flash_bshd_fwd)
+// for f32 q/k/v; bf16, the serving path's type, runs the tensor-core
+// kernel of flash_attn_tc.cu.  q (B, Sq, H, D), k/v (B, Sk, Hkv, D),
+// computed in f32 as the reference computes (scores * 1/sqrt(D), NEG_INF
+// = -1e30), causal with top-left alignment (key col attends query row iff
+// col <= row, also when Sq != Sk) or not.
 //
 // Design.  One block of 256 threads per (64-query tile, head, row b).
 // The block stages its query tile in shared memory as f32 and loops over
@@ -21,14 +22,10 @@
 // and masks them to exactly zero weight, so skipping them is exact.
 // Shared memory is about 86 KB at D = 128, two blocks per SM.
 //
-// Bound.  At the serving prefill shape (B = 8, S = 512, 32 heads, D = 128,
-// bf16) the function moves ~71 MB (q, k, v, o once) and does ~17 GFLOP of
-// causal products: bytes bound it on paper (21 us against 17 us at the
-// bf16 tensor rate).  This kernel does its products in f32 on the CUDA
-// cores (67 TFLOP/s peak, ~0.26 ms for that work), so operations bound it
-// in practice; tensor cores (mma.sync / wgmma in bf16 with f32
-// accumulate) are later work.
-#include <cuda_bf16.h>
+// Bound.  At the serving prefill shape in f32 (B = 8, S = 512, 32 heads,
+// D = 128) the function moves ~142 MB (q, k, v, o once) and does ~17
+// GFLOP of causal products, ~0.26 ms at the 67 TFLOP/s f32 peak of the
+// CUDA cores: operations bound it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,43 +36,28 @@ constexpr int kBq = 64, kBk = 64, kThreads = 256;
 constexpr int kPs = kBk + 16;     // P row stride: a warp's two row groups
 //                                   fall on disjoint banks
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&w.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&w.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 // Rows [r0, r0 + 64) of head `head` of row b of x (B, S, nh, D) into dst
 // (64 x (D + 4) f32); rows >= s read as zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* x, int b,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* x, int b,
                                           int r0, int s, int nh, int head) {
   constexpr int kV = D / 4, kLd = D + 4;
   for (int i = threadIdx.x; i < 64 * kV; i += kThreads) {
     const int r = i / kV, c = (i % kV) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < s) {
-      v = load4(x + (((long long)b * s + r0 + r) * nh + head) * D + c);
+      v = *reinterpret_cast<const float4*>(
+          x + (((long long)b * s + r0 + r) * nh + head) * D + c);
     }
     *reinterpret_cast<float4*>(dst + r * kLd + c) = v;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int sq, int sk, int h,
-    int hkv, int causal) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
+    int h, int hkv, int causal) {
   constexpr int kLd = D + 4;       // q / kv row stride: conflict-free float4
   constexpr int kDc = D / 16;      // accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -89,7 +71,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int q0 = iq * kBq;
   const float scale = 1.0f / sqrtf((float)D);
 
-  load_tile<T, D>(q_s, q, b, q0, sq, h, head);
+  load_tile<D>(q_s, q, b, q0, sq, h, head);
   float acc[4][kDc], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -103,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int jk = 0; jk < nk; ++jk) {
     const int k0 = jk * kBk;
     __syncthreads();               // the previous tile's P V is done
-    load_tile<T, D>(kv_s, k, b, k0, sk, hkv, g);
+    load_tile<D>(kv_s, k, b, k0, sk, hkv, g);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -166,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int c = 0; c < kDc; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();               // K consumed, P written
-    load_tile<T, D>(kv_s, v, b, k0, sk, hkv, g);
+    load_tile<D>(kv_s, v, b, k0, sk, hkv, g);
     __syncthreads();
 #pragma unroll 4
     for (int t = 0; t < kBk; ++t) {
@@ -186,54 +168,42 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int row = q0 + tr + 16 * i;
     if (row >= sq) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (((long long)b * sq + row) * h + head) * D;
+    float* orow = o + (((long long)b * sq + row) * h + head) * D;
 #pragma unroll
-    for (int c = 0; c < kDc; ++c) store1(orow + tc + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < kDc; ++c) orow[tc + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b,
              int sq, int sk, int h, int hkv, int causal, cudaStream_t st) {
   constexpr int kLd = D + 4;
   const int bytes = (kBq * kLd + kBk * kLd + kBq * kPs) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sq + kBq - 1) / kBq, h, b);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, h, hkv, causal);
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk,
+      h, hkv, causal);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int hkv, int d, int causal,
-           cudaStream_t st) {
-  switch (d) {
-    case 32: return launch_d<T, 32>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
-    case 64: return launch_d<T, 64>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
-    case 128:
-      return launch_d<T, 128>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q (B, Sq, H, D), k/v (B, Sk, Hkv, D), o like q; contiguous, 16-byte
-// aligned, all f32 or all bf16 (is_bf16); D in {32, 64, 128}; H a multiple
-// of Hkv; Sk >= 1.
+// q (B, Sq, H, D), k/v (B, Sk, Hkv, D), o like q; f32, contiguous,
+// 16-byte aligned; D in {32, 64, 128}; H a multiple of Hkv; Sk >= 1.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int b, int sq, int sk, int h,
-                                 int hkv, int d, int causal, int is_bf16,
-                                 void* stream) {
+                                 int hkv, int d, int causal, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (b == 0 || sq == 0) return 0;
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, hkv, d, causal,
-                                 st);
+  switch (d) {
+    case 32: return launch_d<32>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
+    case 64: return launch_d<64>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
+    case 128:
+      return launch_d<128>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return launch<float>(q, k, v, o, b, sq, sk, h, hkv, d, causal, st);
 }

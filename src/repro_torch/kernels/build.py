@@ -39,7 +39,8 @@ SIGNATURES: Dict[str, str] = {
     "mx_matmul_tc_launch": "ppppppp" + "i" * 5 + "p",
     "mx_paged_decode_attn_launch": "p" * 12 + "i" * 12 + "p",
     "mx_decode_attn_launch": "p" * 10 + "i" * 8 + "p",
-    "flash_attn_launch": "pppp" + "i" * 8 + "p",
+    "flash_attn_launch": "pppp" + "i" * 7 + "p",
+    "flash_attn_tc_launch": "pppp" + "i" * 7 + "p",
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -223,8 +223,16 @@ def test_decode_attention_kernel_matches_plain(dev, kv):
     (1, 64, 256, 2, 2, 128, True),        # Sq != Sk: top-left causal
     (1, 200, 100, 2, 1, 64, True),        # Sq > Sk
     (2, 64, 130, 4, 2, 64, False),        # non-causal, ragged Sk
+    (1, 192, 192, 16, 1, 128, True),      # rep 16, the serving ratio
+    (2, 512, 512, 32, 2, 128, True),      # B 2 x Sq 512, H 32 / Hkv 2
+    (1, 77, 77, 16, 1, 128, True),        # ragged at rep 16
+    (2, 130, 200, 8, 2, 128, False),      # non-causal, ragged Sk, D 128
 ])
 def test_flash_kernel_matches_plain(dev, case):
+    """f32 (csrc/flash_attn.cu, CUDA cores) at 2e-5; bf16
+    (csrc/flash_attn_tc.cu, tensor cores) at the reference's bf16
+    tolerance, 2e-2: P is rounded to bf16 before P V (at most 2^-9
+    max|v|) and the output to bf16."""
     b, sq, sk, h, hkv, d, causal = case
     rng = np.random.default_rng(6)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
@@ -234,8 +242,22 @@ def test_flash_kernel_matches_plain(dev, case):
         want = flash_attention(*args, causal=causal)
         got = flash_attention(*(t.to(dev) for t in args), causal=causal)
         torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == q.shape
         torch.testing.assert_close(got.cpu().float(), want.float(),
                                    rtol=tol, atol=tol)
+
+
+def test_flash_tc_kernel_is_deterministic(dev):
+    """No atomics: two calls give the same bits."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(torch.bfloat16).to(dev)
+               for shape in ((2, 300, 32, 128), (2, 300, 2, 128),
+                             (2, 300, 2, 128)))
+    a = flash_attention(q, k, v)
+    b = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_cuda_tensor_never_takes_the_plain_path(dev):
@@ -259,10 +281,11 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
                                        dtype=torch.float16),
                             codes, scales, codes, scales, 39,
                             key_spec=spec, value_spec=spec, rep=2)
-    x = torch.ones(1, 16, 4, 64, device=dev)
-    before = flash_attention.launches
-    flash_attention(x, x, x)
-    assert flash_attention.launches == before + 1
+    for dt in (torch.float32, torch.bfloat16):  # either kernel counts once
+        x = torch.ones(1, 16, 4, 64, device=dev, dtype=dt)
+        before = flash_attention.launches
+        flash_attention(x, x, x)
+        assert flash_attention.launches == before + 1
     with pytest.raises(ValueError):             # head dim 48: no kernel
         y = torch.ones(1, 16, 4, 48, device=dev)
         flash_attention(y, y, y)
