@@ -12,8 +12,12 @@ failure (the script then exits non-zero and prints no result line):
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it, and time kernel, plain version, a
    PyTorch library call on dequantized inputs, and the bound; the MX
-   matmul and flash attention in bf16 (tensor cores) and f32 (CUDA
-   cores), and the matmul's rows bit-identical whatever the batch;
+   matmul, flash attention and both MX decode attentions in bf16 (tensor
+   cores) and f32 (CUDA cores), and the matmul's rows bit-identical
+   whatever the batch; decode attention's library call is timed under
+   every SDPA backend that accepts it and the fastest reported, and the
+   kernel and that call also replayed from a CUDA graph (device time
+   without the host's per-call work);
 3. serve full-width chatglm3-6b (28 layers, random weights from a seed)
    through ``ContinuousBatchingEngine`` with 8-bit MX weights, INT8 key
    pages and packed E2M1 value pages; count each kernel's launches on that
@@ -104,6 +108,49 @@ def time_ms(torch, fn, turns: int = 9, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, flush=None) -> float:
+    """Median time of one replay of ``fn`` captured in a CUDA graph: the
+    device's time for the call without the host's per-call work (Python,
+    allocation, launch), which ``time_ms`` includes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, flush=flush)
+
+
+def sdpa_ms(torch, flush, *args, **kw):
+    """The library yardstick of decode attention: one
+    ``scaled_dot_product_attention`` call timed under each backend that
+    accepts it.  Returns ({backend: ms}, the fastest backend, its time
+    replayed from a CUDA graph or None where it cannot be captured)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        return F.scaled_dot_product_attention(*args, **kw)
+
+    times = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel([be]):
+            try:
+                times[be.name] = time_ms(torch, call, flush=flush)
+            except RuntimeError:              # the backend refuses the call
+                continue
+    best = min(times, key=times.get)
+    with sdpa_kernel([getattr(SDPBackend, best)]):
+        try:
+            graph = graph_ms(torch, call, flush=flush)
+        except RuntimeError:
+            graph = None
+    return times, best, graph
 
 
 # =============================================================================
@@ -317,29 +364,37 @@ def _paged_case(torch, kspec, vspec, gen):
     return q, kc, ks, vc, vs, bt, lengths
 
 
+def _attn_check(torch, got, want, worst):
+    """f32 within ATTN_TOL_F32 (CUDA-core kernels); bf16 (tensor-core
+    kernels) within torch's bf16 defaults: one bf16 rounding of f32
+    results.  Keeps the worst error of each dtype in ``worst``."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL_F32,
+                                   atol=ATTN_TOL_F32)
+    else:
+        torch.testing.assert_close(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    worst[got.dtype] = max(worst[got.dtype], err)
+
+
 def check_paged_attention(torch, flush):
-    import torch.nn.functional as F
     from repro_torch.core.spec import QuantSpec
     from repro_torch.kernels import ref
     from repro_torch.kernels.mx_decode_attn import mx_paged_decode_attention
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst, n_checked, row = 0.0, 0, None
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_checked, row = 0, None
     for kv in ("int8@32:ocp/int8@32:ocp", "int8@32:ocp/e2m1@32:ocp"):
         kspec, vspec = (QuantSpec.parse(s) for s in kv.split("/"))
         q32, kc, ks, vc, vs, bt, lengths = _paged_case(torch, kspec, vspec,
                                                        gen)
-        for dt in (torch.float32, torch.bfloat16):
-            q = q32.to(dt)
+        # f32 q; bf16 q, also with scores x8 (a peaked softmax)
+        for q in (q32, q32.to(torch.bfloat16), (q32 * 8).to(torch.bfloat16)):
             args = (q, kc, ks, vc, vs, bt, lengths)
             kw = dict(key_spec=kspec, value_spec=vspec, rep=16)
-            got = mx_paged_decode_attention(*args, **kw)
-            want = ref.mx_paged_decode_attention_ref(*args, **kw)
-            if dt == torch.float32:
-                torch.testing.assert_close(got, want, rtol=ATTN_TOL_F32,
-                                           atol=ATTN_TOL_F32)
-                worst = max(worst, float((got - want).abs().max()))
-            else:                      # one bf16 rounding of f32 results
-                torch.testing.assert_close(got, want)
+            _attn_check(torch, mx_paged_decode_attention(*args, **kw),
+                        ref.mx_paged_decode_attention_ref(*args, **kw),
+                        worst)
             n_checked += 1
         if vspec.fmt != "e2m1":
             continue
@@ -359,25 +414,30 @@ def check_paged_attention(torch, flush):
         mask = (torch.arange(s_max, device="cuda")[None, :]
                 <= lengths[:, None].to(torch.int64))[:, None, None, :]
         qt = q.transpose(1, 2)
+        sdpa, best, sdpa_graph = sdpa_ms(torch, flush, qt, kd, vd,
+                                         attn_mask=mask, enable_gqa=True)
         row = dict(kernel="mx_paged_decode_attention",
                    shape="8 slots, lengths <= 576, page 16, Hq 32, Hkv 2, "
-                         "D 128", spec=kv, max_abs_err=worst,
+                         "D 128", spec=kv,
                    ms=time_ms(torch, lambda: mx_paged_decode_attention(
                        *args, **kw), flush=flush),
+                   graph_ms=graph_ms(torch, lambda: mx_paged_decode_attention(
+                       *args, **kw), flush=flush),
+                   library_graph_ms=sdpa_graph,
                    plain_ms=time_ms(torch, lambda: ref
                                     .mx_paged_decode_attention_ref(
                                         *args, **kw), flush=flush),
-                   library_ms=time_ms(torch, lambda: F
-                                      .scaled_dot_product_attention(
-                                          qt, kd, vd, attn_mask=mask,
-                                          enable_gqa=True), flush=flush),
-                   bound_ms=tb, bound_by=by, live_tokens=tokens)
+                   library_ms=sdpa[best], library_backend=best,
+                   sdpa_ms=sdpa, bound_ms=tb, bound_by=by,
+                   live_tokens=tokens)
         emit("time", **row)
     emit("check", kernel="mx_paged_decode_attention", compared=n_checked,
-         max_abs_err=worst,
+         max_abs_err_bf16=worst[torch.bfloat16],
+         max_abs_err_f32=worst[torch.float32],
          criterion=f"f32 within {ATTN_TOL_F32}; bf16 within torch's bf16 "
                    f"defaults")
-    return row, worst
+    return dict(row, max_abs_err_f32=worst[torch.float32]), \
+        worst[torch.bfloat16]
 
 
 def _gathered(torch, ref, kc, ks, vc, vs, bt, kspec, vspec):
@@ -401,14 +461,14 @@ def _gathered(torch, ref, kc, ks, vc, vs, bt, kspec, vspec):
 def check_decode_attention(torch, flush):
     """Contiguous MX decode attention at the static path's shapes (8 rows,
     S 640, 32 query heads over 2 KV heads, D 128)."""
-    import torch.nn.functional as F
     from repro_torch.core.spec import QuantSpec
     from repro_torch.kernels import ref
     from repro_torch.kernels.mx_decode_attn import mx_decode_attention
     from repro_torch.kernels.mx_quant import mx_quantize_2d
     gen = torch.Generator(device="cuda").manual_seed(7)
     b, s, hq, hkv, d = 8, 640, 32, 2, 128
-    worst, n_checked, row = 0.0, 0, None
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_checked, row = 0, None
     for kv in ("int8@32:ocp/int8@32:ocp", "int8@32:ocp/e2m1@32:ocp",
                "e4m3@32:paper/e4m3@32:paper"):
         kspec, vspec = (QuantSpec.parse(x) for x in kv.split("/"))
@@ -419,18 +479,13 @@ def check_decode_attention(torch, flush):
             cache += [c.reshape(b, s, hkv, d), sc.reshape(b, s, hkv, d // 32)]
         q32 = torch.randn(b, 1, hq, d, generator=gen, device="cuda")
         kw = dict(key_spec=kspec, value_spec=vspec, rep=hq // hkv)
-        for pos in (0, 1, 300, 575, 639):
+        for pos in (0, 1, 63, 64, 300, 575, 639):
             lengths = torch.full((b,), pos, dtype=torch.int32, device="cuda")
-            for dt in (torch.float32, torch.bfloat16):
-                q = q32.to(dt)
-                got = mx_decode_attention(q, *cache, pos, **kw)
-                want = ref.mx_decode_attention_ref(q, *cache, lengths, **kw)
-                if dt == torch.float32:
-                    torch.testing.assert_close(got, want, rtol=ATTN_TOL_F32,
-                                               atol=ATTN_TOL_F32)
-                    worst = max(worst, float((got - want).abs().max()))
-                else:                  # one bf16 rounding of f32 results
-                    torch.testing.assert_close(got, want)
+            for q in (q32, q32.to(torch.bfloat16),
+                      (q32 * 8).to(torch.bfloat16)):
+                _attn_check(torch, mx_decode_attention(q, *cache, pos, **kw),
+                            ref.mx_decode_attention_ref(q, *cache, lengths,
+                                                        **kw), worst)
                 n_checked += 1
         if vspec.fmt != "e2m1":
             continue
@@ -447,26 +502,30 @@ def check_decode_attention(torch, flush):
                                       (cache[2], cache[3], vspec)))
         mask = (torch.arange(s, device="cuda") <= pos)[None, None, None, :]
         qt = q.transpose(1, 2)
+        sdpa, best, sdpa_graph = sdpa_ms(torch, flush, qt, kd, vd,
+                                         attn_mask=mask, enable_gqa=True)
         row = dict(kernel="mx_decode_attention",
                    shape="8 rows, pos 575 of S 640, Hq 32, Hkv 2, D 128",
-                   spec=kv, max_abs_err=worst,
+                   spec=kv,
                    ms=time_ms(torch, lambda: mx_decode_attention(
                        q, *cache, pos, **kw), flush=flush),
+                   graph_ms=graph_ms(torch, lambda: mx_decode_attention(
+                       q, *cache, pos, **kw), flush=flush),
+                   library_graph_ms=sdpa_graph,
                    plain_ms=time_ms(torch, lambda: ref
                                     .mx_decode_attention_ref(
                                         q, *cache, lengths, **kw),
                                     flush=flush),
-                   library_ms=time_ms(torch, lambda: F
-                                      .scaled_dot_product_attention(
-                                          qt, kd, vd, attn_mask=mask,
-                                          enable_gqa=True), flush=flush),
-                   bound_ms=tb, bound_by=by, live_tokens=live)
+                   library_ms=sdpa[best], library_backend=best,
+                   sdpa_ms=sdpa, bound_ms=tb, bound_by=by, live_tokens=live)
         emit("time", **row)
     emit("check", kernel="mx_decode_attention", compared=n_checked,
-         max_abs_err=worst,
+         max_abs_err_bf16=worst[torch.bfloat16],
+         max_abs_err_f32=worst[torch.float32],
          criterion=f"f32 within {ATTN_TOL_F32}; bf16 within torch's bf16 "
                    f"defaults")
-    return row, worst
+    return dict(row, max_abs_err_f32=worst[torch.float32]), \
+        worst[torch.bfloat16]
 
 
 def check_flash(torch, flush):
@@ -875,9 +934,9 @@ def main() -> int:
     sources = {"mx_quantize_2d": "src/repro_torch/csrc/mx_quant.cu",
                "mx_matmul_2d": "src/repro_torch/csrc/mx_matmul_tc.cu",
                "mx_paged_decode_attention":
-                   "src/repro_torch/csrc/mx_paged_decode_attn.cu",
+                   "src/repro_torch/csrc/mx_decode_attn_tc.cu",
                "mx_decode_attention":
-                   "src/repro_torch/csrc/mx_decode_attn.cu",
+                   "src/repro_torch/csrc/mx_decode_attn_tc.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attn_tc.cu"}
     replaces = {
         "mx_quantize_2d": "src/repro/kernels/mx_quant.py:117",
@@ -898,8 +957,9 @@ def main() -> int:
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})
-        if "max_abs_err_f32" in row:      # flash: its f32 kernel's error
-            kernels[-1]["max_abs_err_f32"] = row["max_abs_err_f32"]
+        for key in ("max_abs_err_f32", "library_backend"):
+            if key in row:      # the f32 kernel's error; SDPA's backend
+                kernels[-1][key] = row[key]
     RESULTS["kernels"] = kernels
     RESULTS["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -1,4 +1,6 @@
-// MX decode attention over a contiguous cache for Hopper, sm_90a.
+// MX decode attention over a contiguous cache for f32 q on Hopper's CUDA
+// cores, sm_90a (bf16 q runs the tensor-core kernel of
+// mx_decode_attn_tc.cu).
 //
 // Replaces the Pallas kernel
 // src/repro/kernels/mx_decode_attn.py::_mx_decode_attention (body
@@ -36,13 +38,11 @@ namespace {
 
 using mxattn::kNegInf;
 using mxattn::kThreads;
-using mxattn::load_q;
 
 constexpr int kTile = 16;                      // tokens per shared tile
 
-template <typename TQ>
 __global__ void __launch_bounds__(kThreads) decode_attn_split_kernel(
-    const TQ* __restrict__ q, const uint8_t* __restrict__ kc,
+    const float* __restrict__ q, const uint8_t* __restrict__ kc,
     const uint8_t* __restrict__ ks, const uint8_t* __restrict__ vc,
     const uint8_t* __restrict__ vs, const float* __restrict__ ktab_g,
     const float* __restrict__ vtab_g, const float* __restrict__ stab_g,
@@ -74,9 +74,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split_kernel(
     vtab[i] = vtab_g[i];
     stab[i] = stab_g[i];
   }
-  const TQ* qb = q + ((long long)b * hq + g * rep) * d;
+  const float* qb = q + ((long long)b * hq + g * rep) * d;
   for (int i = tid; i < rep * d; i += kThreads) {
-    q_s[i] = load_q(qb + i);
+    q_s[i] = qb[i];
     acc[i] = 0.f;
   }
   for (int h = tid; h < rep; h += kThreads) {
@@ -115,7 +115,6 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split_kernel(
   }
 }
 
-template <typename TQ>
 int launch(const void* q, const void* kc, const void* ks, const void* vc,
            const void* vs, const void* ktab, const void* vtab,
            const void* stab, void* part, void* out, int bsz, int hq, int hkv,
@@ -126,28 +125,28 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
                         (size_t)rep * d + 3 * (size_t)rep;
   const size_t bytes = floats * sizeof(float);
   if (bytes > 48 * 1024) {
-    cudaFuncSetAttribute(decode_attn_split_kernel<TQ>,
+    cudaFuncSetAttribute(decode_attn_split_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
   }
   const int live = min(pos + 1, s_len);
   const int nsplit = (live + tokens_per_split - 1) / tokens_per_split;
-  decode_attn_split_kernel<TQ><<<dim3(hkv, bsz, nsplit), kThreads, bytes,
-                                 st>>>(
-      (const TQ*)q, (const uint8_t*)kc, (const uint8_t*)ks,
+  decode_attn_split_kernel<<<dim3(hkv, bsz, nsplit), kThreads, bytes,
+                             st>>>(
+      (const float*)q, (const uint8_t*)kc, (const uint8_t*)ks,
       (const uint8_t*)vc, (const uint8_t*)vs, (const float*)ktab,
       (const float*)vtab, (const float*)stab, (float*)part, hq, hkv, d,
       s_len, pos, tokens_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mxattn::merge_splits_kernel<TQ><<<dim3(hkv, bsz), kThreads, 0, st>>>(
-      (const float*)part, (TQ*)out, hq, hkv, d, nsplit);
+  mxattn::merge_splits_kernel<<<dim3(hkv, bsz), kThreads, 0, st>>>(
+      (const float*)part, (float*)out, hq, hkv, d, nsplit);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, Hq, D) f32 or bf16 (q_is_bf16); codes (B, S, Hkv, D) u8, one code
+// q (B, Hq, D) f32; codes (B, S, Hkv, D) u8, one code
 // per byte, rows 4-byte aligned; scales (B, S, Hkv, D/32) u8; out like q;
 // 0 <= pos.  part: B * Hkv * ceil(min(pos + 1, S) / tokens_per_split)
 // records of (Hq/Hkv) * (D + 2) floats.
@@ -155,14 +154,8 @@ extern "C" int mx_decode_attn_launch(
     const void* q, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* ktab, const void* vtab, const void* stab,
     void* part, void* out, int bsz, int hq, int hkv, int d, int s_len,
-    int pos, int q_is_bf16, int tokens_per_split, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+    int pos, int tokens_per_split, void* stream) {
   if (bsz == 0) return 0;
-  if (q_is_bf16) {
-    return launch<__nv_bfloat16>(q, kc, ks, vc, vs, ktab, vtab, stab, part,
-                                 out, bsz, hq, hkv, d, s_len, pos,
-                                 tokens_per_split, st);
-  }
-  return launch<float>(q, kc, ks, vc, vs, ktab, vtab, stab, part, out, bsz,
-                       hq, hkv, d, s_len, pos, tokens_per_split, st);
+  return launch(q, kc, ks, vc, vs, ktab, vtab, stab, part, out, bsz, hq, hkv,
+                d, s_len, pos, tokens_per_split, (cudaStream_t)stream);
 }

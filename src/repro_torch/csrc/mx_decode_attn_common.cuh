@@ -1,13 +1,14 @@
-// Device code shared by the two MX decode-attention kernels:
-// mx_decode_attn.cu (contiguous cache) and mx_paged_decode_attn.cu (page
-// pool).  Both own one (row, KV head) per block, dequantize a tile of
+// Device code shared by the two f32 MX decode-attention kernels (CUDA
+// cores): mx_decode_attn.cu (contiguous cache) and
+// mx_paged_decode_attn.cu (page pool); bf16 q runs the tensor-core
+// kernels of mx_decode_attn_tc.cu.  Both own one (row, KV head) per
+// block, dequantize a tile of
 // tokens into shared memory, fold it into the running online softmax of
 // all rep = Hq / Hkv query heads of the group (tile_update), and write a
 // (acc, max, sum) partial per block that merge_splits_kernel combines in
 // split order.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -16,15 +17,6 @@ namespace {  // internal linkage: each kernel file has its own copy
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float load_q(const float* p) { return *p; }
-__device__ __forceinline__ float load_q(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_o(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_o(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Fold one dequantized tile into the running softmax state.  k_s is
 // tile x (d + 1) (padded rows: no bank clash), v_s tile x d, p_s rep x
@@ -75,14 +67,13 @@ __device__ __forceinline__ void tile_update(
 // Merge the nsplit partial records of each (row, KV head) in split order
 // (deterministic) and apply the l == 0 -> 1 guard.  A record is
 // [rep x d acc | rep max | rep sum]; grid (Hkv, B).
-template <typename TQ>
 __global__ void __launch_bounds__(kThreads) merge_splits_kernel(
-    const float* __restrict__ part, TQ* __restrict__ out, int hq, int hkv,
-    int d, int nsplit) {
+    const float* __restrict__ part, float* __restrict__ out, int hq,
+    int hkv, int d, int nsplit) {
   const int g = blockIdx.x, b = blockIdx.y;
   const int rep = hq / hkv, rec = rep * d + 2 * rep;
   const float* base = part + ((long long)b * hkv + g) * nsplit * rec;
-  TQ* ob = out + ((long long)b * hq + g * rep) * d;
+  float* ob = out + ((long long)b * hq + g * rep) * d;
   for (int i = threadIdx.x; i < rep * d; i += kThreads) {
     const int h = i / d;
     float m = kNegInf;
@@ -94,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) merge_splits_kernel(
       l = fmaf(r[rep * d + rep + h], w, l);
       o = fmaf(r[i], w, o);
     }
-    store_o(ob + i, o / (l == 0.f ? 1.f : l));
+    ob[i] = o / (l == 0.f ? 1.f : l);
   }
 }
 

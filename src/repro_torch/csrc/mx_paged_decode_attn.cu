@@ -1,4 +1,5 @@
-// Paged MX decode attention for Hopper, sm_90a.
+// Paged MX decode attention for f32 q on Hopper's CUDA cores, sm_90a
+// (bf16 q runs the tensor-core kernel of mx_decode_attn_tc.cu).
 //
 // Replaces the Pallas kernel
 // src/repro/kernels/mx_decode_attn.py::_mx_paged_decode_attention (body
@@ -37,7 +38,6 @@ namespace {
 
 using mxattn::kNegInf;
 using mxattn::kThreads;
-using mxattn::load_q;
 
 // Codes 4q .. 4q+3 of one token-head row, packed into one word (byte i =
 // code 4q+i).  kind: 0 one code per byte, 1 4-bit, 2 6-bit.
@@ -55,9 +55,8 @@ __device__ __forceinline__ uint32_t load_quad(const uint8_t* row, int q,
          ((w >> 18) & 0x3F) << 24;
 }
 
-template <typename TQ>
 __global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
-    const TQ* __restrict__ q, const uint8_t* __restrict__ kc,
+    const float* __restrict__ q, const uint8_t* __restrict__ kc,
     const uint8_t* __restrict__ ks, const uint8_t* __restrict__ vc,
     const uint8_t* __restrict__ vs, const int* __restrict__ block_tables,
     const int* __restrict__ lengths, const float* __restrict__ ktab_g,
@@ -103,9 +102,9 @@ __global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
     vtab[i] = vtab_g[i];
     stab[i] = stab_g[i];
   }
-  const TQ* qb = q + ((long long)b * hq + g * rep) * d;
+  const float* qb = q + ((long long)b * hq + g * rep) * d;
   for (int i = tid; i < rep * d; i += kThreads) {
-    q_s[i] = load_q(qb + i);
+    q_s[i] = qb[i];
     acc[i] = 0.f;
   }
   for (int h = tid; h < rep; h += kThreads) {
@@ -142,7 +141,6 @@ __global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
   }
 }
 
-template <typename TQ>
 int launch(const void* q, const void* kc, const void* ks, const void* vc,
            const void* vs, const void* bt, const void* lengths,
            const void* ktab, const void* vtab, const void* stab, void* part,
@@ -155,28 +153,28 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
                         (size_t)rep * d + 3 * (size_t)rep;
   const size_t bytes = floats * sizeof(float);
   if (bytes > 48 * 1024) {
-    cudaFuncSetAttribute(paged_attn_split_kernel<TQ>,
+    cudaFuncSetAttribute(paged_attn_split_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
   }
   const int nsplit = (max_pages + pages_per_split - 1) / pages_per_split;
   dim3 grid(hkv, bsz, nsplit);
-  paged_attn_split_kernel<TQ><<<grid, kThreads, bytes, st>>>(
-      (const TQ*)q, (const uint8_t*)kc, (const uint8_t*)ks,
+  paged_attn_split_kernel<<<grid, kThreads, bytes, st>>>(
+      (const float*)q, (const uint8_t*)kc, (const uint8_t*)ks,
       (const uint8_t*)vc, (const uint8_t*)vs, (const int*)bt,
       (const int*)lengths, (const float*)ktab, (const float*)vtab,
       (const float*)stab, (float*)part, hq, hkv, d, page, max_pages, cb_k,
       cb_v, kpack, vpack, pages_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mxattn::merge_splits_kernel<TQ><<<dim3(hkv, bsz), kThreads, 0, st>>>(
-      (const float*)part, (TQ*)out, hq, hkv, d, nsplit);
+  mxattn::merge_splits_kernel<<<dim3(hkv, bsz), kThreads, 0, st>>>(
+      (const float*)part, (float*)out, hq, hkv, d, nsplit);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, Hq, D) f32 or bf16 (q_is_bf16); pools (P, page, Hkv, CB) u8 and
+// q (B, Hq, D) f32; pools (P, page, Hkv, CB) u8 and
 // (P, page, Hkv, D/32) u8, code rows 4-byte aligned for one-byte codes and
 // 2-byte aligned for 4-bit codes; block_tables (B, max_pages) i32; lengths
 // (B,) i32; out like q.  kpack/vpack: 0 one code per byte, 1 4-bit, 2
@@ -187,17 +185,10 @@ extern "C" int mx_paged_decode_attn_launch(
     const void* vs, const void* block_tables, const void* lengths,
     const void* ktab, const void* vtab, const void* stab, void* part,
     void* out, int bsz, int hq, int hkv, int d, int page, int max_pages,
-    int cb_k, int cb_v, int kpack, int vpack, int q_is_bf16,
-    int pages_per_split, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+    int cb_k, int cb_v, int kpack, int vpack, int pages_per_split,
+    void* stream) {
   if (bsz == 0) return 0;
-  if (q_is_bf16) {
-    return launch<__nv_bfloat16>(q, kc, ks, vc, vs, block_tables, lengths,
-                                 ktab, vtab, stab, part, out, bsz, hq, hkv, d,
-                                 page, max_pages, cb_k, cb_v, kpack, vpack,
-                                 pages_per_split, st);
-  }
-  return launch<float>(q, kc, ks, vc, vs, block_tables, lengths, ktab, vtab,
-                       stab, part, out, bsz, hq, hkv, d, page, max_pages,
-                       cb_k, cb_v, kpack, vpack, pages_per_split, st);
+  return launch(q, kc, ks, vc, vs, block_tables, lengths, ktab, vtab, stab,
+                part, out, bsz, hq, hkv, d, page, max_pages, cb_k, cb_v,
+                kpack, vpack, pages_per_split, (cudaStream_t)stream);
 }

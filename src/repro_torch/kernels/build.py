@@ -37,8 +37,10 @@ SIGNATURES: Dict[str, str] = {
     "mx_quant_launch": "ppp" + "ii" + "i" * 11 + "p",
     "mx_matmul_launch": "ppppppp" + "i" * 5 + "p",
     "mx_matmul_tc_launch": "ppppppp" + "i" * 5 + "p",
-    "mx_paged_decode_attn_launch": "p" * 12 + "i" * 12 + "p",
-    "mx_decode_attn_launch": "p" * 10 + "i" * 8 + "p",
+    "mx_paged_decode_attn_launch": "p" * 12 + "i" * 11 + "p",
+    "mx_decode_attn_launch": "p" * 10 + "i" * 7 + "p",
+    "mx_paged_decode_attn_tc_launch": "p" * 12 + "i" * 12 + "p",
+    "mx_decode_attn_tc_launch": "p" * 10 + "i" * 8 + "p",
     "flash_attn_launch": "pppp" + "i" * 7 + "p",
     "flash_attn_tc_launch": "pppp" + "i" * 7 + "p",
 }

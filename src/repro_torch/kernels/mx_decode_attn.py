@@ -1,9 +1,11 @@
-"""MX decode attention as CUDA kernels: over a contiguous cache
-(csrc/mx_decode_attn.cu) and over a page pool
-(csrc/mx_paged_decode_attn.cu).
+"""MX decode attention as CUDA kernels, over a contiguous cache and over a
+page pool.
 
 Ports of src/repro/kernels/mx_decode_attn.py::mx_decode_attention and
-::mx_paged_decode_attention.  On CUDA tensors each wrapper launches its
+::mx_paged_decode_attention.  bf16 q (the serving path) runs the
+tensor-core kernels of csrc/mx_decode_attn_tc.cu; f32 q runs the
+CUDA-core kernels of csrc/mx_decode_attn.cu and
+csrc/mx_paged_decode_attn.cu.  On CUDA tensors each wrapper launches its
 kernel (or raises); on CPU tensors it computes the plain version,
 ``ref.mx_decode_attention_ref`` / ``ref.mx_paged_decode_attention_ref``.
 """
@@ -16,9 +18,24 @@ import torch
 from repro_torch.core.spec import as_spec
 from repro_torch.kernels import build, ref, tables
 
-PAGES_PER_SPLIT = 2     # pages one block walks; a slot's pages spread over
-#                         ceil(max_pages / 2) blocks per KV head
-TOKENS_PER_SPLIT = 32   # contiguous cache: positions one block walks
+PAGES_PER_SPLIT = 2     # f32 kernels: pages one block walks; a slot's
+#                         pages spread over ceil(max_pages / 2) blocks
+TOKENS_PER_SPLIT = 32   # f32 kernel, contiguous cache: positions per block
+SPLIT_BLOCKS = 264      # bf16 kernels: blocks to aim for, two per SM of
+#                         an H100's 132
+TC_HEAD_DIMS = (32, 64, 128)   # head dims of the bf16 kernels
+TC_ROWS = 16            # query heads of one bf16 block (one m16 tile)
+
+
+def split_tokens(span: int, pairs: int) -> int:
+    """Positions one block of the bf16 kernels walks: whole passes of its
+    4 warps over 16-position tiles (64 positions), as few passes as give
+    ``SPLIT_BLOCKS`` blocks over ``pairs`` (row, KV head, m-tile) triples
+    and ``span`` positions.  A function of the shapes alone, not of the
+    data: at 8 rows x 2 KV heads and 576 positions, 64 (144 blocks)."""
+    passes = max(1, -(-span // 64))
+    want = max(1, -(-SPLIT_BLOCKS // pairs))
+    return 64 * -(-passes // want)
 
 
 def _require_block32(key_spec, value_spec) -> None:
@@ -45,6 +62,28 @@ def _check_cuda_operands(name, q, operands, int_operands=()) -> None:
                          f"tables int32")
     if not all(t.is_contiguous() for t in (q, *operands, *int_operands)):
         raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _check_tc_operands(name, q, codes) -> None:
+    """The bf16 kernels' contract: a head dim they are built for and
+    16-byte aligned q and code rows."""
+    d = q.shape[-1]
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"{name}: bf16 q needs a head dim in "
+                         f"{TC_HEAD_DIMS}, got {d}")
+    if any(t.data_ptr() % 16 for t in (q, *codes)):
+        raise ValueError(f"{name}: bf16 q and the code caches must be "
+                         f"16-byte aligned")
+
+
+def _records(b, hkv, rep, d, span, dev):
+    """(split_tokens, nsplit, record buffer) of a bf16 launch."""
+    mtiles = -(-rep // TC_ROWS)
+    st = split_tokens(span, b * hkv * mtiles)
+    nsplit = -(-span // st)
+    part = torch.empty((b, hkv * mtiles, nsplit, TC_ROWS * (d + 2)),
+                       dtype=torch.float32, device=dev)
+    return st, nsplit, part
 
 
 def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
@@ -87,18 +126,27 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
         raise ValueError("mx_decode_attention: code caches must be "
                          "word-aligned")
     dev = q.device
-    nsplit = -(-min(pos + 1, s_len) // TOKENS_PER_SPLIT)
-    part = torch.empty((b, hkv, nsplit, rep * (d + 2)), dtype=torch.float32,
-                       device=dev)
+    live = min(pos + 1, s_len)
     out = torch.empty_like(q)
-    err = build.lib().mx_decode_attn_launch(
-        q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
-        v_codes.data_ptr(), v_scales.data_ptr(),
-        tables.elem_table(key_spec, dev).data_ptr(),
-        tables.elem_table(value_spec, dev).data_ptr(),
-        tables.scale_table(dev).data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, hq, hkv, d, s_len, pos, int(q.dtype == torch.bfloat16),
-        TOKENS_PER_SPLIT, torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
+            v_codes.data_ptr(), v_scales.data_ptr(),
+            tables.elem_table(key_spec, dev).data_ptr(),
+            tables.elem_table(value_spec, dev).data_ptr(),
+            tables.scale_table(dev).data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if q.dtype == torch.bfloat16:
+        _check_tc_operands("mx_decode_attention", q, (k_codes, v_codes))
+        st, nsplit, part = _records(b, hkv, rep, d, live, dev)
+        err = build.lib().mx_decode_attn_tc_launch(
+            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, s_len,
+            pos, st, nsplit, stream)
+    else:
+        nsplit = -(-live // TOKENS_PER_SPLIT)
+        part = torch.empty((b, hkv, nsplit, rep * (d + 2)),
+                           dtype=torch.float32, device=dev)
+        err = build.lib().mx_decode_attn_launch(
+            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, s_len,
+            pos, TOKENS_PER_SPLIT, stream)
     build.check(err, "mx_decode_attention")
     mx_decode_attention.launches += 1
     return out
@@ -154,19 +202,27 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
                              "be word-aligned")
     dev = q.device
     max_pages = block_tables.shape[1]
-    nsplit = -(-max_pages // PAGES_PER_SPLIT)
-    part = torch.empty((b, hkv, nsplit, rep * (d + 2)), dtype=torch.float32,
-                       device=dev)
     out = torch.empty_like(q)
-    err = build.lib().mx_paged_decode_attn_launch(
-        q.data_ptr(), kc_pool.data_ptr(), ks_pool.data_ptr(),
-        vc_pool.data_ptr(), vs_pool.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), tables.elem_table(key_spec, dev).data_ptr(),
-        tables.elem_table(value_spec, dev).data_ptr(),
-        tables.scale_table(dev).data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, hq, hkv, d, page, max_pages, cb_k, cb_v, kkind, vkind,
-        int(q.dtype == torch.bfloat16), PAGES_PER_SPLIT,
-        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (q.data_ptr(), kc_pool.data_ptr(), ks_pool.data_ptr(),
+            vc_pool.data_ptr(), vs_pool.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), tables.elem_table(key_spec, dev).data_ptr(),
+            tables.elem_table(value_spec, dev).data_ptr(),
+            tables.scale_table(dev).data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if q.dtype == torch.bfloat16:
+        _check_tc_operands("mx_paged_decode_attention", q,
+                           (kc_pool, vc_pool))
+        st, nsplit, part = _records(b, hkv, rep, d, max_pages * page, dev)
+        err = build.lib().mx_paged_decode_attn_tc_launch(
+            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, page,
+            max_pages, cb_k, cb_v, kkind, vkind, st, nsplit, stream)
+    else:
+        nsplit = -(-max_pages // PAGES_PER_SPLIT)
+        part = torch.empty((b, hkv, nsplit, rep * (d + 2)),
+                           dtype=torch.float32, device=dev)
+        err = build.lib().mx_paged_decode_attn_launch(
+            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, page,
+            max_pages, cb_k, cb_v, kkind, vkind, PAGES_PER_SPLIT, stream)
     build.check(err, "mx_paged_decode_attention")
     mx_paged_decode_attention.launches += 1
     return out

@@ -16,8 +16,9 @@ traces ``SYNC_EVERY`` decode steps of each serving path with
 
 Prints one JSON line per path: wall time per step, the device's busy
 time per step (union of kernel intervals), its busy share, kernel
-launches per step, and the kernels that take the most device time.
-Needs a CUDA device.
+launches per step, the MX decode-attention kernels' time per step (the
+split kernel and the merge kernel apart), and the kernels that take the
+most device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -76,6 +77,10 @@ def _report(path: str, prof, wall: float, steps: int, layers: int) -> None:
         by_name[e.name] += e.time_range.elapsed_us()
         counts[e.name] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    attn = {"split": 0.0, "merge": 0.0}      # MX decode attention, us
+    for name, us in by_name.items():
+        if "decode_attn" in name or "paged_attn" in name:
+            attn["merge" if "merge" in name else "split"] += us
     print(json.dumps({
         "phase": "profile_decode", "path": path,
         "card": torch.cuda.get_device_name(0), "layers": layers, "rows": 8,
@@ -83,6 +88,8 @@ def _report(path: str, prof, wall: float, steps: int, layers: int) -> None:
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_busy_share": busy_us / 1e6 / wall,
         "kernel_launches_per_step": len(kernels) / steps,
+        "attention_ms_per_step": {k: us / 1e3 / steps
+                                  for k, us in attn.items()},
         "top_kernels_ms_per_step": [
             {"name": n[:80], "ms": us / 1e3 / steps,
              "launches": counts[n] / steps} for n, us in top]}),

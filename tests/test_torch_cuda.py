@@ -14,7 +14,7 @@ from repro_torch.core import MXWeight
 from repro_torch.core.formats import ALL_FORMATS
 from repro_torch.core.pack import pack_codes, packed_nbytes
 from repro_torch.core.spec import QuantSpec
-from repro_torch.kernels import ref
+from repro_torch.kernels import mx_decode_attn, ref
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
                                                 mx_paged_decode_attention)
@@ -216,6 +216,155 @@ def test_decode_attention_kernel_matches_plain(dev, kv):
                 torch.testing.assert_close(got.cpu(), want)
 
 
+# bf16 q, tensor-core kernels (csrc/mx_decode_attn_tc.cu): rep 16, 7, 1 and
+# 32 (two m-tiles), D 64 and 128, positions at tile (16), split (64) and
+# page edges; held to torch's bf16 defaults against the plain version
+TC_SHAPES = [(16, 2, 128), (7, 2, 64), (1, 2, 64), (32, 1, 128),
+             (16, 1, 64)]
+TC_POSITIONS = (0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 575, 639)
+
+
+def _bf16_contiguous(rng, rep, hkv, d, kv="int8@32:ocp/e2m1@32:ocp", b=3,
+                     s=640):
+    ks_, vs_ = (QuantSpec.parse(x) for x in kv.split("/"))
+    args = _contiguous_case(rng, ks_, vs_, b=b, s=s, hq=hkv * rep, hkv=hkv,
+                            d=d)
+    args[0] = args[0].to(torch.bfloat16)
+    return args, dict(key_spec=ks_, value_spec=vs_, rep=rep)
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_decode_attention_tc_matches_plain(dev, shape):
+    rep, hkv, d = shape
+    args, kw = _bf16_contiguous(np.random.default_rng(rep + d), rep, hkv, d)
+    on_dev = [t.to(dev) for t in args]
+    for pos in TC_POSITIONS:
+        want = mx_decode_attention(*args, pos, **kw)
+        got = mx_decode_attention(*on_dev, pos, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.cpu(), want,
+                                   msg=lambda m: f"pos {pos}: {m}")
+
+
+def _bf16_paged(rng, kspec, vspec, rep=16, hkv=2, d=128, page=16, npg=40,
+                scale_code=None):
+    """8 slots with ragged lengths at page and split edges (an idle slot
+    of length 0), trash-padded block-table rows; bf16 q x 2."""
+    b = 8
+    lengths = torch.tensor([0, 1, 15, 16, 63, 64, 100, npg * page - 1],
+                           dtype=torch.int32)
+    n_pool = b * npg + 1
+    q = torch.from_numpy(rng.normal(size=(b, 1, hkv * rep, d)).astype(
+        np.float32) * 2).to(torch.bfloat16)
+
+    def pool(spec):
+        x = torch.from_numpy(
+            rng.normal(size=(n_pool * page * hkv, d)).astype(np.float32))
+        c, sc = mx_quantize_2d(x, spec)
+        if spec.packed:
+            c = pack_codes(c, spec.fmt)
+        return (c.reshape(n_pool, page, hkv, -1),
+                sc.reshape(n_pool, page, hkv, d // 32))
+
+    kc, ks = pool(kspec)
+    vc, vs = pool(vspec)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, n_pool)).reshape(
+        b, npg).astype(np.int32))
+    live = (lengths.long() // page + 1)[:, None]
+    bt = torch.where(torch.arange(npg)[None] < live, bt, 0).to(torch.int32)
+    if scale_code is not None:      # one block of the last slot below 10
+        ks[bt[-1, 0], 1, 0, 0] = scale_code
+        vs[bt[-1, 0], 1, 0, 0] = scale_code
+    return (q, kc, ks, vc, vs, bt, lengths), dict(
+        key_spec=kspec, value_spec=vspec, rep=rep)
+
+
+@pytest.mark.parametrize("mode", ["paper", "ocp"])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_paged_attention_tc_matches_plain(dev, fmt, mode):
+    """Every format and mode in the pools (one code per byte, 4-bit and
+    6-bit packed), K and V of one format, and K INT8 with it as V."""
+    spec = QuantSpec(fmt, mode)
+    rng = np.random.default_rng(FMTS.index(fmt))
+    for kspec in (spec, QuantSpec("int8", mode)):
+        args, kw = _bf16_paged(rng, kspec, spec)
+        want = mx_paged_decode_attention(*args, **kw)
+        got = mx_paged_decode_attention(*(t.to(dev) for t in args), **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), want,
+                                   msg=lambda m: f"K {kspec}: {m}")
+
+
+def test_decode_attention_tc_shapes_and_page_sizes(dev):
+    """Paged: rep 7, 1 and 32 at D 64, page 8 (a 16-position tile spans
+    two pages)."""
+    rng = np.random.default_rng(11)
+    ks_, vs_ = QuantSpec.parse("int8@32:ocp"), QuantSpec.parse("e2m1@32:ocp")
+    for rep, hkv, d, page in ((7, 2, 64, 8), (1, 2, 64, 16),
+                              (32, 1, 128, 8)):
+        args, kw = _bf16_paged(rng, ks_, vs_, rep=rep, hkv=hkv, d=d,
+                               page=page, npg=80 if page == 8 else 40)
+        want = mx_paged_decode_attention(*args, **kw)
+        got = mx_paged_decode_attention(*(t.to(dev) for t in args), **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), want,
+                                   msg=lambda m: f"rep {rep}: {m}")
+
+
+def test_decode_attention_tc_low_scale_block(dev):
+    """A block with scale code 5 (E5M2: the bf16 fold rounds below code
+    10) in K and V, held to the same criterion."""
+    spec = QuantSpec.parse("e5m2@32:ocp")
+    args, kw = _bf16_paged(np.random.default_rng(12), spec, spec,
+                           scale_code=5)
+    want = mx_paged_decode_attention(*args, **kw)
+    got = mx_paged_decode_attention(*(t.to(dev) for t in args), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want)
+    cargs, ckw = _bf16_contiguous(np.random.default_rng(13), 16, 2, 128,
+                                  kv="e5m2@32:ocp/e5m2@32:ocp")
+    cargs[2].view(-1, 4)[1, 0] = 5
+    cargs[4].view(-1, 4)[1, 0] = 5
+    want = mx_decode_attention(*cargs, 575, **ckw)
+    got = mx_decode_attention(*(t.to(dev) for t in cargs), 575, **ckw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want)
+
+
+def test_decode_attention_tc_one_split_per_row(dev, monkeypatch):
+    """With one split per row every warp walks many tiles: the codes of
+    the next tile in flight, the online rescale across tiles."""
+    monkeypatch.setattr(mx_decode_attn, "SPLIT_BLOCKS", 1)
+    rng = np.random.default_rng(14)
+    args, kw = _bf16_contiguous(rng, 16, 2, 128)
+    for pos in (65, 575, 639):
+        want = mx_decode_attention(*args, pos, **kw)
+        got = mx_decode_attention(*(t.to(dev) for t in args), pos, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), want)
+    spec = QuantSpec.parse("e3m2@32:paper")
+    pargs, pkw = _bf16_paged(rng, QuantSpec.parse("int8@32:ocp"), spec)
+    want = mx_paged_decode_attention(*pargs, **pkw)
+    got = mx_paged_decode_attention(*(t.to(dev) for t in pargs), **pkw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want)
+
+
+def test_decode_attention_tc_is_deterministic(dev):
+    """No atomics: two calls give the same bits."""
+    rng = np.random.default_rng(15)
+    args, kw = _bf16_contiguous(rng, 16, 2, 128, b=8)
+    args = [t.to(dev) for t in args]
+    assert torch.equal(mx_decode_attention(*args, 575, **kw),
+                       mx_decode_attention(*args, 575, **kw))
+    pargs, pkw = _bf16_paged(rng, QuantSpec.parse("int8@32:ocp"),
+                             QuantSpec.parse("e2m1@32:ocp"))
+    pargs = [t.to(dev) for t in pargs]
+    assert torch.equal(mx_paged_decode_attention(*pargs, **pkw),
+                       mx_paged_decode_attention(*pargs, **pkw))
+
+
 @pytest.mark.parametrize("case", [
     (2, 128, 128, 4, 2, 32, True),
     (1, 77, 77, 4, 1, 64, True),          # ragged S
@@ -281,6 +430,21 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
                                        dtype=torch.float16),
                             codes, scales, codes, scales, 39,
                             key_spec=spec, value_spec=spec, rep=2)
+    q16 = torch.ones(1, 1, 4, 64, device=dev, dtype=torch.bfloat16)
+    before = mx_decode_attention.launches       # bf16: the tensor-core one
+    mx_decode_attention(q16, codes, scales, codes, scales, 39,
+                        key_spec=spec, value_spec=spec, rep=2)
+    assert mx_decode_attention.launches == before + 1
+    pool = torch.zeros(3, 16, 2, 64, dtype=torch.uint8, device=dev)
+    pscales = torch.full((3, 16, 2, 2), 127, dtype=torch.uint8, device=dev)
+    bt = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([20], dtype=torch.int32, device=dev)
+    for q in (q16, q16.float()):                # either kernel counts once
+        before = mx_paged_decode_attention.launches
+        mx_paged_decode_attention(q, pool, pscales, pool, pscales, bt,
+                                  lengths, key_spec=spec, value_spec=spec,
+                                  rep=2)
+        assert mx_paged_decode_attention.launches == before + 1
     for dt in (torch.float32, torch.bfloat16):  # either kernel counts once
         x = torch.ones(1, 16, 4, 64, device=dev, dtype=dt)
         before = flash_attention.launches
