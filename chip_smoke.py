@@ -11,21 +11,29 @@ failure (the script then exits non-zero and prints no result line):
    ``src/repro_torch/csrc`` with nvcc (timed);
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving paths give it, and time kernel, plain version, a
-   PyTorch library call on dequantized inputs, and the bound; the MX
+   PyTorch library call on dequantized inputs, and the bound; the
+   converter's two kernels (vectorized, and one lane per element for
+   ragged or misaligned rows) and the fused KV write (paged and
+   contiguous, every format and mode, bit for bit; timed beside today's
+   composition of separate launches); the MX
    matmul, flash attention and both MX decode attentions in bf16 (tensor
    cores) and f32 (CUDA cores), and the matmul's rows bit-identical
    whatever the batch; decode attention's library call is timed under
    every SDPA backend that accepts it and the fastest reported, and the
    kernel and that call also replayed from a CUDA graph (device time
    without the host's per-call work);
-3. serve full-width chatglm3-6b (28 layers, random weights from a seed)
+3. load full-width chatglm3-6b (28 layers, random weights from a seed,
+   quantized to MX by the converter as each layer is made) and serve it
    through ``ContinuousBatchingEngine`` with 8-bit MX weights, INT8 key
-   pages and packed E2M1 value pages; count each kernel's launches on that
-   run and check ``sync_every`` 1 and 8 give the same tokens; then serve a
-   static batch through ``ServeEngine`` on the same weights, once with the
-   MX KV cache (contiguous MX decode attention) and once with a bf16 cache
-   (flash prefill), counting launches of each run, and check the
-   continuous engine gives the static engine's tokens;
+   pages and packed E2M1 value pages; count each kernel's launches on the
+   load and on the serving run and check ``sync_every`` 1 and 8 give the
+   same tokens; then serve a static batch through ``ServeEngine`` on the
+   same weights, once with the MX KV cache (contiguous MX decode
+   attention) and once with a bf16 cache (flash prefill), counting
+   launches of each run, and check the continuous engine gives the static
+   engine's tokens; then a reduced-width model at head dim 48, which no
+   attention kernel takes, through both engines in bf16 (dense attention,
+   the KV write still fused) against the CPU;
 4. the continuous engine at full width but 2 layers in f32, once on the
    card and once on the CPU (the kernels' plain versions): first-prefill
    logits and greedy tokens must agree; likewise ``ServeEngine`` over an
@@ -69,6 +77,12 @@ MATMUL_TOL = 1e-4      # max |kernel - plain| / max |plain|: f32 sums of up
 #                        to 13696 products in another order
 ATTN_TOL_F32 = 2e-5    # the reference's own attention-kernel tolerance
 FLASH_TOL_BF16 = 2e-2  # tests/test_kernel_flash_attn.py's bf16 tolerance
+KV_WRITE_FMTS = FMTS    # value roles of check_kv_write, beside two keys
+BF16_FLIP_TOL = 2e-2   # C5 run (bf16, card vs CPU): a token may differ only
+#                        at a top-2 logit gap below this, a few bf16 steps
+#                        (2^-8 relative) of the logits; f32 sums in another
+#                        order now and then round an activation to the
+#                        neighbouring bf16
 LOGITS_TOL = 2e-3      # phase 4: card vs CPU, f32, two full-width layers.
 #                        The two sum in other orders, so now and then a
 #                        K/V element lands on the other side of an MX
@@ -157,9 +171,15 @@ def sdpa_ms(torch, flush, *args, **kw):
 # phase 2: kernels against their plain versions
 # =============================================================================
 def check_converter(torch, flush):
+    """Both converter kernels bit for bit against the plain converter: the
+    vectorized one (rows a multiple of 32, 16-byte aligned) and the one-
+    lane-per-element one (a ragged row, rows starting 4 bytes in); the
+    weight shape timed on each (the second through its C entry, as the
+    kernel the converter ran before the vectorized one)."""
     from repro_torch.core.spec import QuantSpec
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.mx_quant import (_format_args, mx_quantize_2d,
+                                              vectorized)
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = "cuda"
     special = torch.randn(64, 4096, generator=gen, device=dev)
@@ -178,7 +198,14 @@ def check_converter(torch, flush):
         "weight load, w1^T (13696 x 4096)":
             torch.randn(13696, 4096, generator=gen, device=dev) * 0.016,
         "ragged rows (N=77)": torch.randn(33, 77, generator=gen, device=dev),
+        "misaligned rows (start 4 B in)": torch.randn(
+            64 * 4096 + 1, generator=gen, device=dev)[1:].view(64, 4096),
     }
+    kernel_of = {name: "vectorized" if vectorized(x) else "lane"
+                 for name, x in shapes.items()}
+    if [n for n, k in kernel_of.items() if k == "lane"] != [
+            "ragged rows (N=77)", "misaligned rows (start 4 B in)"]:
+        raise AssertionError(f"converter kernel choice {kernel_of}")
     n_checked = 0
     for fmt in FMTS:
         for mode in MODES:
@@ -192,7 +219,7 @@ def check_converter(torch, flush):
                         f"the plain version")
                 n_checked += 1
     emit("check", kernel="mx_quantize_2d", compared=n_checked,
-         criterion="bit-identical codes and scales")
+         kernels=kernel_of, criterion="bit-identical codes and scales")
     rows = {}
     for name, spec in (("kv_write (8 slots x 2 heads, D=128)", "int8@32:ocp"),
                        ("weight load, w1^T (13696 x 4096)", "e4m3@32:ocp")):
@@ -206,10 +233,219 @@ def check_converter(torch, flush):
                               flush=flush),
                    plain_ms=time_ms(torch, lambda: ref.mx_quantize_2d_ref(
                        x, spec), flush=flush),
-                   bound_ms=tb, bound_by=by, library_ms=None)
+                   bound_ms=tb, bound_by=by, library_ms=None,
+                   converter_kernel=kernel_of[name])
+        if kernel_of[name] == "vectorized":
+            m, n = x.shape
+            codes = torch.empty((m, n), dtype=torch.uint8, device=dev)
+            scales = torch.empty((m, n // 32), dtype=torch.uint8, device=dev)
+            args = (x.data_ptr(), codes.data_ptr(), scales.data_ptr(), m, n,
+                    *_format_args(spec))
+
+            def lane():
+                build.check(build.lib().mx_quant_launch(
+                    *args, torch.cuda.current_stream().cuda_stream), "lane")
+
+            row["lane_kernel_ms"] = time_ms(torch, lane, flush=flush)
+            if not torch.equal(codes, mx_quantize_2d(x, spec)[0]):
+                raise AssertionError("converter: the two kernels disagree")
         emit("time", **row)
         rows[name] = row
-    return rows["kv_write (8 slots x 2 heads, D=128)"], 0.0
+    return rows["weight load, w1^T (13696 x 4096)"], 0.0
+
+
+def _composed_kv_write(torch, pool, k, v, block_tables, lengths, kspec,
+                       vspec):
+    """The paged KV write as the port composed it before the fused kernel
+    (separate launches: page and offset math, the bf16 -> f32 casts, the
+    converter kernel per role, the packs, four indexed stores).  A
+    yardstick timed here only; the port no longer runs it."""
+    from repro_torch.core.pack import pack_codes
+    from repro_torch.kernels.ops import mx_quantize
+    page = pool["kc_pages"].shape[1]
+    pages = torch.gather(block_tables, 1, (lengths // page)[:, None].to(
+        torch.int64))[:, 0].to(torch.int64)
+    offsets = (lengths % page).to(torch.int64)
+    out = {}
+    for side, x, spec in (("k", k, kspec), ("v", v, vspec)):
+        mx = mx_quantize(x, spec, axis=-1)
+        c = pack_codes(mx.codes, spec.fmt) if spec.packed else mx.codes
+        out[f"{side}c_pages"], out[f"{side}s_pages"] = c, mx.scales
+    for name, val in out.items():
+        pool[name][pages, offsets] = val[:, 0]
+
+
+def _kv_rand(torch, gen, shape, dtype, special):
+    """k or v on the card; ``special`` adds a NaN block and an Inf block
+    (paper-mode markers) and an f32-subnormal row."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if special:
+        x[0, 0, 0, 5] = float("nan")
+        x[-1, -1, -1, 40] = -float("inf")
+        x[..., 1, :] *= 1e-39
+    return x.to(dtype)
+
+
+def check_kv_write(torch, flush):
+    """The fused KV write (csrc/mx_kv_write.cu) bit for bit against its
+    plain versions on the card: every value format x mode beside INT8 and
+    E4M3 keys, packed and unpacked pools, pages of 16 (bf16 k/v, D 128)
+    and 8 (f32, D 48: codes padded to 64), slots mid-page, at a page's
+    last offset and at offset 0 of a fresh page, idle slots on the trash
+    page (left out of the comparison: their stores collide there, in any
+    order); NaN / Inf blocks in paper mode; the contiguous cache at s 1
+    and 512; and the two timed writes (the paged decode write at the
+    serving shape, the static prefill's 8 x 512).  Timed beside the plain
+    version and today's composition of separate launches."""
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
+                                                 mx_paged_kv_write)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dev = "cuda"
+
+    def rand_bytes(shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    def pool_of(kspec, vspec, n_pages, page, n_kv, hd):
+        cl = -(-hd // 32) * 32
+        return {"kc_pages": rand_bytes((n_pages, page, n_kv,
+                                        kspec.storage_nbytes(cl))),
+                "ks_pages": rand_bytes((n_pages, page, n_kv, cl // 32)),
+                "vc_pages": rand_bytes((n_pages, page, n_kv,
+                                        vspec.storage_nbytes(cl))),
+                "vs_pages": rand_bytes((n_pages, page, n_kv, cl // 32))}
+
+    def same(what, got, want):
+        for n in got:
+            if not torch.equal(got[n], want[n]):
+                raise AssertionError(f"{what}: {n} differs from the plain "
+                                     f"version")
+
+    b, n_kv, npg = 8, 2, 4
+    n_paged = n_cache = 0
+    for kname in ("int8@32:ocp", "e4m3@32:paper"):
+        kspec = QuantSpec.parse(kname)
+        for fmt in KV_WRITE_FMTS:
+            for mode in MODES:
+                for packed in (True, False):
+                    vspec = QuantSpec(fmt, mode, 32, packed)
+                    for page, hd, dt in ((16, 128, torch.bfloat16),
+                                         (8, 48, torch.float32)):
+                        pool = pool_of(kspec, vspec, 1 + b * npg, page, n_kv,
+                                       hd)
+                        plain = {n: t.clone() for n, t in pool.items()}
+                        bt = (1 + torch.arange(b * npg, dtype=torch.int32,
+                                               device=dev)).reshape(b, npg)
+                        bt[6:] = 0                       # idle slots
+                        lengths = torch.tensor(
+                            [5, page - 1, page, 2 * page, 3 * page + 2,
+                             4 * page - 1, 0, 0], dtype=torch.int32,
+                            device=dev)
+                        k, v = (_kv_rand(torch, gen, (b, 1, n_kv, hd), dt,
+                                         "paper" in (mode, kspec.mode))
+                                for _ in range(2))
+                        mx_paged_kv_write(pool, k, v, bt, lengths, kspec,
+                                          vspec)
+                        ref.mx_paged_kv_write_ref(plain, k, v, bt, lengths,
+                                                  kspec, vspec)
+                        for n in pool:
+                            if not torch.equal(pool[n][1:], plain[n][1:]):
+                                raise AssertionError(
+                                    f"mx_paged_kv_write {kspec}/{vspec} page "
+                                    f"{page} D {hd} {dt}: {n} differs from "
+                                    f"the plain version")
+                        n_paged += 1
+                # the contiguous cache: a prefill of 512, then a decode
+                vspec = QuantSpec(fmt, mode)
+                for hd, dt in ((128, torch.bfloat16), (48, torch.float32)):
+                    cl = -(-hd // 32) * 32
+                    cache = {n: rand_bytes((2, 520, n_kv, w)) for n, w in
+                             (("k_codes", cl), ("k_scales", cl // 32),
+                              ("v_codes", cl), ("v_scales", cl // 32))}
+                    plain = {n: t.clone() for n, t in cache.items()}
+                    for pos, s_ in ((0, 512), (512, 1), (519, 1)):
+                        k, v = (_kv_rand(torch, gen, (2, s_, n_kv, hd), dt,
+                                         "paper" in (mode, kspec.mode))
+                                for _ in range(2))
+                        mx_cache_kv_write(cache, k, v, pos, kspec, vspec)
+                        ref.mx_cache_kv_write_ref(plain, k, v, pos, kspec,
+                                                  vspec)
+                    for n in cache:
+                        if not torch.equal(cache[n], plain[n]):
+                            raise AssertionError(
+                                f"mx_cache_kv_write {kspec}/{vspec} D {hd} "
+                                f"{dt}: {n} differs from the plain version")
+                    n_cache += 1
+    # timing at the serving shape: 8 slots, 2 KV heads, D 128, bf16,
+    # INT8 keys / packed E2M1 values, pages of 16 (the continuous path)
+    kspec, vspec = QuantSpec.parse("int8@32:ocp"), QuantSpec.parse(
+        "e2m1@32:ocp")
+    b, page, npg, hd = 8, 16, 36, 128
+    pool = pool_of(kspec, vspec, 1 + b * npg, page, n_kv, hd)
+    bt = (1 + torch.randperm(b * npg, generator=gen, device=dev)).reshape(
+        b, npg).to(torch.int32)
+    lengths = torch.randint(0, npg * page, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    k, v = (_kv_rand(torch, gen, (b, 1, n_kv, hd), torch.bfloat16, False)
+            for _ in range(2))
+    rows = b * n_kv
+    nbytes = (2 * k.numel() * k.element_size() + 2 * b * 4
+              + rows * (kspec.storage_nbytes(hd) + vspec.storage_nbytes(hd)
+                        + 2 * hd // 32))
+    tb, by = bound(nbytes, 2 * k.numel() * CONVERTER_OPS_PER_ELEMENT,
+                   F32_CUDA_CORE_FLOPS)
+    args = (pool, k, v, bt, lengths, kspec, vspec)
+    plain = {n: t.clone() for n, t in pool.items()}
+    mx_paged_kv_write(*args)
+    ref.mx_paged_kv_write_ref(plain, *args[1:])
+    same("mx_paged_kv_write at the timed shape", pool, plain)
+    row = dict(kernel="mx_kv_write",
+               shape="paged decode write: 8 slots, Hkv 2, D 128, bf16",
+               spec="int8@32:ocp/e2m1@32:ocp", max_abs_err=0.0,
+               ms=time_ms(torch, lambda: mx_paged_kv_write(*args),
+                          flush=flush),
+               graph_ms=graph_ms(torch, lambda: mx_paged_kv_write(*args),
+                                 flush=flush),
+               plain_ms=time_ms(torch, lambda: ref.mx_paged_kv_write_ref(
+                   *args), flush=flush),
+               composed_ms=time_ms(torch, lambda: _composed_kv_write(
+                   torch, *args), flush=flush),
+               bound_ms=tb, bound_by=by, library_ms=None)
+    try:            # a yardstick only: None where capture is refused
+        row["composed_graph_ms"] = graph_ms(
+            torch, lambda: _composed_kv_write(torch, *args), flush=flush)
+    except RuntimeError:
+        row["composed_graph_ms"] = None
+    emit("time", **row)
+    # the static prefill's write: 8 rows x 512 positions
+    cache = {n: rand_bytes((8, 584, n_kv, w)) for n, w in
+             (("k_codes", hd), ("k_scales", hd // 32), ("v_codes", hd),
+              ("v_scales", hd // 32))}
+    k, v = (_kv_rand(torch, gen, (8, 512, n_kv, hd), torch.bfloat16, False)
+            for _ in range(2))
+    plain = {n: t.clone() for n, t in cache.items()}
+    mx_cache_kv_write(cache, k, v, 0, kspec, vspec)
+    ref.mx_cache_kv_write_ref(plain, k, v, 0, kspec, vspec)
+    same("mx_cache_kv_write at the timed shape", cache, plain)
+    emit("check", kernel="mx_kv_write", compared_paged=n_paged + 1,
+         compared_contiguous=n_cache + 1,
+         criterion="bit-identical pool and cache bytes (page 0, the trash "
+                   "page, left out); the timed paged and prefill writes "
+                   "included")
+    nbytes = 2 * k.numel() * (2 + 1 + 1 / 32)
+    tb2, by2 = bound(nbytes, 2 * k.numel() * CONVERTER_OPS_PER_ELEMENT,
+                     F32_CUDA_CORE_FLOPS)
+    emit("time", kernel="mx_kv_write",
+         shape="contiguous prefill write: 8 x 512 tokens, Hkv 2, D 128, bf16",
+         spec="int8@32:ocp/e2m1@32:ocp",
+         ms=time_ms(torch, lambda: mx_cache_kv_write(
+             cache, k, v, 0, kspec, vspec), flush=flush),
+         plain_ms=time_ms(torch, lambda: ref.mx_cache_kv_write_ref(
+             cache, k, v, 0, kspec, vspec), flush=flush),
+         bound_ms=tb2, bound_by=by2, library_ms=None)
+    return row, 0.0
 
 
 def _matmul_row(torch, ref, mx_matmul_2d, a, mw, codes, spec, pname, flush):
@@ -534,7 +770,7 @@ def check_flash(torch, flush):
     Sq != Sk case (top-left alignment), in f32 (CUDA-core kernel) and bf16
     (tensor-core kernel, the main path's); bf16 also at D 32 and 64, and
     with scores scaled x8 (a peaked softmax: the online rescale with P in
-    bf16).  Times bf16 and f32 at the serving shape, and bf16 with 32 KV
+    bf16); both at D 48 and 16, which the wrapper zero-pads to 64 and 32.  Times bf16 and f32 at the serving shape, and bf16 with 32 KV
     heads (no K/V tile shared between heads) beside the serving 2."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -553,7 +789,9 @@ def check_flash(torch, flush):
              (2, 256, 1024, True, 128, 1.0, both),
              (8, 512, 512, True, 32, 1.0, (torch.bfloat16,)),
              (8, 512, 512, True, 64, 1.0, (torch.bfloat16,)),
-             (8, 512, 512, True, 128, 8.0, (torch.bfloat16,))]
+             (8, 512, 512, True, 128, 8.0, (torch.bfloat16,)),
+             (8, 512, 512, True, 48, 1.0, both),       # zero-padded to 64
+             (2, 77, 77, True, 16, 1.0, both)]         # zero-padded to 32
     for b, sq, sk, causal, d, qscale, dtypes in cases:
         qkv = [torch.randn(b, n, nh, d, generator=gen, device="cuda")
                for n, nh in ((sq, h), (sk, hkv), (sk, hkv))]
@@ -612,28 +850,36 @@ def check_flash(torch, flush):
 # phase 3: full-width serving
 # =============================================================================
 def _counters():
+    """Kernel name -> the wrappers that launch it (the KV write has one
+    wrapper per destination)."""
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
                                                     mx_paged_decode_attention)
+    from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
+                                                 mx_paged_kv_write)
     from repro_torch.kernels.mx_matmul import mx_matmul_2d
     from repro_torch.kernels.mx_quant import mx_quantize_2d
-    return {"mx_quantize_2d": mx_quantize_2d, "mx_matmul_2d": mx_matmul_2d,
-            "mx_paged_decode_attention": mx_paged_decode_attention,
-            "mx_decode_attention": mx_decode_attention,
-            "flash_attention": flash_attention}
+    return {"mx_quantize_2d": (mx_quantize_2d,),
+            "mx_kv_write": (mx_paged_kv_write, mx_cache_kv_write),
+            "mx_matmul_2d": (mx_matmul_2d,),
+            "mx_paged_decode_attention": (mx_paged_decode_attention,),
+            "mx_decode_attention": (mx_decode_attention,),
+            "flash_attention": (flash_attention,)}
 
 
 def _drive(torch, fn):
     """Run ``fn`` as a main path: every launch count set to 0 just before,
     read just after.  Returns (fn's result, launches, wall seconds)."""
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    for fns in counters.values():
+        for c in fns:
+            c.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return out, {name: c.launches for name, c in counters.items()}, wall
+    return out, {name: sum(c.launches for c in fns)
+                 for name, fns in counters.items()}, wall
 
 
 def _check_launches(path, launches, want):
@@ -645,10 +891,10 @@ def _check_launches(path, launches, want):
                                  f"expected {want.get(name, 0)}")
 
 
-def _flips(torch, model, params, prompts, got, want):
+def _flips(torch, model, params, prompts, got, want, tol=LOGITS_TOL):
     """Token streams ``got`` against ``want`` per prompt: a stream may
     differ only from a step where the logits that chose the token have a
-    top-2 gap below LOGITS_TOL (traced through ``model`` on ``want``'s
+    top-2 gap below ``tol`` (traced through ``model`` on ``want``'s
     context); returns those steps, raises on any other difference."""
     import numpy as np
     vocab = model.cfg.vocab
@@ -663,7 +909,7 @@ def _flips(torch, model, params, prompts, got, want):
             model.device), max_len=len(ctx))
         top2 = torch.topk(lg[0, -1, :vocab], 2).values
         gap = float(top2[0] - top2[1])
-        if gap >= LOGITS_TOL:
+        if gap >= tol:
             raise AssertionError(f"tokens differ at step {i} with a top-2 "
                                  f"logit gap of {gap}")
         flips.append({"step": i, "top2_gap": gap})
@@ -680,14 +926,15 @@ def serve_full_width(torch):
     import numpy as np
     from repro_torch.launch.serve import build_model
     from repro_torch.serve import ContinuousBatchingEngine
-    t0 = time.perf_counter()
-    model, params = build_model("chatglm3_6b", reduced=False, quant=POLICY,
-                                weight_resident=True, device="cuda", seed=0)
-    torch.cuda.synchronize()
+    (model, params), load, load_s = _drive(torch, lambda: build_model(
+        "chatglm3_6b", reduced=False, quant=POLICY, weight_resident=True,
+        device="cuda", seed=0))
     cfg = model.cfg
+    n_l = cfg.n_layers
+    _check_launches("model load", load, {"mx_quantize_2d": 7 * n_l})
     emit("serve_setup", config=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab,
-         policy=str(cfg.mx), build_s=time.perf_counter() - t0,
+         policy=str(cfg.mx), build_s=load_s, launches=load,
          device_mem_gib=torch.cuda.memory_allocated() / 2 ** 30)
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 513, size=16)
@@ -711,10 +958,9 @@ def serve_full_width(torch):
          kv_pool_nbytes=eng.kv_pool_nbytes,
          weight_pool_nbytes=eng.weight_pool_nbytes, launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    n_l = cfg.n_layers
     _check_launches("continuous serving", launches, {
         "mx_matmul_2d": 7 * n_l * (steps + batches),
-        "mx_quantize_2d": 2 * n_l * (steps + batches),
+        "mx_kv_write": n_l * (steps + batches),
         "mx_paged_decode_attention": n_l * steps})
     for p, o in zip(prompts, outs):
         if len(o) != new or o.min() < 0 or o.max() >= cfg.vocab:
@@ -740,7 +986,8 @@ def serve_full_width(torch):
     static = serve_static(torch, model, params)
     del params, model, eng
     torch.cuda.empty_cache()
-    return {**launches, **static}
+    return {**launches, **static,
+            "mx_quantize_2d": load["mx_quantize_2d"]}
 
 
 def serve_static(torch, model, params):
@@ -764,7 +1011,7 @@ def serve_static(torch, model, params):
         weights=cfg.mx.weights)), device=model.device)
     runs = (("mx_kv", model, {"mx_decode_attention": n_l * (new - 1),
                               "mx_matmul_2d": 7 * n_l * new,
-                              "mx_quantize_2d": 2 * n_l * new}),
+                              "mx_kv_write": n_l * new}),
             ("bf16_kv", fp_kv, {"flash_attention": n_l,
                                 "mx_matmul_2d": 7 * n_l * new}))
     gen = GenerationConfig(max_new_tokens=new)
@@ -794,6 +1041,70 @@ def serve_static(torch, model, params):
          identical=not flips, flips=flips)
     return {"mx_decode_attention": counts["mx_kv"]["mx_decode_attention"],
             "flash_attention": counts["bf16_kv"]["flash_attention"]}
+
+
+def serve_c5(torch):
+    """A head dim that no decode-attention kernel takes (48: K/V codes
+    padded to 64): a reduced-width chatglm3-6b (2 layers, d 128, 4 heads
+    over 2 KV heads) in bf16 with e4m3 weights, INT8 keys and E2M1 values
+    serves through both engines on the card, with decode attention dense
+    by the kernels' predicates (as in the reference) and the KV write
+    fused, and gives the CPU's greedy tokens (a flip only at a top-2 logit
+    gap below BF16_FLIP_TOL); the static engine over a bf16 cache too,
+    its prompt through flash attention zero-padded to head dim 64."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models import Model
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   GenerationConfig, ServeEngine)
+    model, params = build_model("chatglm3_6b", reduced=True, quant=POLICY,
+                                weight_resident=True, device="cuda", seed=3,
+                                head_dim=48, dtype="bfloat16")
+    cfg, n_l, new = model.cfg, model.cfg.n_layers, 8
+    cpu_params = _to_cpu(params)
+    fp_cfg = dataclasses.replace(cfg, mx=QuantPolicy(weights=cfg.mx.weights))
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, cfg.vocab, size=(4, 24)).astype(np.int32)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in (5, 17, 30, 9, 24, 12)]
+
+    def static(m, p):
+        out = ServeEngine(m, p, max_len=24 + new + 8).generate(
+            {"tokens": tokens}, GenerationConfig(max_new_tokens=new))
+        want = {"mx_matmul_2d": 7 * n_l * new}
+        if m.cfg.mx.kv_key is not None:
+            want["mx_kv_write"] = n_l * new
+        else:
+            want["flash_attention"] = n_l          # the prompts' prefill
+        return out.tolist(), want
+
+    def continuous(m, p):
+        eng = ContinuousBatchingEngine(m, p, max_slots=4, page_size=16,
+                                       max_len=30 + new + 1, sync_every=4,
+                                       prefill_bucket=16)
+        out = [o.tolist() for o in _serve(eng, prompts, new)]
+        n = eng.n_steps + eng.n_prefill_batches
+        return out, {"mx_matmul_2d": 7 * n_l * n, "mx_kv_write": n_l * n}
+
+    for name, c, fn, ps in (("static, MX KV", cfg, static, list(tokens)),
+                            ("continuous, MX KV", cfg, continuous, prompts),
+                            ("static, bf16 KV", fp_cfg, static,
+                             list(tokens))):
+        m = Model(c, device="cuda")
+        (got, want_launches), launches, wall = _drive(
+            torch, lambda: fn(m, params))
+        _check_launches(f"head dim 48, {name}", launches, want_launches)
+        cpu, _ = fn(Model(c, device="cpu"), cpu_params)
+        flips = _flips(torch, m, params, ps, got, cpu, tol=BF16_FLIP_TOL)
+        emit("c5_head_dim_48", path=name, head_dim=cfg.hd, dtype="bfloat16",
+             layers=n_l, d_model=cfg.d_model, policy=str(c.mx),
+             requests=len(ps), new_tokens=new, wall_s=wall,
+             launches=launches, identical=not flips, flips=flips,
+             tokens=got[:2])
+    del params, model
+    torch.cuda.empty_cache()
 
 
 # =============================================================================
@@ -922,6 +1233,7 @@ def main() -> int:
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     q_row, q_err = check_converter(torch, flush)
+    w_row, w_err = check_kv_write(torch, flush)
     m_row, m_err = check_matmul(torch, flush)
     a_row, a_err = check_paged_attention(torch, flush)
     d_row, d_err = check_decode_attention(torch, flush)
@@ -929,9 +1241,11 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     launches = serve_full_width(torch)
+    serve_c5(torch)
     card_vs_cpu(torch)
 
     sources = {"mx_quantize_2d": "src/repro_torch/csrc/mx_quant.cu",
+               "mx_kv_write": "src/repro_torch/csrc/mx_kv_write.cu",
                "mx_matmul_2d": "src/repro_torch/csrc/mx_matmul_tc.cu",
                "mx_paged_decode_attention":
                    "src/repro_torch/csrc/mx_decode_attn_tc.cu",
@@ -940,6 +1254,7 @@ def main() -> int:
                "flash_attention": "src/repro_torch/csrc/flash_attn_tc.cu"}
     replaces = {
         "mx_quantize_2d": "src/repro/kernels/mx_quant.py:117",
+        "mx_kv_write": "src/repro/kernels/mx_quant.py:117",
         "mx_matmul_2d": "src/repro/kernels/mx_matmul.py:140",
         "mx_paged_decode_attention":
             "src/repro/kernels/mx_decode_attn.py:310",
@@ -947,6 +1262,7 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attn.py:99"}
     kernels = []
     for name, row, err in (("mx_quantize_2d", q_row, q_err),
+                           ("mx_kv_write", w_row, w_err),
                            ("mx_matmul_2d", m_row, m_err),
                            ("mx_paged_decode_attention", a_row, a_err),
                            ("mx_decode_attention", d_row, d_err),
@@ -957,8 +1273,9 @@ def main() -> int:
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})
-        for key in ("max_abs_err_f32", "library_backend"):
-            if key in row:      # the f32 kernel's error; SDPA's backend
+        for key in ("max_abs_err_f32", "library_backend", "composed_ms"):
+            if key in row:      # the f32 kernel's error; SDPA's backend;
+                #                 the KV write's composed yardstick
                 kernels[-1][key] = row[key]
     RESULTS["kernels"] = kernels
     RESULTS["seconds"] = time.perf_counter() - t_start

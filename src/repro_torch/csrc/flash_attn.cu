@@ -57,7 +57,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
-    int h, int hkv, int causal) {
+    int h, int hkv, int causal, int scale_d) {
   constexpr int kLd = D + 4;       // q / kv row stride: conflict-free float4
   constexpr int kDc = D / 16;      // accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -69,7 +69,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int g = head / (h / hkv);
   const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
   const int q0 = iq * kBq;
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.0f / sqrtf((float)scale_d);
 
   load_tile<D>(q_s, q, b, q0, sq, h, head);
   float acc[4][kDc], m[4], l[4];
@@ -176,7 +176,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b,
-             int sq, int sk, int h, int hkv, int causal, cudaStream_t st) {
+             int sq, int sk, int h, int hkv, int causal, int scale_d,
+             cudaStream_t st) {
   constexpr int kLd = D + 4;
   const int bytes = (kBq * kLd + kBk * kLd + kBq * kPs) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -186,24 +187,32 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((sq + kBq - 1) / kBq, h, b);
   flash_fwd_kernel<D><<<grid, kThreads, bytes, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk,
-      h, hkv, causal);
+      h, hkv, causal, scale_d);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Sk, Hkv, D), o like q; f32, contiguous,
-// 16-byte aligned; D in {32, 64, 128}; H a multiple of Hkv; Sk >= 1.
+// 16-byte aligned; D in {32, 64, 128}; H a multiple of Hkv; Sk >= 1;
+// scores scaled by 1/sqrt(scale_d): D itself, or the head dim before the
+// wrapper zero-padded q/k/v up to D (the padding adds nothing to S).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int b, int sq, int sk, int h,
-                                 int hkv, int d, int causal, void* stream) {
+                                 int hkv, int d, int causal, int scale_d,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (b == 0 || sq == 0) return 0;
   switch (d) {
-    case 32: return launch_d<32>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
-    case 64: return launch_d<64>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
+    case 32:
+      return launch_d<32>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
+                         st);
+    case 64:
+      return launch_d<64>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
+                         st);
     case 128:
-      return launch_d<128>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
+      return launch_d<128>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
+                          st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

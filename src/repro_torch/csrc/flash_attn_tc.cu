@@ -10,15 +10,16 @@
 // Arithmetic.  The reference widens bf16 to f32 and forms S = Q K^T with
 // an f32 sum; a bf16 x bf16 product is exact in f32, so
 // mma.sync.m16n8k16 bf16 -> f32 forms the same S, summed in another
-// order.  S is multiplied by 1/sqrt(D) in f32, masked to NEG_INF = -1e30
-// (only on tiles that the diagonal or the Sk edge crosses), and the online
-// softmax runs in f32 on the accumulator registers: the logits are taken
-// to base 2 (times log2 e) so that exp is exp2f, the row max and row sum
-// reduce over the quad of lanes that shares a row, and l sums the f32 P.
-// The one new rounding is P to bf16 as the A operand of O += P V (at most
-// 2^-9 max|v| per output; the f32 reference's bf16 output store adds
-// 2^-9 |o|).  The epilogue divides by l (1 where l == 0) and rounds to
-// bf16, as the reference does.
+// order.  S is multiplied by 1/sqrt(D) in f32 (D before any zero
+// padding), masked to NEG_INF = -1e30 (only on tiles that the diagonal or
+// the Sk edge crosses), and the online softmax runs in f32 on the
+// accumulator registers: the logits are taken to base 2 (times log2 e)
+// so that exp is exp2f, the row max and row sum reduce over the quad of
+// lanes that shares a row, and l sums the f32 P.  The one new rounding
+// is P to bf16 as the A operand of O += P V (at most 2^-9 max|v| per
+// output; the f32 reference's bf16 output store adds 2^-9 |o|).  The
+// epilogue divides by l (1 where l == 0) and rounds to bf16, as the
+// reference does.
 //
 // Design.  One block of 4 warps per (64-query tile, head, row b); warp w
 // owns query rows 16w .. 16w + 15 of the tile, one m16 row of mma atoms.
@@ -145,7 +146,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int sq, int sk, int h, int hkv, int causal) {
+    int sq, int sk, int h, int hkv, int causal, int scale_d) {
   constexpr int kQTile = kBq * D * 2;  // bytes of the Q tile
   constexpr int kTile = kBk * D * 2;   // bytes of one K or V tile
   constexpr int kKs = D / 16;          // k-steps of S = Q K^T
@@ -176,7 +177,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(
   const int krow = (lane & 7) + ((lane >> 4) << 3), kch = (lane >> 3) & 1;
   const int vrow = (lane & 7) + (((lane >> 3) & 1) << 3), vch = lane >> 4;
 
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.0f / sqrtf((float)scale_d);
   float oacc[kDn][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int n = 0; n < kDn; ++n)
@@ -313,7 +314,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(
 
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b,
-             int sq, int sk, int h, int hkv, int causal, cudaStream_t st) {
+             int sq, int sk, int h, int hkv, int causal, int scale_d,
+             cudaStream_t st) {
   constexpr int bytes = (kBq + 4 * kBk) * D * 2;   // Q, K ring, V ring
   static bool configured = false;          // above 48 KB needs the attribute
   if (!configured) {
@@ -326,7 +328,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid(h, b, (sq + kBq - 1) / kBq);
   flash_tc_kernel<D><<<grid, kThreads, bytes, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, sk, h, hkv, causal);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, sk, h, hkv, causal,
+      scale_d);
   return (int)cudaGetLastError();
 }
 
@@ -334,18 +337,25 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
 
 // q (B, Sq, H, D), k/v (B, Sk, Hkv, D), o like q; bf16, contiguous,
 // 16-byte aligned; D in {32, 64, 128}; H a multiple of Hkv; Sk >= 1;
-// B and the number of 64-row query tiles at most 65535.
+// B and the number of 64-row query tiles at most 65535; scores scaled by
+// 1/sqrt(scale_d): D itself, or the head dim before the wrapper
+// zero-padded q/k/v up to D (the padding adds nothing to S).
 extern "C" int flash_attn_tc_launch(const void* q, const void* k,
                                     const void* v, void* o, int b, int sq,
                                     int sk, int h, int hkv, int d,
-                                    int causal, void* stream) {
+                                    int causal, int scale_d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (b == 0 || sq == 0) return 0;
   switch (d) {
-    case 32: return launch_d<32>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
-    case 64: return launch_d<64>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
+    case 32:
+      return launch_d<32>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
+                         st);
+    case 64:
+      return launch_d<64>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
+                         st);
     case 128:
-      return launch_d<128>(q, k, v, o, b, sq, sk, h, hkv, causal, st);
+      return launch_d<128>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
+                          st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,6 +27,35 @@ TC_HEAD_DIMS = (32, 64, 128)   # head dims of the bf16 kernels
 TC_ROWS = 16            # query heads of one bf16 block (one m16 tile)
 
 
+def decode_kernel_takes(d: int, key_spec, value_spec, code_widths) -> bool:
+    """Whether ``mx_decode_attention`` takes this contiguous-cache layout.
+
+    False exactly where the reference's ``mx_decode_attention_ctx``
+    returns None on one device (``D % 32``, codes padded past D, a block
+    other than 32); the reference then attends densely, and so do the
+    layers.  ``code_widths``: the K and V code caches' trailing widths.
+    A function of the shapes alone, the same on every device: callers
+    choose the dense path from it before any launch."""
+    key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
+    return (d % 32 == 0 and key_spec.block == 32 and value_spec.block == 32
+            and tuple(code_widths) == (d, d))
+
+
+def paged_decode_kernel_takes(d: int, key_spec, value_spec, code_widths,
+                              scale_width: int) -> bool:
+    """Whether ``mx_paged_decode_attention`` takes this page-pool layout.
+
+    False exactly where the reference's ``mx_paged_decode_attention_ctx``
+    returns None on one device (``D % 32``, scales for another D, a block
+    other than 32, code widths other than ``spec.storage_nbytes(D)``).
+    The same on every device."""
+    key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
+    return (d % 32 == 0 and scale_width * 32 == d
+            and key_spec.block == 32 and value_spec.block == 32
+            and tuple(code_widths) == (key_spec.storage_nbytes(d),
+                                       value_spec.storage_nbytes(d)))
+
+
 def split_tokens(span: int, pairs: int) -> int:
     """Positions one block of the bf16 kernels walks: whole passes of its
     4 warps over 16-position tiles (64 positions), as few passes as give

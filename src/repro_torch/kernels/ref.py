@@ -7,13 +7,13 @@ their arithmetic order, and are no yardstick of speed.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.convert import (decode_elements, mx_quantize,
                                       scale_to_f32)
-from repro_torch.core.pack import unpack_codes
+from repro_torch.core.pack import pack_codes, unpack_codes
 from repro_torch.core.spec import QuantSpec, as_spec
 
 NEG_INF = -1e30
@@ -27,6 +27,62 @@ def mx_quantize_2d_ref(x: torch.Tensor, spec
     n = x.shape[-1]
     nblk = (n + spec.block - 1) // spec.block
     return mx.codes[..., :n], mx.scales[..., :nblk]
+
+
+def kv_quant_ref(x: torch.Tensor, spec: QuantSpec
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k or v (..., hd) along the head dim: codes u8 (..., cl) zero-padded
+    to ``cl`` = hd rounded up to the block, scales u8 (..., cl / block)
+    (the layout of ``kernels.ops.mx_quantize``)."""
+    hd = x.shape[-1]
+    codes, scales = mx_quantize_2d_ref(x.reshape(-1, hd), spec)
+    nblk = scales.shape[-1]
+    pad = nblk * spec.block - hd
+    if pad:
+        codes = torch.nn.functional.pad(codes, (0, pad))
+    lead = x.shape[:-1]
+    return codes.reshape(lead + (-1,)), scales.reshape(lead + (nblk,))
+
+
+def mx_cache_kv_write_ref(cache, k: torch.Tensor, v: torch.Tensor, pos: int,
+                          key_spec: QuantSpec, value_spec: QuantSpec):
+    """Contiguous MX cache write: k/v (B, s, n_kv, hd) quantized along the
+    head dim and stored at positions [pos, pos + s) of every row (in
+    place).  Codes one per byte."""
+    s = k.shape[1]
+    kc, ks = kv_quant_ref(k, key_spec)
+    vc, vs = kv_quant_ref(v, value_spec)
+    for name, val in (("k_codes", kc), ("k_scales", ks),
+                      ("v_codes", vc), ("v_scales", vs)):
+        cache[name][:, pos:pos + s] = val
+    return cache
+
+
+def mx_paged_kv_write_ref(pool, k: torch.Tensor, v: torch.Tensor,
+                          block_tables: torch.Tensor, lengths: torch.Tensor,
+                          key_spec: QuantSpec, value_spec: QuantSpec):
+    """Paged MX write of one token per slot (in place): k/v (B, 1, n_kv,
+    hd); slot b's token lands at page block_tables[b, lengths[b] // page],
+    offset lengths[b] % page.  Sub-byte codes are bit-packed per role's
+    ``packed``.  Indices collide only on the trash page."""
+    page = pool["kc_pages"].shape[-3]
+    lengths = lengths.to(torch.int64)
+    pages = torch.gather(block_tables.to(torch.int64), 1,
+                         (lengths // page)[:, None])[:, 0]
+    if bool((pages < 0).any()):        # indexing would wrap, not raise
+        raise IndexError("mx_paged_kv_write: a block table names a page "
+                         "below 0")
+    offsets = lengths % page
+    kc, ks = kv_quant_ref(k, key_spec)
+    vc, vs = kv_quant_ref(v, value_spec)
+    if key_spec.packed:
+        kc = pack_codes(kc, key_spec.fmt)
+    if value_spec.packed:
+        vc = pack_codes(vc, value_spec.fmt)
+    for name, val in (("kc_pages", kc), ("ks_pages", ks),
+                      ("vc_pages", vc), ("vs_pages", vs)):
+        pool[name][pages, offsets] = val[:, 0]
+    return pool
 
 
 def dequant_ref(codes: torch.Tensor, scales: torch.Tensor,
@@ -81,16 +137,19 @@ def mx_decode_attention_ref(q, k_codes, k_scales, v_codes, v_scales,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        scale_d: Optional[int] = None) -> torch.Tensor:
     """Dense attention in f32 (the reference's ``flash_attn._dense_ref``):
     q (B, Sq, H, D), k/v (B, Sk, Hkv, D), query head h reads KV head
     h // (H / Hkv); causal is top-left aligned (col <= row, also when
-    Sq != Sk).  Returns (B, Sq, H, D) in q's dtype."""
+    Sq != Sk); scores scaled by 1/sqrt(scale_d), D by default (the head
+    dim before zero padding, as the kernels take it).  Returns (B, Sq, H,
+    D) in q's dtype."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, hkv, h // hkv, d).to(torch.float32)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(torch.float32)) \
-        / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+        / torch.sqrt(torch.tensor(float(scale_d or d), dtype=torch.float32))
     if causal:
         mask = torch.arange(sk, device=q.device)[None, :] \
             <= torch.arange(sq, device=q.device)[:, None]

@@ -17,8 +17,9 @@ traces ``SYNC_EVERY`` decode steps of each serving path with
 Prints one JSON line per path: wall time per step, the device's busy
 time per step (union of kernel intervals), its busy share, kernel
 launches per step, the MX decode-attention kernels' time per step (the
-split kernel and the merge kernel apart), and the kernels that take the
-most device time.  Needs a CUDA device.
+split kernel and the merge kernel apart), the fused KV write's time and
+launches per step, and the kernels that take the most device time.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -78,9 +79,12 @@ def _report(path: str, prof, wall: float, steps: int, layers: int) -> None:
         counts[e.name] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     attn = {"split": 0.0, "merge": 0.0}      # MX decode attention, us
+    kv_us = kv_n = 0
     for name, us in by_name.items():
         if "decode_attn" in name or "paged_attn" in name:
             attn["merge" if "merge" in name else "split"] += us
+        if "mx_kv_write" in name:
+            kv_us, kv_n = kv_us + us, kv_n + counts[name]
     print(json.dumps({
         "phase": "profile_decode", "path": path,
         "card": torch.cuda.get_device_name(0), "layers": layers, "rows": 8,
@@ -90,6 +94,8 @@ def _report(path: str, prof, wall: float, steps: int, layers: int) -> None:
         "kernel_launches_per_step": len(kernels) / steps,
         "attention_ms_per_step": {k: us / 1e3 / steps
                                   for k, us in attn.items()},
+        "kv_write_ms_per_step": kv_us / 1e3 / steps,
+        "kv_write_launches_per_step": kv_n / steps,
         "top_kernels_ms_per_step": [
             {"name": n[:80], "ms": us / 1e3 / steps,
              "launches": counts[n] / steps} for n, us in top]}),

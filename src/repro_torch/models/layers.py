@@ -3,9 +3,14 @@
 Every projection routes through ``dense()``: an ``MXWeight`` operand goes
 to the dequant x matmul kernel, an fp weight to ``torch.matmul``.  KV
 caches are quantized along the head dim per the ``kv_key``/``kv_value``
-policy roles through the converter kernel; decode attention reads the
-quantized contiguous cache or pages through its kernels, and a prompt
-over fp k/v attends through the flash kernel.
+policy roles and written, packed, in one launch of the fused KV-write
+kernel per layer; decode attention reads the quantized contiguous cache
+or pages through its kernels, and a prompt over fp k/v attends through
+the flash kernel.  Where a decode-attention kernel does not take the
+layout (the ``*_kernel_takes`` predicates: a head dim that is no
+multiple of 32, codes padded past it), attention is dense, as the
+reference's dispatch goes dense there; the choice is made from the
+shapes before any launch.
 
 Unlike the functional reference, cache and page-pool writes update the
 given tensors in place (the pools are the largest serving allocation;
@@ -24,9 +29,13 @@ from repro_torch.core.mx_weight import MXWeight
 from repro_torch.core.pack import pack_codes, unpack_codes
 from repro_torch.core.spec import QuantSpec
 from repro_torch.kernels.flash_attn import flash_attention
-from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
-                                                mx_paged_decode_attention)
-from repro_torch.kernels.ops import mx_matmul_resident, mx_quantize
+from repro_torch.kernels.mx_decode_attn import (decode_kernel_takes,
+                                                mx_decode_attention,
+                                                mx_paged_decode_attention,
+                                                paged_decode_kernel_takes)
+from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
+                                             mx_paged_kv_write)
+from repro_torch.kernels.ops import mx_matmul_resident
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -99,12 +108,6 @@ def _code_len(dim: int, block: int) -> int:
     return -(-dim // block) * block
 
 
-def _kv_quant(x: torch.Tensor, spec: QuantSpec):
-    """Quantize k or v along the head dim through the converter kernel."""
-    mx = mx_quantize(x, spec, axis=-1)
-    return mx.codes, mx.scales
-
-
 def _kv_dequant(codes, scales, spec: QuantSpec, dtype,
                 orig_len: Optional[int] = None) -> torch.Tensor:
     mx = MXArray.from_spec(codes, scales, spec.replace(packed=False),
@@ -138,15 +141,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_kv: int,
 def cache_write(cache, k: torch.Tensor, v: torch.Tensor, pos: int,
                 cfg: ModelConfig):
     """Write k/v (B, s, n_kv, hd) into the cache at position ``pos``
-    (in place; returns the cache)."""
+    (in place; returns the cache); an MX cache through the fused KV-write
+    kernel."""
     s = k.shape[1]
     if cfg.mx.kv_key is not None:
-        kc, ks = _kv_quant(k, cfg.mx.kv_key)
-        vc, vs = _kv_quant(v, cfg.mx.kv_value)
-        for name, val in (("k_codes", kc), ("k_scales", ks),
-                          ("v_codes", vc), ("v_scales", vs)):
-            cache[name][:, pos:pos + s] = val
-        return cache
+        return mx_cache_kv_write(cache, k.contiguous(), v.contiguous(), pos,
+                                 cfg.mx.kv_key, cfg.mx.kv_value)
     cache["k"][:, pos:pos + s] = k.to(cache["k"].dtype)
     cache["v"][:, pos:pos + s] = v.to(cache["v"].dtype)
     return cache
@@ -191,7 +191,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     out = None
     if cache is not None:
         cache = cache_write(cache, k, v, cache_pos, cfg)
-        if s == 1 and mx_kv:
+        if s == 1 and mx_kv and decode_kernel_takes(
+                hd, cfg.mx.kv_key, cfg.mx.kv_value,
+                (cache["k_codes"].shape[-1], cache["v_codes"].shape[-1])):
             out = mx_decode_attention(
                 q.contiguous(), cache["k_codes"], cache["k_scales"],
                 cache["v_codes"], cache["v_scales"], cache_pos,
@@ -283,20 +285,16 @@ def paged_cache_write(pool, k: torch.Tensor, v: torch.Tensor,
     """Scatter one token per slot into one layer's page pool (in place).
     k/v (B, 1, n_kv, hd); slot b's token lands at pool[pages[b],
     offsets[b]].  Active slots own distinct pages, so indices collide only
-    on the trash page."""
-    pages, offsets = pages.to(torch.int64), offsets.to(torch.int64)
+    on the trash page.  Serving writes an MX pool with
+    ``mx_paged_kv_write`` straight from the block tables; this, the port
+    of the reference's function, hands it each slot's page as a one-page
+    table and its offset as the length."""
     kk, kv = cfg.mx.kv_key, cfg.mx.kv_value
     if kk is not None:
-        kc, ks = _kv_quant(k, kk)
-        vc, vs = _kv_quant(v, kv)
-        if kk.packed:
-            kc = pack_codes(kc, kk.fmt)
-        if kv.packed:
-            vc = pack_codes(vc, kv.fmt)
-        for name, val in (("kc_pages", kc), ("ks_pages", ks),
-                          ("vc_pages", vc), ("vs_pages", vs)):
-            pool[name][pages, offsets] = val[:, 0]
-        return pool
+        return mx_paged_kv_write(pool, k.contiguous(), v.contiguous(),
+                                 pages.to(torch.int32)[:, None],
+                                 offsets.to(torch.int32), kk, kv)
+    pages, offsets = pages.to(torch.int64), offsets.to(torch.int64)
     pool["k_pages"][pages, offsets] = k[:, 0].to(pool["k_pages"].dtype)
     pool["v_pages"][pages, offsets] = v[:, 0].to(pool["v_pages"].dtype)
     return pool
@@ -332,8 +330,10 @@ def attention_paged_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                            lengths: torch.Tensor) -> Tuple[torch.Tensor, Any]:
     """GQA decode over one layer's paged KV cache: x (B, 1, d); slot b's
     new token sits at position lengths[b] and attends positions <=
-    lengths[b].  An MX pool is read by the paged attention kernel; an fp
-    pool is gathered and attended densely."""
+    lengths[b].  An MX pool is written by the fused KV-write kernel (it
+    finds each slot's page and offset itself) and read by the paged
+    attention kernel where that takes the layout; an fp pool, or a layout
+    the kernel does not take, is gathered and attended densely."""
     b, s, d = x.shape                          # s == 1
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     q = dense(x, p["wq"]).reshape(b, s, nh, hd)
@@ -342,11 +342,19 @@ def attention_paged_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     cos, sin = rope_tables(lengths[:, None], hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
-    page = paged_page_size(pool)
-    pages = torch.gather(block_tables, 1,
-                         (lengths // page)[:, None].to(torch.int64))[:, 0]
-    pool = paged_cache_write(pool, k, v, pages, lengths % page, cfg)
-    if cfg.mx.kv_key is not None:
+    kk, kv = cfg.mx.kv_key, cfg.mx.kv_value
+    if kk is not None:
+        pool = mx_paged_kv_write(pool, k.contiguous(), v.contiguous(),
+                                 block_tables, lengths, kk, kv)
+    else:
+        page = paged_page_size(pool)
+        pages = torch.gather(block_tables, 1,
+                             (lengths // page)[:, None].to(torch.int64))[:, 0]
+        pool = paged_cache_write(pool, k, v, pages, lengths % page, cfg)
+    if kk is not None and paged_decode_kernel_takes(
+            hd, kk, kv, (pool["kc_pages"].shape[-1],
+                         pool["vc_pages"].shape[-1]),
+            pool["ks_pages"].shape[-1]):
         out = mx_paged_decode_attention(
             q.contiguous(), pool["kc_pages"], pool["ks_pages"],
             pool["vc_pages"], pool["vs_pages"], block_tables, lengths,

@@ -18,8 +18,10 @@ from repro_torch.kernels import mx_decode_attn, ref
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
                                                 mx_paged_decode_attention)
+from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
+                                             mx_paged_kv_write)
 from repro_torch.kernels.mx_matmul import mx_matmul_2d
-from repro_torch.kernels.mx_quant import mx_quantize_2d
+from repro_torch.kernels.mx_quant import mx_quantize_2d, vectorized
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -58,6 +60,206 @@ def test_quant_kernel_bit_identical(dev, fmt, mode):
         c, s = mx_quantize_2d(x.to(dev), spec)
         torch.cuda.synchronize()
         assert torch.equal(c.cpu(), c_ref) and torch.equal(s.cpu(), s_ref)
+
+
+@pytest.mark.parametrize("mode", ["paper", "ocp"])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_quant_vec_and_lane_kernels_bit_identical(dev, fmt, mode):
+    """Both converter kernels: the vectorized one over rows a multiple of
+    32 long (one block of special rows, and 2112 x 4096, enough groups for
+    its grid-stride loop to wrap), the one-lane-per-element one over a
+    ragged row and over rows that start off a 16-byte boundary."""
+    rng = np.random.default_rng(4)
+    spec = QuantSpec(fmt, mode)
+    big = rng.normal(size=(2112, 4096)).astype(np.float32) * 0.02
+    big[7] = _special_rows(rng, 4096)[3]
+    flat = torch.from_numpy(_special_rows(rng, 513).reshape(-1))
+    cases = [(torch.from_numpy(_special_rows(rng, 96)), True),
+             (torch.from_numpy(big), True),
+             (torch.from_numpy(_special_rows(rng, 45)), False)]
+    on_dev = [(x.to(dev), want) for x, want in cases]
+    buf = flat.to(dev)                         # rows start 4 bytes in
+    on_dev.append((buf[1:1 + 16 * 256].view(16, 256), False))
+    for x, want in on_dev:
+        assert vectorized(x) == want
+        c, s = mx_quantize_2d(x, spec)
+        c_ref, s_ref = mx_quantize_2d(x.cpu(), spec)
+        torch.cuda.synchronize()
+        assert torch.equal(c.cpu(), c_ref) and torch.equal(s.cpu(), s_ref)
+
+
+def _kv_pair(rng, shape, dtype, dev, special=False):
+    """k and v on the card (and their CPU copies): normal values with an
+    f32-subnormal row; ``special`` adds a NaN block and an Inf block."""
+    out = []
+    for _ in range(2):
+        x = rng.normal(size=shape).astype(np.float32)
+        x[..., 1, :] *= np.float32(1e-39)
+        if special:
+            x[0, 0, 0, 5] = np.nan
+            x[-1, -1, -1, 40] = -np.inf
+        t = torch.from_numpy(x).to(dtype)
+        out += [t.to(dev), t]
+    return out
+
+
+def _pool_pair(rng, kspec, vspec, n_pages, page, n_kv, hd, dev):
+    """Page pools of random bytes (so every written byte shows), on the
+    card and on the CPU."""
+    cl = -(-hd // 32) * 32
+    shapes = {"kc_pages": kspec.storage_nbytes(cl), "ks_pages": cl // 32,
+              "vc_pages": vspec.storage_nbytes(cl), "vs_pages": cl // 32}
+    cpu = {n: torch.from_numpy(rng.integers(0, 256, size=(
+        n_pages, page, n_kv, w)).astype(np.uint8)) for n, w in shapes.items()}
+    return {n: t.to(dev) for n, t in cpu.items()}, cpu
+
+
+@pytest.mark.parametrize("mode", ["paper", "ocp"])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_paged_kv_write_matches_plain(dev, fmt, mode):
+    """Every value format x mode beside INT8 and E4M3 keys, packed and
+    unpacked pools, pages of 16 and 8, bf16 and f32 k/v, head dims 128 and
+    48 (codes padded to 64): slots mid-page, at a page's last offset, at
+    offset 0 of a fresh page, and two idle slots colliding on the trash
+    page, which is left out of the check."""
+    rng = np.random.default_rng(12)
+    for kspec in ("int8@32:ocp", "e4m3@32:paper"):
+        for packed in (True, False):
+            kk = QuantSpec.parse(kspec)
+            vv = QuantSpec(fmt, mode, 32, packed)
+            for page, hd, dt in ((16, 128, torch.bfloat16),
+                                 (8, 48, torch.float32)):
+                b, n_kv, npg = 6, 2, 3
+                dpool, cpool = _pool_pair(rng, kk, vv, 1 + b * npg, page,
+                                          n_kv, hd, dev)
+                bt = (1 + torch.arange(b * npg, dtype=torch.int32)) \
+                    .reshape(b, npg)
+                bt[4:] = 0
+                lengths = torch.tensor([5, page - 1, page, 2 * page + 3,
+                                        0, 0], dtype=torch.int32)
+                kd, kc, vd, vc = _kv_pair(rng, (b, 1, n_kv, hd), dt, dev,
+                                          special=mode == "paper")
+                mx_paged_kv_write(dpool, kd, vd, bt.to(dev),
+                                  lengths.to(dev), kk, vv)
+                mx_paged_kv_write(cpool, kc, vc, bt, lengths, kk, vv)
+                torch.cuda.synchronize()
+                for n in cpool:
+                    assert torch.equal(dpool[n].cpu()[1:], cpool[n][1:]), \
+                        (kspec, str(vv), page, hd, n)
+
+
+# a slot whose length lies past its 2-page table, or whose table names
+# page 99 or page -1 of a 4-page pool (pages of 8)
+BAD_SLOTS = {"length past the table": ([[1, 2], [3, 1]], [16, 9]),
+             "page past the pool": ([[1, 2], [3, 99]], [5, 9]),
+             "page below 0": ([[1, 2], [3, -1]], [5, 9])}
+
+_BAD_SLOT_SCRIPT = """
+import sys, torch
+from repro_torch.core.spec import QuantSpec
+from repro_torch.kernels.mx_kv_write import mx_paged_kv_write
+bt, lengths = {bt!r}, {lengths!r}
+kk = QuantSpec.parse("int8@32:ocp")
+pool = {{n: torch.zeros(4, 8, 2, w, dtype=torch.uint8, device="cuda")
+        for n, w in (("kc_pages", 64), ("ks_pages", 2), ("vc_pages", 64),
+                     ("vs_pages", 2))}}
+k = torch.ones(2, 1, 2, 64, device="cuda")
+try:
+    mx_paged_kv_write(pool, k, k, torch.tensor(bt, dtype=torch.int32,
+                      device="cuda"), torch.tensor(lengths,
+                      dtype=torch.int32, device="cuda"), kk, kk)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("case", sorted(BAD_SLOTS))
+def test_paged_kv_write_rejects_rows_past_their_table(dev, case):
+    """A slot the write cannot place is an error on both devices: the
+    plain version raises, and the kernel traps, so its launch fails and
+    the next synchronizing call raises.  A trap leaves the CUDA context
+    unusable, so the card's half runs in a child process."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    bt, lengths = BAD_SLOTS[case]
+    kk = QuantSpec.parse("int8@32:ocp")
+    rng = np.random.default_rng(13)
+    cpool = _pool_pair(rng, kk, kk, 4, 8, 2, 64, "cpu")[1]
+    k = torch.ones(2, 1, 2, 64)
+    with pytest.raises((IndexError, RuntimeError)):
+        mx_paged_kv_write(cpool, k, k, torch.tensor(bt, dtype=torch.int32),
+                          torch.tensor(lengths, dtype=torch.int32), kk, kk)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    run = subprocess.run(
+        [sys.executable, "-c", _BAD_SLOT_SCRIPT.format(bt=bt,
+                                                       lengths=lengths)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, (case, run.stdout, run.stderr[-2000:])
+
+
+@pytest.mark.parametrize("kv", ["int8@32:ocp/e2m1@32:ocp",
+                                "e3m2@32:paper/e2m3@32:paper",
+                                "e5m2@32:ocp/int8@32:paper"])
+def test_cache_kv_write_matches_plain(dev, kv):
+    """The contiguous cache at s 1 (decode) and 300 (a prefill crossing
+    many warps' blocks), bf16 and f32, head dims 128 and 48."""
+    kk, vv = (QuantSpec.parse(x) for x in kv.split("/"))
+    rng = np.random.default_rng(14)
+    for hd, dt in ((128, torch.bfloat16), (48, torch.float32)):
+        cl = -(-hd // 32) * 32
+        cpu = {n: torch.from_numpy(rng.integers(0, 256, size=(
+            3, 320, 2, w)).astype(np.uint8)) for n, w in
+            (("k_codes", cl), ("k_scales", cl // 32), ("v_codes", cl),
+             ("v_scales", cl // 32))}
+        dcache = {n: t.to(dev) for n, t in cpu.items()}
+        for pos, s in ((0, 300), (300, 1), (319, 1)):
+            kd, kc, vd, vc = _kv_pair(rng, (3, s, 2, hd), dt, dev,
+                                      special="paper" in kv)
+            mx_cache_kv_write(dcache, kd, vd, pos, kk, vv)
+            mx_cache_kv_write(cpu, kc, vc, pos, kk, vv)
+        torch.cuda.synchronize()
+        for n in cpu:
+            assert torch.equal(dcache[n].cpu(), cpu[n]), (kv, hd, n)
+
+
+def test_kv_write_repeats_and_counts(dev):
+    """Two calls write the same bytes; each launch counts once; operands
+    the kernel does not take raise."""
+    kk, vv = QuantSpec.parse("int8@32:ocp"), QuantSpec.parse("e2m1@32:ocp")
+    rng = np.random.default_rng(15)
+    pool = _pool_pair(rng, kk, vv, 9, 16, 2, 128, dev)[0]
+    pools = [pool, {n: t.clone() for n, t in pool.items()}]
+    kd, _, vd, _ = _kv_pair(rng, (8, 1, 2, 128), torch.bfloat16, dev)
+    bt = torch.arange(1, 9, dtype=torch.int32, device=dev)[:, None]
+    lengths = torch.arange(8, dtype=torch.int32, device=dev)
+    for pool in pools:
+        before = mx_paged_kv_write.launches
+        mx_paged_kv_write(pool, kd, vd, bt, lengths, kk, vv)
+        assert mx_paged_kv_write.launches == before + 1
+    torch.cuda.synchronize()
+    for n in pools[0]:
+        assert torch.equal(pools[0][n], pools[1][n])
+    cache = {n: torch.zeros(8, 4, 2, w, dtype=torch.uint8, device=dev)
+             for n, w in (("k_codes", 128), ("k_scales", 4),
+                          ("v_codes", 128), ("v_scales", 4))}
+    before = mx_cache_kv_write.launches
+    mx_cache_kv_write(cache, kd, vd, 3, kk, vv)
+    assert mx_cache_kv_write.launches == before + 1
+    with pytest.raises(ValueError):             # strided k: raise
+        mx_paged_kv_write(pools[0], kd.transpose(2, 3).contiguous()
+                          .transpose(2, 3), vd, bt, lengths, kk, vv)
+    cache64 = dict(cache, k_scales=cache["k_scales"][..., :2].contiguous())
+    with pytest.raises(ValueError, match="block=64"):
+        mx_cache_kv_write(cache64, kd, vd, 3, QuantSpec("int8", "ocp", 64),
+                          vv)
+    with pytest.raises(ValueError):             # int64 tables: raise
+        mx_paged_kv_write(pools[0], kd, vd, bt.long(), lengths, kk, vv)
 
 
 @pytest.mark.parametrize("m", [5, 40])
@@ -376,12 +578,16 @@ def test_decode_attention_tc_is_deterministic(dev):
     (2, 512, 512, 32, 2, 128, True),      # B 2 x Sq 512, H 32 / Hkv 2
     (1, 77, 77, 16, 1, 128, True),        # ragged at rep 16
     (2, 130, 200, 8, 2, 128, False),      # non-causal, ragged Sk, D 128
+    (2, 300, 300, 4, 2, 48, True),        # D 48: zero-padded to 64
+    (1, 77, 77, 4, 1, 16, True),          # D 16: zero-padded to 32
+    (2, 64, 130, 4, 2, 96, False),        # D 96: zero-padded to 128
 ])
 def test_flash_kernel_matches_plain(dev, case):
     """f32 (csrc/flash_attn.cu, CUDA cores) at 2e-5; bf16
     (csrc/flash_attn_tc.cu, tensor cores) at the reference's bf16
     tolerance, 2e-2: P is rounded to bf16 before P V (at most 2^-9
-    max|v|) and the output to bf16."""
+    max|v|) and the output to bf16.  Head dims the kernels are not built
+    for run zero-padded, scaled by the true head dim."""
     b, sq, sk, h, hkv, d, causal = case
     rng = np.random.default_rng(6)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
@@ -450,8 +656,12 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
         before = flash_attention.launches
         flash_attention(x, x, x)
         assert flash_attention.launches == before + 1
-    with pytest.raises(ValueError):             # head dim 48: no kernel
-        y = torch.ones(1, 16, 4, 48, device=dev)
+    y = torch.ones(1, 16, 4, 48, device=dev)    # head dim 48: zero-padded
+    before = flash_attention.launches
+    flash_attention(y, y, y)
+    assert flash_attention.launches == before + 1
+    with pytest.raises(ValueError):             # head dim 160: no kernel
+        y = torch.ones(1, 16, 4, 160, device=dev)
         flash_attention(y, y, y)
 
 

@@ -219,6 +219,31 @@ def test_plain_flash_attention_matches_pallas_interpret(case):
     assert flash_attention.launches == before
 
 
+@pytest.mark.parametrize("d,dtype", [(16, "float32"), (24, "float32"),
+                                     (48, "float32"), (96, "float32"),
+                                     (48, "bfloat16")])
+def test_flash_zero_padded_head_dim_matches_pallas_interpret(d, dtype):
+    """What the card computes at a head dim the kernels are not built
+    for: q, k and v zero-padded up to ``kernel_head_dim(d)``, scores
+    scaled by 1/sqrt(d), the padded output columns dropped; the plain
+    version of that against the Pallas kernel at head dim d."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import kernel_head_dim
+    q, k, v = _qkv(2, 70, 70, 4, 2, d, seed=d)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = j_flash(*(jnp.asarray(a, dtype=jdt) for a in (q, k, v)), True,
+                   True)
+    dk = kernel_head_dim(d)
+    padded = (torch.nn.functional.pad(torch.from_numpy(a).to(tdt),
+                                      (0, dk - d)) for a in (q, k, v))
+    out = ref.flash_attention_ref(*padded, True, scale_d=d)
+    assert dk > d and not out[..., d:].any()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out[..., :d].float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
 def test_attention_wrappers_validate():
     spec = TSpec.parse("int8@32:ocp")
     q = torch.zeros(1, 1, 4, 64)

@@ -43,13 +43,15 @@ def einsum_matmul(monkeypatch):
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(policy=POLICY, attn_impl="dense"):
+def _pair(policy=POLICY, attn_impl="dense", **overrides):
     """Reference config + params and their port twins (built once per
     policy; the tests only read them).  ``attn_impl="flash"`` sends the
-    reference through its Pallas attention kernels (interpret mode)."""
+    reference through its Pallas attention kernels (interpret mode);
+    ``overrides`` (e.g. ``head_dim``) apply to both configs."""
     jcfg = j_load_reduced("chatglm3_6b", mx=JPolicy.parse(policy),
-                          attn_impl=attn_impl)
-    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy))
+                          attn_impl=attn_impl, **overrides)
+    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy),
+                          **overrides)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     if jcfg.mx.weights is not None:
@@ -315,3 +317,129 @@ def test_contiguous_cache_write_bit_identical(policy):
                        pos, tcfg)
     for name, a in jcache.items():
         np.testing.assert_array_equal(tcache[name].numpy(), np.asarray(a))
+
+
+# =============================================================================
+# head dims the kernels do not take: the reference goes dense there
+# =============================================================================
+@pytest.mark.parametrize("hd", [16, 48])
+def test_unkernelled_head_dim_decode_logits_match(einsum_matmul, hd):
+    """Head dims that are no multiple of 32 (codes padded past D): the
+    reference at attn_impl="flash" serves them densely, and so must the
+    port, over a contiguous cache and over pages."""
+    jcfg, tcfg, jp, tp = _pair(POLICY, "flash", head_dim=hd)
+    cache = _random_cache(jcfg)
+    jcache = {"layers": {n: jnp.asarray(a) for n, a in cache.items()}}
+    tcache = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
+    tok = np.array([5, 77], np.int32)
+    jlog, _ = jax.jit(lambda *a: jdec.decode_step(*a, jcfg))(
+        jp, jnp.asarray(tok), jcache, jnp.asarray(12, jnp.int32))
+    tlog, _ = tdec.decode_step(tp, torch.from_numpy(tok), tcache, 12, tcfg)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
+                               rtol=0)
+    pool = _random_pool(jcfg)
+    bt, lengths = _tables()
+    tok = np.array([5, 77, 300, 0], np.int32)
+    jlog, jpool = jax.jit(lambda *a: jdec.paged_decode_step(*a, jcfg))(
+        jp, jnp.asarray(tok), {"layers": {n: jnp.asarray(a)
+                                          for n, a in pool.items()}},
+        jnp.asarray(bt), jnp.asarray(lengths))
+    tpool = {n: torch.from_numpy(a.copy()) for n, a in pool.items()}
+    tlog, _ = tdec.paged_decode_step(
+        tp, torch.from_numpy(tok), tpool, torch.from_numpy(bt),
+        torch.from_numpy(lengths), tcfg)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
+                               rtol=0)
+    for n, a in jpool["layers"].items():       # the KV write, bit for bit
+        np.testing.assert_array_equal(tpool[n].numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("hd", [16, 48])
+def test_unkernelled_head_dim_engines_match_jax(monkeypatch, hd):
+    """Greedy tokens of both engines at head dims 16 and 48 (INT8 keys,
+    E2M1 values) equal the JAX engines' (reference at attn_impl="flash")."""
+    from repro.serve import ContinuousBatchingEngine as JCont
+    from repro.serve import GenerationConfig as JGen
+    from repro.serve import ServeEngine as JServe
+    from repro_torch.models import Model as TModel
+    from repro_torch.serve import (ContinuousBatchingEngine, GenerationConfig,
+                                   ServeEngine)
+    monkeypatch.setenv("REPRO_MX_MATMUL_IMPL", "einsum")
+    jcfg, tcfg, jp, tp = _pair(POLICY, "flash", head_dim=hd)
+    jm, tm = JModel(jcfg), TModel(tcfg, device="cpu")
+    rng = np.random.default_rng(10)
+    tokens = rng.integers(0, tcfg.vocab, size=(2, 12)).astype(np.int32)
+    want = JServe(jm, jp, max_len=20).generate({"tokens": tokens},
+                                               JGen(max_new_tokens=4))
+    got = ServeEngine(tm, tp, max_len=20).generate(
+        {"tokens": tokens}, GenerationConfig(max_new_tokens=4))
+    np.testing.assert_array_equal(got, want)
+    prompts = [rng.integers(0, tcfg.vocab, size=n).astype(np.int32)
+               for n in (4, 9, 14)]
+    kw = dict(max_slots=2, page_size=PAGE, max_len=14 + 4 + 1)
+    outs = []
+    for eng in (JCont(jm, jp, sync_every=1, health_checks=False, **kw),
+                ContinuousBatchingEngine(tm, tp, **kw)):
+        rids = [eng.add_request(p, 4) for p in prompts]
+        res = eng.run()
+        outs.append([res[r].tolist() for r in rids])
+    assert outs[0] == outs[1]
+
+
+def _ref_ctx_none(fn, *args, kk, kv):
+    """Whether a reference dispatch (``*_ctx``) returns None for a layout:
+    the cue for its dense path.  Layouts it takes run its Pallas kernel in
+    interpret mode."""
+    import types
+    cfg = types.SimpleNamespace(mx=types.SimpleNamespace(kv_key=kk,
+                                                         kv_value=kv))
+    return fn(*args, cfg) is None
+
+
+@pytest.mark.parametrize("d,kv,pad", [
+    (32, "int8@32:ocp/e2m1@32:ocp", 0), (64, "e3m2@32:paper/e4m3@32:ocp", 0),
+    (16, "int8@32:ocp/e2m1@32:ocp", 16), (48, "int8@32:ocp/e2m1@32:ocp", 16),
+    (64, "int8@64:ocp/e2m1@64:ocp", 0), (64, "int8@32:ocp/e2m1@32:ocp", 32),
+    (96, "int8@32:ocp/int8@32:ocp", 0)])
+def test_decode_predicates_match_reference_dispatch(d, kv, pad):
+    """``decode_kernel_takes`` / ``paged_decode_kernel_takes`` are False
+    exactly where the reference's dispatch returns None; a layout they
+    take but a kernel is not built for (bf16 q at D 96) raises in the
+    wrapper on the card, as the reference runs its kernel there."""
+    from repro.core.spec import QuantSpec as JSpec
+    from repro.kernels import ops as jops
+    from repro_torch.core.spec import QuantSpec as TSpec
+    from repro_torch.kernels import mx_decode_attn as tattn
+    kk, kv_ = (JSpec.parse(x) for x in kv.split("/"))
+    tk, tv = (TSpec.parse(x) for x in kv.split("/"))
+    rng = np.random.default_rng(11)
+    b, s, hkv, rep, cw = 1, 8, 2, 2, d + pad
+    q = jnp.asarray(rng.normal(size=(b, 1, hkv * rep, d)), jnp.float32)
+    sw = -(-cw // kk.block)
+    cache = {n: jnp.zeros((b, s, hkv, w), jnp.uint8) for n, w in
+             (("k_codes", cw), ("v_codes", cw), ("k_scales", sw),
+              ("v_scales", sw))}
+    want = not _ref_ctx_none(jops.mx_decode_attention_ctx, q, cache,
+                             jnp.asarray(3, jnp.int32), kk=kk, kv=kv_)
+    assert tattn.decode_kernel_takes(d, tk, tv, (cw, cw)) == want
+    widths = (tk.storage_nbytes(cw), tv.storage_nbytes(cw))
+    pool = {n: jnp.zeros((3, 4, hkv, w), jnp.uint8) for n, w in
+            (("kc_pages", widths[0]), ("vc_pages", widths[1]),
+             ("ks_pages", sw), ("vs_pages", sw))}
+    bt = jnp.asarray([[1, 2]], jnp.int32)
+    want = not _ref_ctx_none(jops.mx_paged_decode_attention_ctx, q, pool, bt,
+                             jnp.asarray([5], jnp.int32), kk=kk, kv=kv_)
+    assert tattn.paged_decode_kernel_takes(d, tk, tv, widths, sw) == want
+
+
+def test_flash_predicate():
+    """Flash takes every head dim up to 128, as the reference's kernel
+    takes any: on the card a head dim runs at the least compiled one
+    (32, 64, 128) at or above it, zero-padded; past 128 the wrapper
+    raises (no configuration has such a head dim)."""
+    from repro_torch.kernels.flash_attn import kernel_head_dim
+    assert [kernel_head_dim(d) for d in (8, 16, 24, 32, 40, 48, 64, 80,
+                                         96, 128)] \
+        == [32, 32, 32, 32, 64, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="past the largest"):
+        kernel_head_dim(136)
