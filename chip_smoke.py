@@ -21,19 +21,30 @@ failure (the script then exits non-zero and prints no result line):
    whatever the batch; decode attention's library call is timed under
    every SDPA backend that accepts it and the fastest reported, and the
    kernel and that call also replayed from a CUDA graph (device time
-   without the host's per-call work);
+   without the host's per-call work); the contiguous KV write and decode
+   attention also with pos in device memory (bit-identical to the host
+   int); the LM head's bf16 -> f32 product, timed beside the f32 copy it
+   replaced;
 3. load full-width chatglm3-6b (28 layers, random weights from a seed,
    quantized to MX by the converter as each layer is made) and serve it
    through ``ContinuousBatchingEngine`` with 8-bit MX weights, INT8 key
-   pages and packed E2M1 value pages; count each kernel's launches on the
-   load and on the serving run and check ``sync_every`` 1 and 8 give the
-   same tokens; then serve a static batch through ``ServeEngine`` on the
-   same weights, once with the MX KV cache (contiguous MX decode
-   attention) and once with a bf16 cache (flash prefill), counting
-   launches of each run, and check the continuous engine gives the static
-   engine's tokens; then a reduced-width model at head dim 48, which no
-   attention kernel takes, through both engines in bf16 (dense attention,
-   the KV write still fused) against the CPU;
+   pages and packed E2M1 value pages, every decode step one replay of
+   the engine's captured CUDA graph; count each kernel's launches on the
+   load and on the serving run (each replay credits its captured step's
+   launches) and check ``sync_every`` 1 and 8 give the same tokens,
+   greedy and at temperature 0.8; hold one replayed window against the
+   eager loop of the same step (identical tokens, keys and flags,
+   byte-identical pools), greedy and sampled, and confirm one replay's
+   launches with the profiler; quarantine a prompt with a NaN embedding
+   row while its neighbour keeps its solo tokens; then serve a static
+   batch through ``ServeEngine`` on the same weights (its decode step
+   captured on a first call, replayed on the second), once with the MX
+   KV cache (contiguous MX decode attention, pos on the device) and once
+   with a bf16 cache (flash prefill), counting launches of each run,
+   against the eager decode loop, and check the continuous engine gives
+   the static engine's tokens; then a reduced-width model at head dim
+   48, which no attention kernel takes, through both engines in bf16
+   (dense attention, the KV write still fused) against the CPU;
 4. the continuous engine at full width but 2 layers in f32, once on the
    card and once on the CPU (the kernels' plain versions): first-prefill
    logits and greedy tokens must agree; likewise ``ServeEngine`` over an
@@ -365,19 +376,27 @@ def check_kv_write(torch, flush):
                              (("k_codes", cl), ("k_scales", cl // 32),
                               ("v_codes", cl), ("v_scales", cl // 32))}
                     plain = {n: t.clone() for n, t in cache.items()}
+                    # the same writes at a position read from device memory
+                    on_dev = {n: t.clone() for n, t in cache.items()}
                     for pos, s_ in ((0, 512), (512, 1), (519, 1)):
                         k, v = (_kv_rand(torch, gen, (2, s_, n_kv, hd), dt,
                                          "paper" in (mode, kspec.mode))
                                 for _ in range(2))
                         mx_cache_kv_write(cache, k, v, pos, kspec, vspec)
+                        mx_cache_kv_write(on_dev, k, v, torch.tensor(
+                            [pos], dtype=torch.int32, device=dev), kspec,
+                            vspec)
                         ref.mx_cache_kv_write_ref(plain, k, v, pos, kspec,
                                                   vspec)
-                    for n in cache:
-                        if not torch.equal(cache[n], plain[n]):
-                            raise AssertionError(
-                                f"mx_cache_kv_write {kspec}/{vspec} D {hd} "
-                                f"{dt}: {n} differs from the plain version")
-                    n_cache += 1
+                    for got, how in ((cache, "host pos"),
+                                     (on_dev, "device pos")):
+                        for n in got:
+                            if not torch.equal(got[n], plain[n]):
+                                raise AssertionError(
+                                    f"mx_cache_kv_write ({how}) {kspec}/"
+                                    f"{vspec} D {hd} {dt}: {n} differs from "
+                                    f"the plain version")
+                    n_cache += 2
     # timing at the serving shape: 8 slots, 2 KV heads, D 128, bf16,
     # INT8 keys / packed E2M1 values, pages of 16 (the continuous path)
     kspec, vspec = QuantSpec.parse("int8@32:ocp"), QuantSpec.parse(
@@ -432,8 +451,9 @@ def check_kv_write(torch, flush):
     emit("check", kernel="mx_kv_write", compared_paged=n_paged + 1,
          compared_contiguous=n_cache + 1,
          criterion="bit-identical pool and cache bytes (page 0, the trash "
-                   "page, left out); the timed paged and prefill writes "
-                   "included")
+                   "page, left out); the contiguous cache at a host pos and "
+                   "at a pos in device memory; the timed paged and prefill "
+                   "writes included")
     nbytes = 2 * k.numel() * (2 + 1 + 1 / 32)
     tb2, by2 = bound(nbytes, 2 * k.numel() * CONVERTER_OPS_PER_ELEMENT,
                      F32_CUDA_CORE_FLOPS)
@@ -717,51 +737,75 @@ def check_decode_attention(torch, flush):
         kw = dict(key_spec=kspec, value_spec=vspec, rep=hq // hkv)
         for pos in (0, 1, 63, 64, 300, 575, 639):
             lengths = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+            pos_d = lengths[:1].clone()           # pos in device memory
             for q in (q32, q32.to(torch.bfloat16),
                       (q32 * 8).to(torch.bfloat16)):
-                _attn_check(torch, mx_decode_attention(q, *cache, pos, **kw),
-                            ref.mx_decode_attention_ref(q, *cache, lengths,
-                                                        **kw), worst)
-                n_checked += 1
+                got = mx_decode_attention(q, *cache, pos, **kw)
+                _attn_check(torch, got, ref.mx_decode_attention_ref(
+                    q, *cache, lengths, **kw), worst)
+                if not torch.equal(mx_decode_attention(q, *cache, pos_d,
+                                                       **kw), got):
+                    raise AssertionError(
+                        f"mx_decode_attention {kv} pos {pos} {q.dtype}: a "
+                        f"device pos differs from the host int")
+                n_checked += 2
         if vspec.fmt != "e2m1":
             continue
-        # timing at the static path's types: bf16 q, INT8 K / E2M1 V
-        pos, q = 575, q32.to(torch.bfloat16)
-        lengths = torch.full((b,), pos, dtype=torch.int32, device="cuda")
-        live = pos + 1
-        nbytes = b * live * hkv * 2 * (d + d // 32) + 2 * q.numel() * 2
-        tb, by = bound(nbytes, 4.0 * b * hq * live * d, BF16_FLOPS)
-        # the library yardstick: SDPA over the dequantized cache
-        kd, vd = (ref._dequant_cache_ref(c, sc, spec).transpose(1, 2)
-                  .to(torch.bfloat16).contiguous()
-                  for c, sc, spec in ((cache[0], cache[1], kspec),
-                                      (cache[2], cache[3], vspec)))
-        mask = (torch.arange(s, device="cuda") <= pos)[None, None, None, :]
-        qt = q.transpose(1, 2)
-        sdpa, best, sdpa_graph = sdpa_ms(torch, flush, qt, kd, vd,
-                                         attn_mask=mask, enable_gqa=True)
-        row = dict(kernel="mx_decode_attention",
-                   shape="8 rows, pos 575 of S 640, Hq 32, Hkv 2, D 128",
-                   spec=kv,
-                   ms=time_ms(torch, lambda: mx_decode_attention(
-                       q, *cache, pos, **kw), flush=flush),
-                   graph_ms=graph_ms(torch, lambda: mx_decode_attention(
-                       q, *cache, pos, **kw), flush=flush),
-                   library_graph_ms=sdpa_graph,
-                   plain_ms=time_ms(torch, lambda: ref
-                                    .mx_decode_attention_ref(
-                                        q, *cache, lengths, **kw),
-                                    flush=flush),
-                   library_ms=sdpa[best], library_backend=best,
-                   sdpa_ms=sdpa, bound_ms=tb, bound_by=by, live_tokens=live)
-        emit("time", **row)
+        # timing at the static path's types: bf16 q, INT8 K / E2M1 V;
+        # pos 63 of S 640 too, where the grid sized from S walks 9 empty
+        # splits of 10
+        q = q32.to(torch.bfloat16)
+        for pos in (63, 575):
+            row = _time_decode_attention(torch, flush, q, cache, kw, kv,
+                                         pos, s, mx_decode_attention, ref)
     emit("check", kernel="mx_decode_attention", compared=n_checked,
          max_abs_err_bf16=worst[torch.bfloat16],
          max_abs_err_f32=worst[torch.float32],
          criterion=f"f32 within {ATTN_TOL_F32}; bf16 within torch's bf16 "
-                   f"defaults")
+                   f"defaults; a pos in device memory bit-identical to the "
+                   f"host int")
     return dict(row, max_abs_err_f32=worst[torch.float32]), \
         worst[torch.bfloat16]
+
+
+def _time_decode_attention(torch, flush, q, cache, kw, kv, pos, s,
+                           mx_decode_attention, ref):
+    """One timed row of the contiguous decode attention at ``pos``: the
+    kernel by CUDA events and replayed from a graph (with pos on the
+    device, as the static decode step runs it), plain, SDPA, bound."""
+    b, _, hq, d = q.shape
+    hkv = cache[0].shape[2]
+    kspec, vspec = kw["key_spec"], kw["value_spec"]
+    lengths = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    pos_d = lengths[:1].clone()
+    live = pos + 1
+    nbytes = b * live * hkv * 2 * (d + d // 32) + 2 * q.numel() * 2
+    tb, by = bound(nbytes, 4.0 * b * hq * live * d, BF16_FLOPS)
+    # the library yardstick: SDPA over the dequantized cache
+    kd, vd = (ref._dequant_cache_ref(c, sc, spec).transpose(1, 2)
+              .to(torch.bfloat16).contiguous()
+              for c, sc, spec in ((cache[0], cache[1], kspec),
+                                  (cache[2], cache[3], vspec)))
+    mask = (torch.arange(s, device="cuda") <= pos)[None, None, None, :]
+    qt = q.transpose(1, 2)
+    sdpa, best, sdpa_graph = sdpa_ms(torch, flush, qt, kd, vd,
+                                     attn_mask=mask, enable_gqa=True)
+    row = dict(kernel="mx_decode_attention",
+               shape=f"8 rows, pos {pos} of S {s}, Hq 32, Hkv 2, D 128",
+               spec=kv,
+               ms=time_ms(torch, lambda: mx_decode_attention(
+                   q, *cache, pos, **kw), flush=flush),
+               graph_ms=graph_ms(torch, lambda: mx_decode_attention(
+                   q, *cache, pos_d, **kw), flush=flush),
+               library_graph_ms=sdpa_graph,
+               plain_ms=time_ms(torch, lambda: ref
+                                .mx_decode_attention_ref(
+                                    q, *cache, lengths, **kw),
+                                flush=flush),
+               library_ms=sdpa[best], library_backend=best,
+               sdpa_ms=sdpa, bound_ms=tb, bound_by=by, live_tokens=live)
+    emit("time", **row)
+    return row
 
 
 def check_flash(torch, flush):
@@ -846,6 +890,41 @@ def check_flash(torch, flush):
     return row, worst[torch.bfloat16]
 
 
+def check_lm_head(torch, flush):
+    """The LM head of a decode step (8 rows x 4096 @ 4096 x 65024, bf16),
+    a plain torch product (the reference computes it outside any Pallas
+    kernel): the bf16-input, f32-output GEMM the port runs on the card
+    (``decoder._head``) against both sides widened to f32 (what it ran
+    before: a 1.07 GB f32 copy of the head on every call).  Exact
+    products, so the two differ in summation order only."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(8, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    head = (torch.randn(4096, 65024, generator=gen, device="cuda")
+            / 64).to(torch.bfloat16)
+    got = torch.mm(x, head, out_dtype=torch.float32)
+    want = torch.matmul(x.to(torch.float32), head.to(torch.float32))
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= MATMUL_TOL * scale:
+        raise AssertionError(f"bf16 -> f32 LM head differs by {err} "
+                             f"(max |logit| {scale})")
+    nbytes = head.numel() * 2 + x.numel() * 2 + got.numel() * 4
+    tb, by = bound(nbytes, 2.0 * 8 * 4096 * 65024, BF16_FLOPS)
+    emit("time", kernel="lm_head (torch, not a port kernel)",
+         shape="8 x 4096 @ 4096 x 65024, bf16 in, f32 out",
+         max_abs_err=err, max_abs=scale,
+         ms=time_ms(torch, lambda: torch.mm(x, head,
+                                            out_dtype=torch.float32),
+                    flush=flush),
+         graph_ms=graph_ms(torch, lambda: torch.mm(
+             x, head, out_dtype=torch.float32), flush=flush),
+         f32_cast_ms=time_ms(torch, lambda: torch.matmul(
+             x.to(torch.float32), head.to(torch.float32)), flush=flush),
+         bound_ms=tb, bound_by=by, head_bytes=head.numel() * 2,
+         f32_copy_bytes=head.numel() * 4)
+    del head
+
+
 # =============================================================================
 # phase 3: full-width serving
 # =============================================================================
@@ -880,6 +959,56 @@ def _drive(torch, fn):
     wall = time.perf_counter() - t0
     return out, {name: sum(c.launches for c in fns)
                  for name, fns in counters.items()}, wall
+
+
+# the kernels each wrapper launches, as the profiler names them
+# (template arguments and all), by family: a replay's device kernels of
+# a family must number the launches credited to the family's wrappers
+KERNEL_FAMILIES = {
+    "matmul": (("mx_matmul_2d",), ("mx_matmul_tc_decode_kernel",
+                                   "mx_matmul_tc_prefill_kernel",
+                                   "mx_matmul_skinny_kernel",
+                                   "mx_matmul_tiled_kernel")),
+    "kv_write": (("mx_paged_kv_write", "mx_cache_kv_write"),
+                 ("mx_kv_write_kernel",)),
+    "decode_attention": (("mx_paged_decode_attention",
+                          "mx_decode_attention"),
+                         ("mx_decode_attn_tc_kernel",
+                          "paged_attn_split_kernel",
+                          "decode_attn_split_kernel")),
+    "flash": (("flash_attention",), ("flash_tc_kernel", "flash_fwd_kernel")),
+    "converter": (("mx_quantize_2d",), ("mx_quant_kernel",
+                                        "mx_quant_vec_kernel")),
+}
+
+
+def check_replay(torch, path, step, want, replay=None):
+    """The launches one replay of a captured step credits
+    (``CapturedStep.launches``) are ``want`` per wrapper, and
+    ``torch.profiler`` over one replay (``replay``, by default ``step``
+    itself) sees the device run exactly that many kernels of each
+    family."""
+    credited = {w.__name__: n for w, n in step.launches.items()}
+    if credited != want:
+        raise AssertionError(f"{path}: one replay credits {credited}, "
+                             f"expected {want}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        (replay or step)()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen, expect = {}, {}
+    for fam, (wrappers, kernels) in KERNEL_FAMILIES.items():
+        seen[fam] = sum(any(k in n for k in kernels) for n in names)
+        expect[fam] = sum(credited.get(w, 0) for w in wrappers)
+    if seen != expect:
+        raise AssertionError(f"{path}: the profiler saw {seen} kernels in "
+                             f"one replay, the wrappers credit {expect}")
+    emit("replay_check", path=path, launches_per_replay=credited,
+         profiled_kernels=seen, device_kernels=len(names))
 
 
 def _check_launches(path, launches, want):
@@ -925,7 +1054,7 @@ def _serve(eng, prompts, new_tokens):
 def serve_full_width(torch):
     import numpy as np
     from repro_torch.launch.serve import build_model
-    from repro_torch.serve import ContinuousBatchingEngine
+    from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
     (model, params), load, load_s = _drive(torch, lambda: build_model(
         "chatglm3_6b", reduced=False, quant=POLICY, weight_resident=True,
         device="cuda", seed=0))
@@ -941,9 +1070,11 @@ def serve_full_width(torch):
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
                for n in lens]
     new = 64
-    eng = ContinuousBatchingEngine(
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(       # captures the decode step
         model, params, max_slots=8, page_size=16,
         max_len=int(lens.max()) + new + 1, sync_every=8, prefill_bucket=64)
+    capture_s = time.perf_counter() - t0
     outs, launches, wall = _drive(torch, lambda: _serve(eng, prompts, new))
     ph = eng.phase
     steps, batches = eng.n_steps, eng.n_prefill_batches
@@ -955,13 +1086,19 @@ def serve_full_width(torch):
          tokens_per_s=eng.n_generated / wall,
          decode_tokens_per_s=decode_tokens / ph["decode"],
          decode_steps=steps, windows=eng.n_syncs, prefill_batches=batches,
+         graph_capture_s=capture_s, quarantined=eng.n_quarantined,
          kv_pool_nbytes=eng.kv_pool_nbytes,
          weight_pool_nbytes=eng.weight_pool_nbytes, launches=launches,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    # every decode step is one replay: the launches of its captured step
+    # once per step, plus the eager prefill batches
     _check_launches("continuous serving", launches, {
         "mx_matmul_2d": 7 * n_l * (steps + batches),
         "mx_kv_write": n_l * (steps + batches),
         "mx_paged_decode_attention": n_l * steps})
+    if eng.n_quarantined or eng.scheduler.failed:
+        raise AssertionError("continuous serving quarantined a healthy "
+                             "request")
     for p, o in zip(prompts, outs):
         if len(o) != new or o.min() < 0 or o.max() >= cfg.vocab:
             raise AssertionError(f"bad output for a {len(p)}-token prompt")
@@ -971,23 +1108,141 @@ def serve_full_width(torch):
     if logits.shape[-1] < cfg.vocab or not bool(torch.isfinite(
             logits).all()):
         raise AssertionError("non-finite or short prefill logits")
-    # sync_every must not change the tokens (all 8 admitted at once)
+    del logits, eng
+    # sync_every must not change the tokens (all 8 admitted at once),
+    # greedy or sampled: a slot's keys advance with its own steps only
     short = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
              for n in rng.integers(64, 257, size=8)]
-    toks = []
-    for se in (1, 8):
-        e = ContinuousBatchingEngine(model, params, max_slots=8,
-                                     page_size=16, max_len=256 + 17,
-                                     sync_every=se, prefill_bucket=64)
-        toks.append([o.tolist() for o in _serve(e, short, 16)])
-    if toks[0] != toks[1]:
-        raise AssertionError("sync_every=1 and sync_every=8 disagree")
-    emit("sync_check", requests=8, new_tokens=16, identical=True)
+    for temperature in (0.0, 0.8):
+        toks = []
+        for se in (1, 8):
+            e = ContinuousBatchingEngine(
+                model, params, max_slots=8, page_size=16, max_len=256 + 17,
+                sync_every=se, prefill_bucket=64,
+                gen=GenerationConfig(temperature=temperature, seed=3))
+            toks.append([o.tolist() for o in _serve(e, short, 16)])
+            del e
+        if toks[0] != toks[1]:
+            raise AssertionError(f"sync_every=1 and sync_every=8 disagree "
+                                 f"at temperature {temperature}")
+        emit("sync_check", requests=8, new_tokens=16,
+             temperature=temperature, identical=True)
+    for temperature in (0.0, 0.8):
+        check_graph_window(torch, model, params, short, temperature)
+    check_quarantine(torch, model, params, short[:2])
     static = serve_static(torch, model, params)
-    del params, model, eng
+    del params, model
     torch.cuda.empty_cache()
     return {**launches, **static,
             "mx_quantize_2d": load["mx_quantize_2d"]}
+
+
+def check_graph_window(torch, model, params, prompts, temperature):
+    """One decode window of the continuous engine (8 replays of its
+    captured step) against ``paged_decode_multi_step`` run eagerly from
+    the same state: identical tokens, lengths, budgets, keys and flags,
+    and byte-identical pools (page 0, the trash page, left out: the
+    capture's warm-up step writes it).  Then the launches one replay
+    credits, confirmed by the profiler."""
+    from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
+    from repro_torch.serve.paging import TRASH_PAGE
+    n_l = model.cfg.n_layers
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=8, page_size=16, max_len=256 + 33,
+        sync_every=8, prefill_bucket=64,
+        gen=GenerationConfig(temperature=temperature, seed=7))
+    for p in prompts:
+        eng.add_request(p, 32)
+    eng.step()                          # admission, prefill, first window
+    window = eng.scheduler.plan_window(eng._lengths, eng.sync_every)
+    eng._upload_tables()
+    w = eng.window
+    state = [torch.from_numpy(a.copy()).cuda()
+             for a in (eng._cur_tok, eng._lengths, eng._remaining)]
+    pool = {k: v.clone() for k, v in eng.pool.items()}
+    t0 = time.perf_counter()
+    toks, pool, lengths, remaining, keys, bad = \
+        model.paged_decode_multi_step(
+            params, state[0], pool, w.block_tables.clone(), state[1],
+            state[2], w.keys.clone(), n_steps=window,
+            temperature=temperature, trash_page=TRASH_PAGE, health=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.step()                          # the same window, replayed
+    t2 = time.perf_counter()
+    same = {"tokens": torch.equal(w.tokens[:window], toks),
+            "lengths": torch.equal(w.state[1], lengths),
+            "remaining": torch.equal(w.state[2], remaining),
+            "keys": torch.equal(w.keys, keys),
+            "flags": torch.equal(w.bad, bad),
+            "pool": all(torch.equal(eng.pool[k][:, 1:], pool[k][:, 1:])
+                        for k in pool)}
+    if not all(same.values()):
+        raise AssertionError(f"graph and eager windows differ at "
+                             f"temperature {temperature}: {same}")
+    emit("graph_vs_eager", path="continuous", temperature=temperature,
+         steps=window, eager_s=t1 - t0, graph_step_s=t2 - t1, **same)
+    if temperature == 0.0:
+        # a window of one step: run() resets the step's token index
+        check_replay(torch, "continuous decode step", w.step, {
+            "mx_matmul_2d": 7 * n_l, "mx_paged_kv_write": n_l,
+            "mx_paged_decode_attention": n_l}, replay=lambda: w.run(1))
+
+
+def check_quarantine(torch, model, params, prompts):
+    """Full width, health checks on: a prompt holding a token whose
+    embedding row is NaN is quarantined at admission with a diagnostic,
+    and its neighbour gets the tokens it gets served alone."""
+    import numpy as np
+    from repro_torch.serve import ContinuousBatchingEngine
+    bad_tok = 7
+    poisoned_params = dict(params, embed=params["embed"].clone())
+    poisoned_params["embed"][bad_tok] = float("nan")
+    healthy = prompts[0][prompts[0] != bad_tok]
+    poisoned = prompts[1].copy()
+    poisoned[len(poisoned) // 2] = bad_tok
+
+    def engine():
+        return ContinuousBatchingEngine(model, poisoned_params, max_slots=8,
+                                        page_size=16, max_len=256 + 17,
+                                        sync_every=8, prefill_bucket=64)
+
+    solo = engine()
+    rid = solo.add_request(healthy, 16)
+    want = solo.run()[rid]
+    del solo
+    eng = engine()
+    rh, rp = eng.add_request(healthy, 16), eng.add_request(poisoned, 16)
+    out = eng.run()
+    failed = {r.rid: r.error for r in eng.scheduler.failed}
+    if set(failed) != {rp} or "health guard" not in failed[rp] \
+            or eng.n_quarantined != 1 or rp in out:
+        raise AssertionError(f"the poisoned request was not quarantined: "
+                             f"failed {failed}")
+    if not np.array_equal(out[rh], want):
+        raise AssertionError("the poisoned request's neighbour lost its "
+                             "solo tokens")
+    emit("quarantine", requests=2, quarantined=[rp], error=failed[rp],
+         neighbour_tokens_identical=True, tokens=out[rh].tolist())
+    del eng, poisoned_params
+    torch.cuda.empty_cache()
+
+
+def _static_eager(torch, model, params, tokens, new, max_len):
+    """The static decode loop, eagerly: prefill, then ``decode_step`` at
+    host positions with greedy sampling."""
+    import numpy as np
+    vocab = model.cfg.vocab
+    logits, cache, pos = model.prefill(
+        params, torch.from_numpy(tokens).cuda(), max_len=max_len)
+    tok = torch.argmax(logits[:, -1, :vocab], -1).to(torch.int32)
+    out = [tok]
+    del logits
+    for i in range(new - 1):
+        lg, cache = model.decode_step(params, tok, cache, pos + i)
+        tok = torch.argmax(lg[:, -1, :vocab], -1).to(torch.int32)
+        out.append(tok)
+    return np.asarray(torch.stack(out, dim=1).cpu())
 
 
 def serve_static(torch, model, params):
@@ -995,8 +1250,10 @@ def serve_static(torch, model, params):
     tokens, 64 new tokens, greedy; once over the MX KV cache of ``model``'s
     policy (decode through the contiguous MX decode kernel) and once over a
     bf16 cache (prefill through the flash kernel), each a main path of its
-    own.  Then the continuous engine serves the same prompts under the MX
-    policy and must give the static engine's tokens."""
+    own.  A first call captures the decode step; the second, driven, call
+    replays it once per token and must give the eager loop's tokens.  Then
+    the continuous engine serves the same prompts under the MX policy and
+    must give the static engine's tokens."""
     import dataclasses
     import numpy as np
     from repro_torch.core.spec import QuantPolicy
@@ -1011,15 +1268,23 @@ def serve_static(torch, model, params):
         weights=cfg.mx.weights)), device=model.device)
     runs = (("mx_kv", model, {"mx_decode_attention": n_l * (new - 1),
                               "mx_matmul_2d": 7 * n_l * new,
-                              "mx_kv_write": n_l * new}),
+                              "mx_kv_write": n_l * new},
+             {"mx_matmul_2d": 7 * n_l, "mx_cache_kv_write": n_l,
+              "mx_decode_attention": n_l}),
             ("bf16_kv", fp_kv, {"flash_attention": n_l,
-                                "mx_matmul_2d": 7 * n_l * new}))
+                                "mx_matmul_2d": 7 * n_l * new},
+             {"mx_matmul_2d": 7 * n_l}))
     gen = GenerationConfig(max_new_tokens=new)
     outs, counts = {}, {}
-    for name, m, want in runs:
+    for name, m, want, per_step in runs:
         eng = ServeEngine(m, params, max_len=s + new + 8)
+        eng.generate({"tokens": tokens}, gen)       # captures the step
+        captured = eng.n_captures
         out, launches, wall = _drive(
             torch, lambda: eng.generate({"tokens": tokens}, gen))
+        if eng.n_captures != captured or captured != 1:
+            raise AssertionError(f"static serving, {name}: captured "
+                                 f"{eng.n_captures} decode steps")
         _check_launches(f"static serving, {name}", launches, want)
         if out.shape != (b, new) or out.min() < 0 or out.max() >= cfg.vocab:
             raise AssertionError(f"static serving, {name}: bad output")
@@ -1030,7 +1295,19 @@ def serve_static(torch, model, params):
              decode_tokens_per_s=b * (new - 1) / ph["decode"],
              kv_cache_nbytes=eng.kv_cache_nbytes,
              weight_pool_nbytes=eng.weight_pool_nbytes, launches=launches)
+        t0 = time.perf_counter()
+        eager = _static_eager(torch, m, params, tokens, new, s + new + 8)
+        eager_s = time.perf_counter() - t0
+        if not np.array_equal(out, eager):
+            raise AssertionError(f"static serving, {name}: graph and eager "
+                                 f"decode loops give other tokens")
+        emit("graph_vs_eager", path=f"static {name}", steps=new - 1,
+             eager_s=eager_s, graph_decode_s=ph["decode"], tokens=True)
+        check_replay(torch, f"static {name} decode step",
+                     eng._graphs[(b, 0.0)].step, per_step)
         outs[name], counts[name] = out, launches
+        del eng
+        torch.cuda.empty_cache()
     eng = ContinuousBatchingEngine(model, params, max_slots=8, page_size=16,
                                    max_len=s + new + 1, sync_every=8,
                                    prefill_bucket=64)
@@ -1070,12 +1347,17 @@ def serve_c5(torch):
     prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
                for n in (5, 17, 30, 9, 24, 12)]
 
+    # each engine here captures its decode step inside the driven run,
+    # and the capture's warm-up step launches every kernel of a step
+    # once more (one step on the card, none on the CPU)
     def static(m, p):
-        out = ServeEngine(m, p, max_len=24 + new + 8).generate(
-            {"tokens": tokens}, GenerationConfig(max_new_tokens=new))
-        want = {"mx_matmul_2d": 7 * n_l * new}
+        eng = ServeEngine(m, p, max_len=24 + new + 8)
+        out = eng.generate({"tokens": tokens},
+                           GenerationConfig(max_new_tokens=new))
+        n = new + eng.n_captures
+        want = {"mx_matmul_2d": 7 * n_l * n}
         if m.cfg.mx.kv_key is not None:
-            want["mx_kv_write"] = n_l * new
+            want["mx_kv_write"] = n_l * n
         else:
             want["flash_attention"] = n_l          # the prompts' prefill
         return out.tolist(), want
@@ -1085,7 +1367,8 @@ def serve_c5(torch):
                                        max_len=30 + new + 1, sync_every=4,
                                        prefill_bucket=16)
         out = [o.tolist() for o in _serve(eng, prompts, new)]
-        n = eng.n_steps + eng.n_prefill_batches
+        warm = int(eng.window.step.graph is not None)
+        n = eng.n_steps + eng.n_prefill_batches + warm
         return out, {"mx_matmul_2d": 7 * n_l * n, "mx_kv_write": n_l * n}
 
     for name, c, fn, ps in (("static, MX KV", cfg, static, list(tokens)),
@@ -1238,6 +1521,7 @@ def main() -> int:
     a_row, a_err = check_paged_attention(torch, flush)
     d_row, d_err = check_decode_attention(torch, flush)
     f_row, f_err = check_flash(torch, flush)
+    check_lm_head(torch, flush)
     del flush
     torch.cuda.empty_cache()
     launches = serve_full_width(torch)

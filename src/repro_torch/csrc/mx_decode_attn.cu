@@ -13,10 +13,11 @@
 // Design.  A block owns one (row, KV head) and computes all rep = Hq / Hkv
 // query heads of that group (16 for chatglm3-6b), so the cache is read
 // once per KV head, not once per query head as in the Pallas grid
-// (B, Hq, S / blk_k).  The live positions 0..pos are split over blocks,
-// `tokens_per_split` each (the grid's third axis); the mask is shared by
-// the batch, so every block of a row has work and none walks a position
-// past pos — in the Pallas kernel the masked tiles contribute exactly
+// (B, Hq, S / blk_k).  The S positions are split over blocks,
+// `tokens_per_split` each (the grid's third axis, sized from S so that a
+// launch does not depend on pos, which may lie in device memory); a
+// block whose positions all lie past pos returns at once and the merge
+// skips it — in the Pallas kernel the masked tiles contribute exactly
 // zero (alpha = 1, p = 0), so skipping them changes nothing.  A block
 // walks its positions in tiles of 16 tokens: it loads K and V codes as
 // words of four, dequantizes them into shared memory (code -> value table
@@ -46,8 +47,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split_kernel(
     const uint8_t* __restrict__ ks, const uint8_t* __restrict__ vc,
     const uint8_t* __restrict__ vs, const float* __restrict__ ktab_g,
     const float* __restrict__ vtab_g, const float* __restrict__ stab_g,
-    float* __restrict__ part, int hq, int hkv, int d, int s_len, int pos,
-    int tokens_per_split) {
+    float* __restrict__ part, int hq, int hkv, int d, int s_len,
+    const int* __restrict__ pos_p, int pos, int tokens_per_split) {
   extern __shared__ float smem[];
   const int rep = hq / hkv;
   const int ds = d + 1;                        // padded row: no bank clash
@@ -66,8 +67,10 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split_kernel(
   const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int nsplit = gridDim.z, tid = threadIdx.x;
   const int nbl = d / 32, nq = d / 4;
-  const int live = min(pos + 1, s_len);        // positions 0 .. live-1
-  const int t0 = split * tokens_per_split;     // < live by the grid's size
+  const int p = pos_p != nullptr ? *pos_p : pos;
+  const int live = min(p + 1, s_len);          // positions 0 .. live-1
+  const int t0 = split * tokens_per_split;
+  if (t0 >= live) return;                      // the merge skips it
   const int t1 = min(live, t0 + tokens_per_split);
   for (int i = tid; i < 256; i += kThreads) {
     ktab[i] = ktab_g[i];
@@ -118,7 +121,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_split_kernel(
 int launch(const void* q, const void* kc, const void* ks, const void* vc,
            const void* vs, const void* ktab, const void* vtab,
            const void* stab, void* part, void* out, int bsz, int hq, int hkv,
-           int d, int s_len, int pos, int tokens_per_split, cudaStream_t st) {
+           int d, int s_len, const int* pos_p, int pos, int tokens_per_split,
+           cudaStream_t st) {
   const int rep = hq / hkv;
   const size_t floats = 3 * 256 + (size_t)rep * d + (size_t)kTile * (d + 1) +
                         (size_t)kTile * d + (size_t)rep * kTile +
@@ -129,18 +133,19 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)bytes);
   }
-  const int live = min(pos + 1, s_len);
-  const int nsplit = (live + tokens_per_split - 1) / tokens_per_split;
+  // sized from S, not from pos: a launch does not depend on pos
+  const int nsplit = (s_len + tokens_per_split - 1) / tokens_per_split;
   decode_attn_split_kernel<<<dim3(hkv, bsz, nsplit), kThreads, bytes,
                              st>>>(
       (const float*)q, (const uint8_t*)kc, (const uint8_t*)ks,
       (const uint8_t*)vc, (const uint8_t*)vs, (const float*)ktab,
       (const float*)vtab, (const float*)stab, (float*)part, hq, hkv, d,
-      s_len, pos, tokens_per_split);
+      s_len, pos_p, pos, tokens_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mxattn::merge_splits_kernel<<<dim3(hkv, bsz), kThreads, 0, st>>>(
-      (const float*)part, (float*)out, hq, hkv, d, nsplit);
+      (const float*)part, (float*)out, hq, hkv, d, nsplit, pos_p, pos, s_len,
+      tokens_per_split);
   return (int)cudaGetLastError();
 }
 
@@ -148,14 +153,16 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
 
 // q (B, Hq, D) f32; codes (B, S, Hkv, D) u8, one code
 // per byte, rows 4-byte aligned; scales (B, S, Hkv, D/32) u8; out like q;
-// 0 <= pos.  part: B * Hkv * ceil(min(pos + 1, S) / tokens_per_split)
-// records of (Hq/Hkv) * (D + 2) floats.
+// 0 <= pos, read from pos_dev (one int32 in device memory) when that is
+// not null.  part: B * Hkv * ceil(S / tokens_per_split) records of
+// (Hq/Hkv) * (D + 2) floats; the splits past min(pos + 1, S) write none.
 extern "C" int mx_decode_attn_launch(
     const void* q, const void* kc, const void* ks, const void* vc,
-    const void* vs, const void* ktab, const void* vtab, const void* stab,
-    void* part, void* out, int bsz, int hq, int hkv, int d, int s_len,
-    int pos, int tokens_per_split, void* stream) {
+    const void* vs, const void* pos_dev, const void* ktab, const void* vtab,
+    const void* stab, void* part, void* out, int bsz, int hq, int hkv, int d,
+    int s_len, int pos, int tokens_per_split, void* stream) {
   if (bsz == 0) return 0;
   return launch(q, kc, ks, vc, vs, ktab, vtab, stab, part, out, bsz, hq, hkv,
-                d, s_len, pos, tokens_per_split, (cudaStream_t)stream);
+                d, s_len, (const int*)pos_dev, pos, tokens_per_split,
+                (cudaStream_t)stream);
 }

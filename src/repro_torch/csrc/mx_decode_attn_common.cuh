@@ -66,20 +66,28 @@ __device__ __forceinline__ void tile_update(
 
 // Merge the nsplit partial records of each (row, KV head) in split order
 // (deterministic) and apply the l == 0 -> 1 guard.  A record is
-// [rep x d acc | rep max | rep sum]; grid (Hkv, B).
+// [rep x d acc | rep max | rep sum]; grid (Hkv, B).  tokens_per_split > 0
+// (the contiguous cache): only the splits holding positions <= pos wrote
+// a record, pos read from pos_p when that is not null.
 __global__ void __launch_bounds__(kThreads) merge_splits_kernel(
     const float* __restrict__ part, float* __restrict__ out, int hq,
-    int hkv, int d, int nsplit) {
+    int hkv, int d, int nsplit, const int* __restrict__ pos_p, int pos,
+    int s_len, int tokens_per_split) {
   const int g = blockIdx.x, b = blockIdx.y;
   const int rep = hq / hkv, rec = rep * d + 2 * rep;
   const float* base = part + ((long long)b * hkv + g) * nsplit * rec;
+  int ns = nsplit;              // records to merge
+  if (tokens_per_split > 0) {   // contiguous: the splits up to pos only
+    const int live = min((pos_p != nullptr ? *pos_p : pos) + 1, s_len);
+    ns = min(nsplit, (live + tokens_per_split - 1) / tokens_per_split);
+  }
   float* ob = out + ((long long)b * hq + g * rep) * d;
   for (int i = threadIdx.x; i < rep * d; i += kThreads) {
     const int h = i / d;
     float m = kNegInf;
-    for (int s = 0; s < nsplit; ++s) m = fmaxf(m, base[s * rec + rep * d + h]);
+    for (int s = 0; s < ns; ++s) m = fmaxf(m, base[s * rec + rep * d + h]);
     float l = 0.f, o = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
+    for (int s = 0; s < ns; ++s) {
       const float* r = base + s * rec;
       const float w = expf(r[rep * d + h] - m);
       l = fmaf(r[rep * d + rep + h], w, l);

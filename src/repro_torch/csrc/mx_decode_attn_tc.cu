@@ -87,7 +87,8 @@ struct Args {
   float* part;              // records (B, Hkv * mtiles, nsplit, rec)
   __nv_bfloat16* out;       // (B, Hq, D)
   int hq, hkv, rep, mtiles;
-  int s_len, pos;           // contiguous
+  const int* pos_p;         // contiguous: pos in device memory, or null
+  int s_len, pos;           // contiguous (pos when pos_p is null)
   int page, max_pages;      // paged
   int cb_k, cb_v, kkind, vkind;   // bytes per code row; 0 u8, 1 4-bit, 2 6-bit
   int split_tokens, nsplit;
@@ -103,7 +104,7 @@ __host__ __device__ constexpr int rec_floats() {
 template <bool PAGED>
 __device__ __forceinline__ int live_of(const Args& a, int b) {
   if (PAGED) return min(a.lengths[b] + 1, a.max_pages * a.page);
-  return min(a.pos + 1, a.s_len);
+  return min((a.pos_p != nullptr ? *a.pos_p : a.pos) + 1, a.s_len);
 }
 
 // token-head row of position tok of row b, KV head g
@@ -550,14 +551,17 @@ int launch(Args& a, int bsz, int d, cudaStream_t st) {
 
 // q (B, Hq, D) bf16, 16-byte aligned; codes (B, S, Hkv, D) u8, one code
 // per byte, 16-byte aligned; scales (B, S, Hkv, D/32) u8; out like q;
-// D in {32, 64, 128}; 0 <= pos.  part: B * Hkv * ceil(Hq / Hkv / 16) *
+// D in {32, 64, 128}; 0 <= pos, read from pos_dev (one int32 in device
+// memory) when that is not null.  part: B * Hkv * ceil(Hq / Hkv / 16) *
 // nsplit records of 16 * (D + 2) floats; split_tokens a multiple of 64
-// with nsplit * split_tokens >= min(pos + 1, S).
+// with nsplit * split_tokens >= S: the grid is sized from S, so a launch
+// does not depend on pos, and the splits past min(pos + 1, S) return at
+// once and the merge skips them.
 extern "C" int mx_decode_attn_tc_launch(
     const void* q, const void* kc, const void* ks, const void* vc,
-    const void* vs, const void* ktab, const void* vtab, const void* stab,
-    void* part, void* out, int bsz, int hq, int hkv, int d, int s_len,
-    int pos, int split_tokens, int nsplit, void* stream) {
+    const void* vs, const void* pos_dev, const void* ktab, const void* vtab,
+    const void* stab, void* part, void* out, int bsz, int hq, int hkv, int d,
+    int s_len, int pos, int split_tokens, int nsplit, void* stream) {
   Args a{};
   a.q = (const __nv_bfloat16*)q;
   a.kc = (const uint8_t*)kc;
@@ -571,6 +575,7 @@ extern "C" int mx_decode_attn_tc_launch(
   a.out = (__nv_bfloat16*)out;
   a.hq = hq;
   a.hkv = hkv;
+  a.pos_p = (const int*)pos_dev;
   a.s_len = s_len;
   a.pos = pos;
   a.cb_k = a.cb_v = d;

@@ -34,7 +34,10 @@
 // a token's K/V in silence).  Rows that are done point
 // at the trash page with length 0, so their stores collide there, as the
 // indexed stores' do; nothing reads that page.  Contiguous: token t of
-// row b goes to position pos + t.
+// row b goes to position pos + t, with pos a launch argument or, when
+// pos_dev is given, read from device memory (the static decode step
+// replayed from a CUDA graph advances it on the device); a pos that puts
+// a token outside the cache traps, as in the paged mode.
 //
 // Bound.  Bytes: each input element read once (2 or 4 B) and its code and
 // 1/32 scale written once; at decode (8 rows x 2 KV heads x D 128) that is
@@ -56,6 +59,7 @@ __global__ void mx_kv_write_kernel(const T* __restrict__ k,
                                    int hd, int nblk,
                                    const int* __restrict__ block_tables,
                                    const int* __restrict__ lengths,
+                                   const int* __restrict__ pos_dev,
                                    int max_pages, int page, int n_pages,
                                    int s_max, int pos) {
   const long long warp =
@@ -81,7 +85,9 @@ __global__ void mx_kv_write_kernel(const T* __restrict__ k,
     if (pg < 0 || pg >= n_pages) __trap();
     dst = ((long long)pg * page + len % page) * n_kv + h;
   } else {
-    dst = ((long long)b * s_max + pos + t) * n_kv + h;
+    const int p = pos_dev != nullptr ? *pos_dev : pos;
+    if (p < 0 || p + s > s_max) __trap();          // see "Destinations"
+    dst = ((long long)b * s_max + p + t) * n_kv + h;
   }
   const long long src = (((long long)b * s + t) * n_kv + h) * hd;
   if (side == 0) {             // each call reads its side's fields directly
@@ -102,11 +108,13 @@ Fmt fmt_of(const int* a) {
 // fk / fv: the 11 format fields of each role (kernels/mx_quant.py
 // ::_format_args) followed by its pack kind and code-row bytes.
 // block_tables null: contiguous cache (rows, s_max, n_kv, X), token t at
-// pos + t; else paged pool (pages, page, n_kv, X), s == 1.
+// pos + t, pos read from pos_dev when that is not null; else paged pool
+// (pages, page, n_kv, X), s == 1.
 extern "C" int mx_kv_write_launch(const void* k, const void* v, void* kc,
                                   void* ks, void* vc, void* vs,
                                   const void* block_tables,
-                                  const void* lengths, const void* fk,
+                                  const void* lengths, const void* pos_dev,
+                                  const void* fk,
                                   const void* fv, int is_bf16, int rows,
                                   int s, int n_kv, int hd, int max_pages,
                                   int page, int n_pages, int s_max, int pos,
@@ -123,14 +131,15 @@ extern "C" int mx_kv_write_launch(const void* k, const void* v, void* kc,
     cudaStream_t st = (cudaStream_t)stream;
     const int* bt = (const int*)block_tables;
     const int* ln = (const int*)lengths;
+    const int* pd = (const int*)pos_dev;
     if (is_bf16) {
       mx_kv_write_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, st>>>(
           (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, sk, sv, rows, s,
-          n_kv, hd, nblk, bt, ln, max_pages, page, n_pages, s_max, pos);
+          n_kv, hd, nblk, bt, ln, pd, max_pages, page, n_pages, s_max, pos);
     } else {
       mx_kv_write_kernel<float><<<(unsigned)blocks, threads, 0, st>>>(
           (const float*)k, (const float*)v, sk, sv, rows, s, n_kv, hd, nblk,
-          bt, ln, max_pages, page, n_pages, s_max, pos);
+          bt, ln, pd, max_pages, page, n_pages, s_max, pos);
     }
   }
   return (int)cudaGetLastError();

@@ -168,7 +168,7 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mxattn::merge_splits_kernel<<<dim3(hkv, bsz), kThreads, 0, st>>>(
-      (const float*)part, (float*)out, hq, hkv, d, nsplit);
+      (const float*)part, (float*)out, hq, hkv, d, nsplit, nullptr, 0, 0, 0);
   return (int)cudaGetLastError();
 }
 

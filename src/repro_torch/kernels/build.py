@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -24,6 +25,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -36,13 +39,13 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 SIGNATURES: Dict[str, str] = {
     "mx_quant_launch": "ppp" + "ii" + "i" * 11 + "p",
     "mx_quant_vec_launch": "ppp" + "ii" + "i" * 11 + "p",
-    "mx_kv_write_launch": "p" * 10 + "i" * 10 + "p",
+    "mx_kv_write_launch": "p" * 11 + "i" * 10 + "p",
     "mx_matmul_launch": "ppppppp" + "i" * 5 + "p",
     "mx_matmul_tc_launch": "ppppppp" + "i" * 5 + "p",
     "mx_paged_decode_attn_launch": "p" * 12 + "i" * 11 + "p",
-    "mx_decode_attn_launch": "p" * 10 + "i" * 7 + "p",
+    "mx_decode_attn_launch": "p" * 11 + "i" * 7 + "p",
     "mx_paged_decode_attn_tc_launch": "p" * 12 + "i" * 12 + "p",
-    "mx_decode_attn_tc_launch": "p" * 10 + "i" * 8 + "p",
+    "mx_decode_attn_tc_launch": "p" * 11 + "i" * 8 + "p",
     "flash_attn_launch": "pppp" + "i" * 8 + "p",
     "flash_attn_tc_launch": "pppp" + "i" * 8 + "p",
 }
@@ -131,6 +134,21 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+def position(name: str, pos, device: torch.device):
+    """A position operand as the kernels take it: (host int, None) for a
+    Python int, (None, tensor) for a one-element int32 tensor on
+    ``device`` that the kernel reads itself (a position that a replayed
+    CUDA graph advances on the device)."""
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int32 or pos.numel() != 1 \
+                or pos.device != device:
+            raise ValueError(f"{name}: a tensor pos must be one int32 on "
+                             f"{device}, got {tuple(pos.shape)} {pos.dtype} "
+                             f"on {pos.device}")
+        return None, pos
+    return operator.index(pos), None
 
 
 def check(err: int, name: str) -> None:

@@ -11,8 +11,6 @@ kernel (or raises); on CPU tensors it computes the plain version,
 """
 from __future__ import annotations
 
-import operator
-
 import torch
 
 from repro_torch.core.spec import as_spec
@@ -122,12 +120,16 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
     q             (B, 1, Hq, D) f32 or bf16
     k/v_codes     (B, S, Hkv, D) u8, one code per byte (every format)
     k/v_scales    (B, S, Hkv, D/32) u8 E8M0 scales
-    pos           host int >= 0: every row attends positions <= pos
+    pos           >= 0: every row attends positions <= pos; a host int,
+                  or a one-element int32 tensor on q's device that the
+                  kernels read (the static decode step replayed from a
+                  CUDA graph).  The grid is sized from S either way, so
+                  the two give the same bits
 
     Returns (B, 1, Hq, D) in q's dtype."""
     key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
     _require_block32(key_spec, value_spec)
-    pos = operator.index(pos)
+    host_pos, pos_dev = build.position("mx_decode_attention", pos, q.device)
     b, s1, hq, d = q.shape
     _, s_len, hkv, _ = k_codes.shape
     if s1 != 1 or hq != hkv * rep or d % 32:
@@ -142,12 +144,15 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
                          f"{tuple(k_codes.shape)}/{tuple(v_codes.shape)} "
                          f"and {tuple(k_scales.shape)}/"
                          f"{tuple(v_scales.shape)}")
-    if pos < 0:
-        raise ValueError(f"mx_decode_attention: pos must be >= 0, got {pos}")
+    if q.device.type == "cpu" and pos_dev is not None:
+        host_pos = int(pos_dev)
+    if host_pos is not None and host_pos < 0:
+        raise ValueError(f"mx_decode_attention: pos must be >= 0, got "
+                         f"{host_pos}")
     if q.device.type == "cpu":
         return ref.mx_decode_attention_ref(
             q, k_codes, k_scales, v_codes, v_scales,
-            torch.full((b,), pos, dtype=torch.int32), key_spec=key_spec,
+            torch.full((b,), host_pos, dtype=torch.int32), key_spec=key_spec,
             value_spec=value_spec, rep=rep)
     operands = (k_codes, k_scales, v_codes, v_scales)
     _check_cuda_operands("mx_decode_attention", q, operands)
@@ -155,27 +160,27 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
         raise ValueError("mx_decode_attention: code caches must be "
                          "word-aligned")
     dev = q.device
-    live = min(pos + 1, s_len)
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(),
             v_codes.data_ptr(), v_scales.data_ptr(),
+            None if pos_dev is None else pos_dev.data_ptr(),
             tables.elem_table(key_spec, dev).data_ptr(),
             tables.elem_table(value_spec, dev).data_ptr(),
             tables.scale_table(dev).data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     if q.dtype == torch.bfloat16:
         _check_tc_operands("mx_decode_attention", q, (k_codes, v_codes))
-        st, nsplit, part = _records(b, hkv, rep, d, live, dev)
+        st, nsplit, part = _records(b, hkv, rep, d, s_len, dev)
         err = build.lib().mx_decode_attn_tc_launch(
             *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, s_len,
-            pos, st, nsplit, stream)
+            host_pos or 0, st, nsplit, stream)
     else:
-        nsplit = -(-live // TOKENS_PER_SPLIT)
+        nsplit = -(-s_len // TOKENS_PER_SPLIT)
         part = torch.empty((b, hkv, nsplit, rep * (d + 2)),
                            dtype=torch.float32, device=dev)
         err = build.lib().mx_decode_attn_launch(
             *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, s_len,
-            pos, TOKENS_PER_SPLIT, stream)
+            host_pos or 0, TOKENS_PER_SPLIT, stream)
     build.check(err, "mx_decode_attention")
     mx_decode_attention.launches += 1
     return out

@@ -14,7 +14,6 @@ the plain converter: the kernel runs its integer sequence.
 from __future__ import annotations
 
 import ctypes
-import operator
 
 import torch
 
@@ -58,7 +57,7 @@ def _check_leaves(name: str, leaves, lead, hd: int, kspec, vspec,
 
 
 def _launch(name, k, v, leaves, kspec, vspec, kinds, bt, lengths,
-            max_pages, page, s_max, pos) -> None:
+            max_pages, page, s_max, pos, pos_dev=None) -> None:
     """Check what the kernel takes and launch it on k's stream."""
     if k.device.type != "cuda" or any(
             t.device != k.device for t in (v, *leaves)
@@ -87,6 +86,7 @@ def _launch(name, k, v, leaves, kspec, vspec, kinds, bt, lengths,
         k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in leaves),
         None if bt is None else bt.data_ptr(),
         None if bt is None else lengths.data_ptr(),
+        None if pos_dev is None else pos_dev.data_ptr(),
         ctypes.addressof(fk), ctypes.addressof(fv),
         int(k.dtype == torch.bfloat16), b, s, n_kv, hd, max_pages, page,
         leaves[0].shape[0], s_max, pos,
@@ -136,7 +136,7 @@ def mx_paged_kv_write(pool, k: torch.Tensor, v: torch.Tensor,
     return pool
 
 
-def mx_cache_kv_write(cache, k: torch.Tensor, v: torch.Tensor, pos: int,
+def mx_cache_kv_write(cache, k: torch.Tensor, v: torch.Tensor, pos,
                       key_spec, value_spec):
     """Write k/v at positions [pos, pos + s) of one layer's contiguous MX
     cache (in place; returns the cache).
@@ -145,23 +145,30 @@ def mx_cache_kv_write(cache, k: torch.Tensor, v: torch.Tensor, pos: int,
                   rounded up to the block, padding codes 0), k/v_scales
                   (B, S, n_kv, cl / block) u8
     k, v          (B, s, n_kv, hd) f32 or bf16
-    pos           host int, pos + s <= S"""
+    pos           host int, or a one-element int32 tensor on k's device
+                  that the kernel reads (the same bytes either way);
+                  pos + s <= S.  A position outside the cache is an
+                  error on every device: a host int or a CPU tensor
+                  raises at once, a CUDA tensor makes the kernel trap
+                  (the next synchronizing call raises)"""
     key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
     _check_kv("mx_cache_kv_write", k, v)
-    pos = operator.index(pos)
+    host_pos, pos_dev = build.position("mx_cache_kv_write", pos, k.device)
     b, s, n_kv, hd = k.shape
     leaves = tuple(cache[n] for n in _CODE_LEAVES["cache"])
     s_max = leaves[0].shape[1]
     _check_leaves("mx_cache_kv_write", leaves, (b, s_max, n_kv), hd,
                   key_spec, value_spec, packed=False)
-    if pos < 0 or pos + s > s_max:
-        raise ValueError(f"mx_cache_kv_write: positions [{pos}, {pos + s}) "
-                         f"do not fit a cache of {s_max}")
+    if k.device.type == "cpu" and pos_dev is not None:
+        host_pos = int(pos_dev)
+    if host_pos is not None and (host_pos < 0 or host_pos + s > s_max):
+        raise ValueError(f"mx_cache_kv_write: positions [{host_pos}, "
+                         f"{host_pos + s}) do not fit a cache of {s_max}")
     if k.device.type == "cpu":
-        return ref.mx_cache_kv_write_ref(cache, k, v, pos, key_spec,
+        return ref.mx_cache_kv_write_ref(cache, k, v, host_pos, key_spec,
                                          value_spec)
     _launch("mx_cache_kv_write", k, v, leaves, key_spec, value_spec, (0, 0),
-            None, None, 0, 0, s_max, pos)
+            None, None, 0, 0, s_max, host_pos or 0, pos_dev)
     mx_cache_kv_write.launches += 1
     return cache
 

@@ -132,6 +132,10 @@ def mx_decode_attention_ref(q, k_codes, k_scales, v_codes, v_scales,
         <= lengths[:, None, None, None]
     scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
+    # positions past a row's length weigh exactly 0; their values are
+    # zeroed too, so a non-finite byte there (a recycled or trash page)
+    # cannot leak in as 0 * NaN: the kernels never read those positions
+    ve = torch.where(mask[:, 0, 0, :, None, None], ve, 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", p, ve)
     return out.to(q.dtype)
 

@@ -1,4 +1,6 @@
-"""Where a decode step's time goes on the card: traced decode steps.
+"""Where a decode step's time goes on the card: traced decode steps, each
+path as replays of its captured CUDA graph beside the eager loop of the
+same step function, in the same call.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode
 
@@ -7,19 +9,27 @@ traces ``SYNC_EVERY`` decode steps of each serving path with
 ``torch.profiler`` (CPU + CUDA activities), 8 rows at ~256 positions:
 
 - ``continuous``: 8 requests of 256 prompt tokens in 8 slots over INT8
-  key / E2M1 value pages; after the admission cycle and a warm window,
-  the next ``engine.step()`` — one window and nothing else;
-- ``static_mx_kv`` and ``static_bf16_kv``: the static engine's decode
-  loop (``Model.decode_step`` + greedy sampling, no host sync) over a
-  contiguous cache that one prefill of 8 x 256 tokens filled, with INT8
-  key / E2M1 value codes or bf16, after one warm step.
+  key / E2M1 value pages, health checks on.  After the admission cycle
+  and a warm window: ``eager`` is ``Model.paged_decode_multi_step`` over
+  the engine's next window (same pool, tables and state), then
+  ``graph`` the next ``engine.step()`` — one window of replays with its
+  state upload, poison check and one host transfer;
+- ``static_mx_kv`` and ``static_bf16_kv``: after one prefill of 8 x 256
+  tokens into a contiguous cache with INT8 key / E2M1 value codes or
+  bf16, ``eager`` is ``Model.decode_step`` at host positions plus greedy
+  sampling, ``graph`` the static engine's captured step
+  (``StaticDecodeGraph``) replayed from the same position, each ending
+  in one host transfer of the tokens.
 
-Prints one JSON line per path: wall time per step, the device's busy
-time per step (union of kernel intervals), its busy share, kernel
-launches per step, the MX decode-attention kernels' time per step (the
-split kernel and the merge kernel apart), the fused KV write's time and
-launches per step, and the kernels that take the most device time.
-Needs a CUDA device.
+Both modes of a path write the same cache positions with the same
+values, so the second repeats the first's work.  Prints one JSON line
+per (path, mode): wall time per step, the device's busy time per step
+(union of kernel intervals), its busy share, the host's launch calls
+per step (kernel launches and graph launches), device kernels per step,
+decode tokens/s (8 rows over the wall time), the MX decode-attention
+kernels' time per step (split and merge kernels apart), the fused KV
+write's time and launches per step, and the kernels that take the most
+device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -34,12 +44,18 @@ import torch
 from repro_torch.core.spec import QuantPolicy
 from repro_torch.launch.serve import build_model
 from repro_torch.models import Model
-from repro_torch.models.decoder import sample_tokens
+from repro_torch.models.decoder import request_keys, sample_tokens
 from repro_torch.serve import ContinuousBatchingEngine
+from repro_torch.serve.graphs import StaticDecodeGraph
+from repro_torch.serve.paging import TRASH_PAGE
 
 POLICY = "weights=e4m3@32:ocp,kv_key=int8@32:ocp,kv_value=e2m1@32:ocp"
 PROMPT_LEN = 256
 SYNC_EVERY = 8
+ROWS = 8
+# host-side CUDA API calls (`cuda*` and `cu*`) that start device work
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
 def _union_us(intervals) -> float:
@@ -67,9 +83,13 @@ def _trace(fn):
     return prof, wall
 
 
-def _report(path: str, prof, wall: float, steps: int, layers: int) -> None:
-    kernels = [e for e in prof.events()
+def _report(path: str, mode: str, prof, wall: float, steps: int,
+            layers: int) -> dict:
+    events = prof.events()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.name in LAUNCH_CALLS for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU)
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in kernels)
     by_name = defaultdict(float)
@@ -85,29 +105,87 @@ def _report(path: str, prof, wall: float, steps: int, layers: int) -> None:
             attn["merge" if "merge" in name else "split"] += us
         if "mx_kv_write" in name:
             kv_us, kv_n = kv_us + us, kv_n + counts[name]
-    print(json.dumps({
-        "phase": "profile_decode", "path": path,
-        "card": torch.cuda.get_device_name(0), "layers": layers, "rows": 8,
-        "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+    row = {
+        "phase": "profile_decode", "path": path, "mode": mode,
+        "card": torch.cuda.get_device_name(0), "layers": layers,
+        "rows": ROWS, "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_busy_share": busy_us / 1e6 / wall,
-        "kernel_launches_per_step": len(kernels) / steps,
+        "host_launch_calls_per_step": launches / steps,
+        "device_kernels_per_step": len(kernels) / steps,
+        "decode_tokens_per_s": ROWS * steps / wall,
         "attention_ms_per_step": {k: us / 1e3 / steps
                                   for k, us in attn.items()},
         "kv_write_ms_per_step": kv_us / 1e3 / steps,
         "kv_write_launches_per_step": kv_n / steps,
         "top_kernels_ms_per_step": [
             {"name": n[:80], "ms": us / 1e3 / steps,
-             "launches": counts[n] / steps} for n, us in top]}),
-        flush=True)
+             "launches": counts[n] / steps} for n, us in top]}
+    print(json.dumps(row), flush=True)
+    return row
 
 
-def _static_steps(model: Model, params, tok, cache, pos: int, n: int):
-    """The static engine's decode loop: ``n`` greedy steps from ``pos``."""
-    for i in range(n):
-        logits, cache = model.decode_step(params, tok, cache, pos + i)
-        tok = sample_tokens(logits[:, -1, :model.cfg.vocab])
-    return tok
+def _continuous(model: Model, params, prompts) -> None:
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=ROWS, page_size=16,
+        max_len=PROMPT_LEN + 4 * SYNC_EVERY + 1,
+        sync_every=SYNC_EVERY, prefill_bucket=64)
+    for p in prompts:
+        eng.add_request(p, 4 * SYNC_EVERY)
+    eng.step()                          # admission, prefill, first window
+    eng.step()                          # warm
+    # the next window's pages, granted as the engine's step grants them
+    eng.scheduler.plan_window(eng._lengths, SYNC_EVERY)
+    eng._upload_tables()
+    dev = model.device
+    w = eng.window
+    state = [torch.from_numpy(a.copy()).to(dev)
+             for a in (eng._cur_tok, eng._lengths, eng._remaining)]
+    keys = w.keys.clone()
+
+    def eager():
+        toks = model.paged_decode_multi_step(
+            params, *state[:1], eng.pool, w.block_tables, *state[1:], keys,
+            n_steps=SYNC_EVERY, trash_page=TRASH_PAGE, health=True)[0]
+        return toks.cpu()
+
+    n_l = model.cfg.n_layers
+    prof, wall = _trace(eager)
+    _report("continuous", "eager", prof, wall, SYNC_EVERY, n_l)
+    steps0 = eng.n_steps
+    prof, wall = _trace(eng.step)
+    _report("continuous", "graph", prof, wall, eng.n_steps - steps0, n_l)
+
+
+def _static(path: str, m: Model, params, prompts) -> None:
+    dev = m.device
+    vocab = m.cfg.vocab
+    max_len = PROMPT_LEN + 2 * SYNC_EVERY + 2
+    graph = StaticDecodeGraph(m, params, batch=ROWS, max_len=max_len)
+    logits, cache, pos = m.prefill(
+        params, torch.from_numpy(prompts).to(dev), max_len=max_len,
+        cache=graph.cache)
+    keys = request_keys(torch.arange(ROWS, dtype=torch.int64)).to(dev)
+    keys, tok = sample_tokens(logits[:, -1, :vocab], keys, 0.0)
+    del logits
+    graph.run(tok, keys, pos, 1)       # warm, then both from pos + 1
+    tok, pos = graph.token.clone(), pos + 1
+
+    def eager():
+        t, k = tok, keys
+        out = []
+        for i in range(SYNC_EVERY):
+            lg, _ = m.decode_step(params, t, cache, pos + i)
+            k, t = sample_tokens(lg[:, -1, :vocab], k, 0.0)
+            out.append(t)
+        return torch.stack(out).cpu()
+
+    n_l = m.cfg.n_layers
+    prof, wall = _trace(eager)
+    _report(path, "eager", prof, wall, SYNC_EVERY, n_l)
+    prof, wall = _trace(
+        lambda: graph.run(tok, keys, pos, SYNC_EVERY).cpu())
+    _report(path, "graph", prof, wall, SYNC_EVERY, n_l)
 
 
 def main() -> None:
@@ -117,32 +195,15 @@ def main() -> None:
                                 weight_resident=True, device="cuda",
                                 seed=0)
     rng = np.random.default_rng(0)
-    eng = ContinuousBatchingEngine(
-        model, params, max_slots=8, page_size=16,
-        max_len=PROMPT_LEN + 4 * SYNC_EVERY + 1,
-        sync_every=SYNC_EVERY, prefill_bucket=64)
-    prompts = rng.integers(0, model.cfg.vocab, size=(8, PROMPT_LEN))
-    for p in prompts.astype(np.int32):
-        eng.add_request(p, 4 * SYNC_EVERY)
-    eng.step()                          # admission, prefill, first window
-    eng.step()                          # warm
-    steps0 = eng.n_steps
-    prof, wall = _trace(eng.step)
-    n_l = model.cfg.n_layers
-    _report("continuous", prof, wall, eng.n_steps - steps0, n_l)
-    del eng
+    prompts = rng.integers(0, model.cfg.vocab,
+                           size=(ROWS, PROMPT_LEN)).astype(np.int32)
+    _continuous(model, params, prompts)
+    torch.cuda.empty_cache()
     fp_kv = Model(dataclasses.replace(model.cfg, mx=QuantPolicy(
         weights=model.cfg.mx.weights)), device=model.device)
-    tokens = torch.from_numpy(prompts.astype(np.int32)).cuda()
     for path, m in (("static_mx_kv", model), ("static_bf16_kv", fp_kv)):
-        logits, cache, pos = m.prefill(
-            params, tokens, max_len=PROMPT_LEN + SYNC_EVERY + 2)
-        tok = sample_tokens(logits[:, -1, :m.cfg.vocab])
-        tok = _static_steps(m, params, tok, cache, pos, 1)      # warm
-        prof, wall = _trace(lambda: _static_steps(
-            m, params, tok, cache, pos + 1, SYNC_EVERY))
-        _report(path, prof, wall, SYNC_EVERY, n_l)
-        del cache
+        _static(path, m, params, prompts)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

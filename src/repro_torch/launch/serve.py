@@ -10,8 +10,11 @@ continuous batching over the paged MX KV cache.
         --prompt-len 256 --new-tokens 64 --prefill-bucket 64 \\
         --quant weights=e4m3@32:ocp,kv_key=int8@32:ocp,kv_value=e2m1@32:ocp
 
-Runs on the CUDA device; ``--device cpu`` computes every kernel's plain
-version instead (use it with ``--reduced``).  Weights are random, made
+Runs on the CUDA device, each decode step one replay of a captured CUDA
+graph; ``--device cpu`` computes every kernel's plain version instead
+(use it with ``--reduced``).  ``--temperature`` / ``--seed`` sample as
+the reference's flags do; paged mode runs the numeric-health guards
+unless ``--no-health-checks``.  Weights are random, made
 on the device from seed 0; with ``--weight-resident`` each layer is
 quantized to MX storage as soon as it is made.
 """
@@ -83,9 +86,21 @@ def main(argv=None) -> None:
                     help="mixed prompt lengths")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 samples greedily; above 0, Gumbel-max over "
+                         "logits / temperature")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="sampling seed (each request's stream folds in "
+                         "its id)")
+    ap.add_argument("--no-health-checks", action="store_true",
+                    help="paged mode: turn off the numeric-health guards "
+                         "(non-finite logits, MX poison markers)")
     ap.add_argument("--device", default="cuda",
                     help="cpu computes every kernel's plain version")
     args = ap.parse_args(argv)
+    if args.no_health_checks and not args.paged:
+        ap.error("--no-health-checks needs --paged (the guards live in "
+                 "the paged engine)")
     t0 = time.perf_counter()
     model, params = build_model(args.arch, reduced=args.reduced,
                                 quant=args.quant,
@@ -104,7 +119,9 @@ def main(argv=None) -> None:
     eng = ContinuousBatchingEngine(
         model, params, max_slots=args.batch, page_size=args.page_size,
         max_len=max_len, sync_every=args.sync_every,
-        prefill_bucket=args.prefill_bucket or None)
+        prefill_bucket=args.prefill_bucket or None,
+        gen=GenerationConfig(temperature=args.temperature, seed=args.seed),
+        health_checks=not args.no_health_checks)
     t0 = time.perf_counter()
     for p in prompts:
         eng.add_request(p, args.new_tokens)
@@ -114,7 +131,7 @@ def main(argv=None) -> None:
     ph = eng.phase
     print(f"[serve] {len(out)} requests, {toks} tokens in {dt:.2f}s — "
           f"{rate(toks, dt):.1f} tok/s, {eng.n_steps} decode steps in "
-          f"{eng.n_syncs} windows")
+          f"{eng.n_syncs} windows, {eng.n_quarantined} quarantined")
     print(f"[serve] pools: weights {eng.weight_pool_nbytes / 2**20:.1f} MiB"
           f"{' (MX-resident)' if args.weight_resident else ' (fp)'}, "
           f"kv pages {eng.kv_pool_nbytes / 2**20:.1f} MiB")
@@ -133,7 +150,8 @@ def _serve_static(args, model: Model, params) -> None:
                                    cfg.vocab))
     eng = ServeEngine(model, params,
                       max_len=args.prompt_len + args.new_tokens + 8)
-    gen = GenerationConfig(max_new_tokens=args.new_tokens)
+    gen = GenerationConfig(max_new_tokens=args.new_tokens,
+                           temperature=args.temperature, seed=args.seed)
     times = []
     for _ in range(2):
         t0 = time.perf_counter()

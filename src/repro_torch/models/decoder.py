@@ -5,8 +5,13 @@ The reference stacks layers and drives them with ``lax.scan``; here
 ``params["layers"]`` is a list of per-layer dicts walked by a Python
 loop.  Caches and page pools stay layer-stacked on a leading axis (as in
 the reference), and each layer reads its slice ``leaf[i]`` — a
-contiguous view.  The fused decode window is a Python loop over steps on
-the device, with one host transfer of the window's tokens by the caller.
+contiguous view.  The fused decode window (the reference's jitted
+``lax.scan``) is ``paged_decode_window_step`` repeated: here as a Python
+loop (``paged_decode_multi_step``, what a CPU tensor runs), on the card
+as one captured CUDA graph replayed once per step
+(``repro_torch.serve.graphs``).  Either way sampling keys, lengths,
+budgets and the health flag stay on the device, and nothing in a step
+waits for the host.
 """
 from __future__ import annotations
 
@@ -121,12 +126,21 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head; f32 logits (the reference contracts with an
-    f32 accumulator and keeps f32 output)."""
+    """Final norm + LM head; f32 logits (the reference contracts in the
+    activation dtype with an f32 accumulator and keeps f32 output).  A
+    bf16 x bf16 head on the card is one bf16-input, f32-output GEMM that
+    reads the head's bf16 bytes once; elsewhere both sides widen to f32.
+    Products of bf16 values are exact in f32, so the two differ only in
+    summation order."""
     x = L.rms_norm(x, params["norm_f"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
+    if x.device.type == "cuda" and x.dtype == head.dtype == torch.bfloat16:
+        lead = x.shape[:-1]
+        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
+                       out_dtype=torch.float32)
+        return out.reshape(lead + (head.shape[-1],))
     return torch.matmul(x.to(torch.float32), head.to(torch.float32))
 
 
@@ -175,12 +189,23 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            max_len: int):
+            max_len: int, cache=None):
     """Process the prompts, fill a contiguous cache at [0, S); returns
-    (logits (B, S, Vp) f32, cache, S)."""
+    (logits (B, S, Vp) f32, cache, S).  ``cache`` (``init_cache``'s
+    layout for this batch and ``max_len``) is zeroed and filled in place
+    instead of a fresh one: a captured decode step keeps reading the same
+    buffers."""
     x = _embed(params, cfg, tokens)
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len, x.device)
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, x.device)
+    else:
+        for leaf in cache.values():
+            if leaf.shape[1:3] != (b, max_len):
+                raise ValueError(f"prefill: a cache leaf {tuple(leaf.shape)}"
+                                 f" is not for batch {b} and max_len "
+                                 f"{max_len}")
+            leaf.zero_()
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for i, lp in enumerate(params["layers"]):
         x, _ = _block(lp, x, cfg, positions=positions,
@@ -188,15 +213,21 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     return _head(params, cfg, x), cache, s
 
 
-def decode_step(params, token: torch.Tensor, cache, pos: int,
+def decode_step(params, token: torch.Tensor, cache, pos,
                 cfg: ModelConfig):
     """One decode step over the contiguous cache: token (B,) int32 sits at
-    position ``pos`` (a host int, the cache length so far) and attends
-    positions <= pos.  Returns (logits (B, 1, Vp) f32, cache) — the cache
-    is updated in place."""
+    position ``pos`` (the cache length so far) and attends positions <=
+    pos.  ``pos`` is a host int or a one-element int32 tensor on the
+    device (as the reference's traced scalar), which a captured step
+    advances on the device; the two give the same logits bit for bit.
+    Returns (logits (B, 1, Vp) f32, cache) — the cache is updated in
+    place."""
     x = _embed(params, cfg, token[:, None])
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                           device=x.device)
+    if isinstance(pos, torch.Tensor):
+        positions = pos.reshape(1, 1).expand(x.shape[0], 1)
+    else:
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                               device=x.device)
     for i, lp in enumerate(params["layers"]):
         x, _ = _block(lp, x, cfg, positions=positions,
                       cache=_layer_view(cache, i), cache_pos=pos)
@@ -222,34 +253,112 @@ def paged_decode_step(params, token: torch.Tensor, pool, block_tables,
     return _head(params, cfg, x), pool
 
 
-def sample_tokens(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy sampling: logits (B, vocab) -> tokens (B,) int32 (the first
-    maximal index, as the reference's argmax)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+# =============================================================================
+# sampling: counter-based per-slot keys
+# =============================================================================
+_LANE = 0xFFFFFFFF
+# odd multipliers below 2^31: a 32-bit lane times one stays below 2^63, so
+# no product overflows int64 on any device
+_MUL = (0x7FEB352D, 0x68E31DA5)
+
+
+def mix32(x):
+    """A 32-bit integer hash (the "lowbias32" shift-multiply sequence with
+    multipliers below 2^31), on a Python int or an int64 tensor of 32-bit
+    lanes; the same bits either way."""
+    x = x ^ (x >> 16)
+    x = (x * _MUL[0]) & _LANE
+    x = x ^ (x >> 15)
+    x = (x * _MUL[1]) & _LANE
+    return x ^ (x >> 16)
+
+
+def request_keys(seeds: torch.Tensor) -> torch.Tensor:
+    """Sampling keys (G, 2) int64 of G requests from their 32-bit stream
+    seeds (``serve.scheduler.request_seed``): [stream, steps so far]."""
+    seeds = seeds.to(torch.int64) & _LANE
+    return torch.stack([seeds, torch.zeros_like(seeds)], dim=1)
+
+
+def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
+                  temperature: float):
+    """Sample one token per slot on the device.
+
+    logits (B, vocab) f32; keys (B, 2) int64, one counter-based key per
+    slot: [stream, steps so far].  The keys advance every call whatever
+    the temperature (the reference splits its keys every call), so a
+    slot's draws depend only on its stream and its own step count — not
+    on the batch, its slot or the decode window — and a window of any
+    length gives the per-step loop's tokens.  Greedy (temperature <= 0)
+    is the first maximal index, as the reference's argmax.  Otherwise a
+    Gumbel-max draw over ``logits / temperature`` in f32: each (slot,
+    vocab entry) hashes its stream, step and index into 23 uniform bits,
+    u in (0, 1), and adds -log(-log u).  No ``torch.Generator`` is read,
+    so the step can be captured in a CUDA graph.  Returns (new keys,
+    tokens (B,) int32)."""
+    new_keys = torch.stack([keys[:, 0], keys[:, 1] + 1], dim=1)
+    if temperature <= 0.0:
+        return new_keys, torch.argmax(logits, dim=-1).to(torch.int32)
+    sub = mix32(mix32(keys[:, 0]) ^ (keys[:, 1] & _LANE))
+    idx = mix32(torch.arange(logits.shape[-1], dtype=torch.int64,
+                             device=logits.device))
+    bits = mix32(sub[:, None] ^ idx[None, :]) >> 9
+    # (k + 1/2) / 2^23 is exact in f32 and lies in [2^-24, 1 - 2^-24]:
+    # never 0 or 1, so the Gumbel noise is finite
+    u = (bits.to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+    gumbel = -torch.log(-torch.log(u))
+    nxt = torch.argmax(logits.to(torch.float32) / temperature + gumbel,
+                       dim=-1)
+    return new_keys, nxt.to(torch.int32)
+
+
+def paged_decode_window_step(params, token, pool, block_tables, lengths,
+                             remaining, keys, cfg: ModelConfig, *,
+                             temperature: float = 0.0, trash_page: int = 0,
+                             health: bool = False):
+    """One step of the fused decode window (the body of the reference's
+    scan, ``one()``).
+
+    A slot whose budget is spent is masked: its block-table row points at
+    ``trash_page``, its length reads 0 and its token, length and budget
+    freeze, so over-generated steps never touch live pages.  Returns
+    (token, lengths, remaining, keys, bad): ``bad`` (B,) bool flags a slot
+    whose logits went non-finite at an active step (None without
+    ``health``; the finite-logits half of the numeric-health guard)."""
+    done = remaining <= 0
+    bt = torch.where(done[:, None], trash_page, block_tables)
+    ln = torch.where(done, 0, lengths)
+    logits, pool = paged_decode_step(params, token, pool, bt, ln, cfg)
+    last = logits[:, -1, :cfg.vocab]
+    keys, nxt = sample_tokens(last, keys, temperature)
+    bad = (~torch.isfinite(last).all(dim=-1) & ~done) if health else None
+    token = torch.where(done, token, nxt)
+    lengths = torch.where(done, lengths, lengths + 1)
+    remaining = torch.where(done, remaining, remaining - 1)
+    return token, lengths, remaining, keys, bad
 
 
 def paged_decode_multi_step(params, token, pool, block_tables, lengths,
-                            remaining, cfg: ModelConfig, *, n_steps: int,
-                            trash_page: int = 0):
-    """``n_steps`` greedy decode steps on the device — the hot loop.
+                            remaining, keys, cfg: ModelConfig, *,
+                            n_steps: int, temperature: float = 0.0,
+                            trash_page: int = 0, health: bool = False):
+    """``n_steps`` decode steps on the device — the hot loop, eagerly.
 
-    Tokens, lengths and remaining budgets stay on the device across the
-    window.  A slot whose budget is spent is masked: its block-table row
-    points at ``trash_page``, its length reads 0 and its token freezes,
-    so over-generated steps never touch live pages.  Returns (tokens
-    (n_steps, B) int32, pool, lengths, remaining) — the caller moves the
-    tokens to the host once per window."""
-    vocab = cfg.vocab
+    Tokens, lengths, remaining budgets and sampling keys stay on the
+    device across the window (``paged_decode_window_step`` each step);
+    the caller moves the tokens to the host once per window.  Returns
+    (tokens (n_steps, B) int32, pool, lengths, remaining, keys), plus,
+    with ``health``, a (B,) bool flagging slots whose logits went
+    non-finite at any active step of the window."""
     toks: List[torch.Tensor] = []
+    bad = torch.zeros(token.shape, dtype=torch.bool, device=token.device)
     for _ in range(n_steps):
-        done = remaining <= 0
-        bt = torch.where(done[:, None], trash_page, block_tables)
-        ln = torch.where(done, 0, lengths)
-        logits, pool = paged_decode_step(params, token, pool, bt, ln, cfg)
-        nxt = sample_tokens(logits[:, -1, :vocab])
-        token = torch.where(done, token, nxt)
-        lengths = torch.where(done, lengths, lengths + 1)
-        remaining = torch.where(done, remaining, remaining - 1)
+        token, lengths, remaining, keys, b = paged_decode_window_step(
+            params, token, pool, block_tables, lengths, remaining, keys,
+            cfg, temperature=temperature, trash_page=trash_page,
+            health=health)
+        if health:
+            bad = bad | b
         toks.append(token)
-    return torch.stack(toks), pool, lengths, remaining
-
+    out = (torch.stack(toks), pool, lengths, remaining, keys)
+    return out + (bad,) if health else out

@@ -96,6 +96,12 @@ def _sdpa_gqa(q, k, v, mask) -> torch.Tensor:
         * (1.0 / np.sqrt(d))
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    # keys no query attends weigh exactly 0; their values are zeroed too,
+    # so a non-finite value there (a trash or recycled page's tail)
+    # cannot leak in as 0 * NaN
+    mask5 = mask.reshape((1,) * (5 - mask.dim()) + tuple(mask.shape))
+    seen = mask5.any(dim=-2)                       # (B or 1, 1, 1, Sk)
+    v = torch.where(seen.reshape(seen.shape[0], -1, 1, 1), v, 0)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(torch.float32),
                        v.to(torch.float32)).to(q.dtype)
     return out.reshape(b, sq, hq, d)
@@ -138,15 +144,22 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_kv: int,
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
-def cache_write(cache, k: torch.Tensor, v: torch.Tensor, pos: int,
+def cache_write(cache, k: torch.Tensor, v: torch.Tensor, pos,
                 cfg: ModelConfig):
     """Write k/v (B, s, n_kv, hd) into the cache at position ``pos``
     (in place; returns the cache); an MX cache through the fused KV-write
-    kernel."""
+    kernel.  ``pos`` is a host int or a one-element int32 tensor on k's
+    device (the static decode step replayed from a CUDA graph)."""
     s = k.shape[1]
     if cfg.mx.kv_key is not None:
         return mx_cache_kv_write(cache, k.contiguous(), v.contiguous(), pos,
                                  cfg.mx.kv_key, cfg.mx.kv_value)
+    if isinstance(pos, torch.Tensor):
+        idx = pos.reshape(1).to(torch.int64) \
+            + torch.arange(s, device=k.device)
+        cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+        return cache
     cache["k"][:, pos:pos + s] = k.to(cache["k"].dtype)
     cache["v"][:, pos:pos + s] = v.to(cache["v"].dtype)
     return cache
@@ -170,11 +183,12 @@ def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, cache=None,
-              cache_pos: int = 0) -> Tuple[torch.Tensor, Any]:
+              cache_pos=0) -> Tuple[torch.Tensor, Any]:
     """GQA self-attention over x (B, S, d), causal.  Without a cache, or
     with an fp cache, the prompt attends its fresh k/v through the flash
     kernel.  With a cache, k/v are first written at ``cache_pos`` (a host
-    int).  Decode (S == 1) attends the cache's positions <= cache_pos:
+    int, or at decode a one-element int32 tensor on x's device).  Decode
+    (S == 1) attends the cache's positions <= cache_pos:
     under an MX policy through the contiguous MX decode kernel, an fp
     cache densely.  An MX prefill attends the *dequantized* cache view
     densely, as the reference's quantized prefill does, so a later suffix
@@ -201,6 +215,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 rep=nh // nkv)
         elif s == 1:
             k, v = cache_read(cache, cfg, x.dtype, hd)
+            if isinstance(cache_pos, torch.Tensor):
+                cache_pos = cache_pos.reshape(())
             mask = torch.arange(k.shape[1], device=x.device) <= cache_pos
             out = _sdpa_gqa(q, k, v, mask)
         elif mx_kv:

@@ -62,18 +62,25 @@ class Model:
     def init_cache(self, batch: int, max_len: int):
         return decoder.init_cache(self.cfg, batch, max_len, self.device)
 
-    def prefill(self, params, tokens, *, max_len: int):
-        return decoder.prefill(params, tokens, self.cfg, max_len=max_len)
+    def prefill(self, params, tokens, *, max_len: int, cache=None):
+        return decoder.prefill(params, tokens, self.cfg, max_len=max_len,
+                               cache=cache)
 
-    def decode_step(self, params, token, cache, pos: int):
+    def decode_step(self, params, token, cache, pos):
         return decoder.decode_step(params, token, cache, pos, self.cfg)
 
     def scatter_prefill(self, pool, cache, page_ids):
         return decoder.scatter_prefill(self.cfg, pool, cache, page_ids)
 
+    def paged_decode_window_step(self, params, token, pool, block_tables,
+                                 lengths, remaining, keys, **kw):
+        return decoder.paged_decode_window_step(
+            params, token, pool, block_tables, lengths, remaining, keys,
+            self.cfg, **kw)
+
     def paged_decode_multi_step(self, params, token, pool, block_tables,
-                                lengths, remaining, *, n_steps: int,
-                                trash_page: int = 0):
+                                lengths, remaining, keys, *, n_steps: int,
+                                **kw):
         return decoder.paged_decode_multi_step(
-            params, token, pool, block_tables, lengths, remaining, self.cfg,
-            n_steps=n_steps, trash_page=trash_page)
+            params, token, pool, block_tables, lengths, remaining, keys,
+            self.cfg, n_steps=n_steps, **kw)

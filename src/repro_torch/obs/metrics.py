@@ -6,6 +6,12 @@ here instead of keeping ad-hoc ``self.n_*`` attributes, so
 ``registry.reset()`` restarts every measurement window at once and
 ``registry.snapshot()`` is the single structured view of them.
 
+The continuous engine's series: ``engine.steps``, ``engine.syncs``,
+``engine.generated_tokens``, ``engine.prefill_batches``,
+``engine.quarantined`` (requests the numeric-health guard parked) and
+``engine.phase_s`` (labeled by phase); the block manager's
+``pages.allocated`` and ``pages.released``.
+
 A :class:`Counter` holds labeled series (a series is keyed by its sorted
 ``(label, value)`` pairs; the empty label set is a plain scalar) and only
 accumulates (``inc``); values may be float (phase wall-clock seconds

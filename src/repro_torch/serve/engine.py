@@ -1,7 +1,7 @@
 """Serving engines (mirror src/repro/serve/engine.py).
 
 ``ServeEngine`` — static batch: equal-length prompts are prefilled once
-into a contiguous (MX) KV cache, then stepped greedily.
+into a contiguous (MX) KV cache, then stepped greedily or sampled.
 
 ``ContinuousBatchingEngine`` — continuous batching over a paged MX KV
 cache.  Variable-length prompts are admitted into decode slots mid-flight; each
@@ -9,15 +9,20 @@ slot's K/V lives in fixed-size pages of (bit-packed) codes + E8M0 scales
 referenced through a per-slot block table, and finished requests are
 evicted so their pages recycle at once.  Admissions are bucket-batched:
 same-padded-length prompts prefill as one batch whose caches scatter into
-their pages in one pass.  Decode runs up to ``sync_every`` greedy steps
-on the device per window (``Scheduler.plan_window`` pre-grants the pages
-the window writes); the host drains the window's tokens in one transfer,
-evicts finished slots and admits waiting requests only at window
-boundaries.  The block table is uploaded only when the host tables
-changed (``BlockManager.version``).
+their pages in one pass.  Decode runs up to ``sync_every`` steps on the
+device per window (``Scheduler.plan_window`` pre-grants the pages the
+window writes); the host drains the window's tokens and health flags in
+one transfer, quarantines poisoned slots, evicts finished ones and admits
+waiting requests only at window boundaries.  The block table is uploaded
+only when the host tables changed (``BlockManager.version``).
 
-Sampling is greedy.  Left to later work: preempt/swap, prefix caching,
-fault injection and health guards, tracing, temperature sampling.
+On the card each engine runs a decode step as one replay of a captured
+CUDA graph (``serve.graphs``), the counterpart of the reference's jitted
+step and window; on the CPU the same step function runs as it is.
+Sampling is greedy or, at a temperature, Gumbel-max with counter-based
+per-slot keys from ``GenerationConfig.seed`` (``decoder.sample_tokens``).
+Left to later work: preempt/swap, prefix caching, fault injection,
+retries, tracing.
 """
 from __future__ import annotations
 
@@ -29,30 +34,47 @@ import numpy as np
 import torch
 
 from repro_torch.core.mx_weight import params_nbytes
-from repro_torch.models.decoder import sample_tokens
+from repro_torch.models.decoder import request_keys, sample_tokens
+from repro_torch.models.health import slot_scale_poison
 from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.serve.faults import scrub_pool_pages
+from repro_torch.serve.graphs import PagedDecodeGraph, StaticDecodeGraph
 from repro_torch.serve.paging import TRASH_PAGE, BlockManager, pages_needed
-from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.scheduler import Request, Scheduler, request_seed
 
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     max_new_tokens: int = 32
-    temperature: float = 0.0        # 0 => greedy (the only mode ported)
+    temperature: float = 0.0        # 0 => greedy
+    seed: int = 0
+
+
+def _stream_keys(seed: int, ids, device) -> torch.Tensor:
+    """Fresh sampling keys of the requests (or static rows) ``ids``."""
+    seeds = torch.tensor([request_seed(seed, int(i)) for i in ids],
+                         dtype=torch.int64)
+    return request_keys(seeds).to(device)
 
 
 class ServeEngine:
     """Static-batch serving over a contiguous KV cache of ``max_len``
-    positions: one prefill, then greedy decode steps at host-side
-    positions (no host sync inside the decode loop)."""
+    positions: one prefill, then decode steps with the position kept on
+    the device — on the card one replay of a captured step per token (no
+    host sync inside the decode loop), one graph per batch size and
+    temperature.  Row b samples from the stream of request id b under
+    ``gen.seed``."""
 
     def __init__(self, model: Model, params, max_len: int):
         self.model = model
         self.params = params
         self.max_len = int(max_len)
         self.kv_cache_nbytes = 0     # the last generate call's cache
-        self.phase = {"prefill": 0.0, "decode": 0.0}   # last call, seconds
+        self.n_captures = 0          # decode steps captured so far
+        # last call, seconds; "capture" is nonzero on a new shape only
+        self.phase = {"capture": 0.0, "prefill": 0.0, "decode": 0.0}
+        self._graphs: Dict[Tuple[int, float], StaticDecodeGraph] = {}
 
     @property
     def weight_pool_nbytes(self) -> int:
@@ -60,36 +82,42 @@ class ServeEngine:
         codes + E8M0 scales, fp params their dtype width)."""
         return params_nbytes(self.params)
 
+    def _graph(self, batch: int, temperature: float) -> StaticDecodeGraph:
+        key = (batch, float(temperature))
+        if key not in self._graphs:
+            self._graphs[key] = StaticDecodeGraph(
+                self.model, self.params, batch=batch, max_len=self.max_len,
+                temperature=temperature)
+            self.n_captures += self.model.device.type == "cuda"
+        return self._graphs[key]
+
     def generate(self, batch: Dict[str, np.ndarray],
                  gen: GenerationConfig = GenerationConfig()) -> np.ndarray:
         """batch: {"tokens": (B, S) int32} of equal-length prompts.
-        Returns (B, max_new_tokens) int32 greedy tokens."""
-        if gen.temperature > 0.0:
-            raise NotImplementedError(
-                "ServeEngine samples greedily; temperature sampling is not "
-                "ported")
+        Returns (B, max_new_tokens) int32 tokens."""
         tokens = torch.as_tensor(np.asarray(batch["tokens"], np.int32))
-        s = tokens.shape[1]
+        b, s = tokens.shape
         if s + gen.max_new_tokens - 1 > self.max_len:
             raise ValueError(f"prompt {s} + {gen.max_new_tokens} new tokens "
                              f"do not fit max_len={self.max_len}")
+        dev = self.model.device
         vocab = self.model.cfg.vocab
         t0 = time.perf_counter()
-        logits, cache, pos = self.model.prefill(
-            self.params, tokens.to(self.model.device), max_len=self.max_len)
-        tok = sample_tokens(logits[:, -1, :vocab])
-        out = [tok.cpu()[:, None]]        # ends the prefill phase
+        graph = self._graph(b, gen.temperature)
         t1 = time.perf_counter()
-        steps = []
-        for i in range(gen.max_new_tokens - 1):
-            logits, cache = self.model.decode_step(self.params, tok, cache,
-                                                   pos + i)
-            tok = sample_tokens(logits[:, -1, :vocab])
-            steps.append(tok)
-        if steps:
-            out.append(torch.stack(steps, dim=1).cpu())
-        self.phase = {"prefill": t1 - t0,
-                      "decode": time.perf_counter() - t1}
+        logits, cache, pos = self.model.prefill(
+            self.params, tokens.to(dev), max_len=self.max_len,
+            cache=graph.cache)
+        keys, tok = sample_tokens(logits[:, -1, :vocab],
+                                  _stream_keys(gen.seed, range(b), dev),
+                                  gen.temperature)
+        out = [tok.cpu()[:, None]]        # ends the prefill phase
+        t2 = time.perf_counter()
+        n = gen.max_new_tokens - 1
+        if n:
+            out.append(graph.run(tok, keys, pos, n).T.cpu())
+        self.phase = {"capture": t1 - t0, "prefill": t2 - t1,
+                      "decode": time.perf_counter() - t2}
         self.kv_cache_nbytes = int(sum(t.numel() * t.element_size()
                                        for t in cache.values()))
         return torch.cat(out, dim=1).numpy()
@@ -102,19 +130,34 @@ class ContinuousBatchingEngine:
     ``page_size``      — tokens per KV page.
     ``max_len``        — per-request cap on prompt + generated tokens; sets
                          the block-table width.
+    ``gen``            — ``temperature`` and ``seed`` of every request's
+                         sampling (the per-request budget comes with
+                         ``add_request``).
     ``sync_every``     — decode steps per window; the host syncs only at
                          window boundaries.  Any value gives the same
-                         tokens (rows of the batch are independent).
+                         tokens (rows of the batch are independent, and
+                         a slot's keys advance with its own steps).
     ``prefill_bucket`` — prompts pad to a multiple of this (rounded up to
                          a page multiple; default page_size), and
                          same-bucket admissions prefill as one batch.
+    ``health_checks``  — numeric-health guards: each prefill and decode
+                         window also yields a per-slot non-finite-logits
+                         flag and an MX-block poison flag (marker scale
+                         bytes in the slot's live pages, a uint8
+                         compare).  A flagged request is quarantined: its
+                         tokens are suppressed, its pages scrubbed and
+                         freed, and it is parked in ``scheduler.failed``
+                         with a diagnostic; healthy slots stream on
+                         token-identically.
     """
 
     _PHASES = ("prefill", "decode", "sync")
 
     def __init__(self, model: Model, params, *, max_slots: int = 8,
                  page_size: int = 16, max_len: int = 256,
-                 sync_every: int = 8, prefill_bucket: Optional[int] = None):
+                 gen: GenerationConfig = GenerationConfig(),
+                 sync_every: int = 8, prefill_bucket: Optional[int] = None,
+                 health_checks: bool = True):
         if not model.supports_paged():
             raise NotImplementedError(
                 f"{model.cfg.name}: continuous batching needs a GQA decoder")
@@ -123,6 +166,8 @@ class ContinuousBatchingEngine:
         self.model = model
         self.params = params
         self.device = model.device
+        self.gen = gen
+        self.health_checks = bool(health_checks)
         self.page_size = page_size
         self.sync_every = int(sync_every)
         pb = page_size if prefill_bucket is None else int(prefill_bucket)
@@ -144,7 +189,14 @@ class ContinuousBatchingEngine:
         self._lengths = np.zeros(max_slots, np.int32)
         self._remaining = np.zeros(max_slots, np.int32)
         self._bt_version = -1
-        self._bt_dev: Optional[torch.Tensor] = None
+        self._step_progress = False     # a quarantine counts as progress
+        # the decode window's buffers and its captured step (on the card:
+        # one CUDA graph, captured here on all-idle slots)
+        self.window = PagedDecodeGraph(
+            model, params, self.pool, slots=max_slots,
+            max_pages=self.max_pages_per_slot, max_window=self.sync_every,
+            temperature=gen.temperature, health=self.health_checks,
+            trash_page=TRASH_PAGE)
         m = self.metrics
         self._c_steps = m.counter(
             "engine.steps", "device decode steps (incl. masked tail)")
@@ -154,6 +206,8 @@ class ContinuousBatchingEngine:
             "engine.generated_tokens", "tokens emitted to requests")
         self._c_prefill_batches = m.counter(
             "engine.prefill_batches", "bucket prefill calls")
+        self._c_quar = m.counter(
+            "engine.quarantined", "requests parked by the health guard")
         self._c_phase = m.counter(
             "engine.phase_s", "wall seconds by engine phase")
         for k in self._PHASES:
@@ -175,6 +229,10 @@ class ContinuousBatchingEngine:
     @property
     def n_prefill_batches(self) -> int:
         return int(self._c_prefill_batches.value())
+
+    @property
+    def n_quarantined(self) -> int:
+        return int(self._c_quar.value())
 
     @property
     def phase(self) -> Dict[str, float]:
@@ -214,8 +272,10 @@ class ContinuousBatchingEngine:
     def step(self) -> List[Tuple[int, int]]:
         """One host sync cycle: admit what fits (bucket-batched prefill),
         run one decode window of up to ``sync_every`` device steps; returns
-        the (request id, token) pairs emitted, in step order."""
+        the (request id, token) pairs emitted, in step order.  A slot whose
+        health guard trips is quarantined instead of emitting."""
         emitted: List[Tuple[int, int]] = []
+        self._step_progress = False
         t0 = time.perf_counter()
         admitted = self.scheduler.admit()
         self._phase_add("sync", time.perf_counter() - t0)
@@ -228,26 +288,43 @@ class ContinuousBatchingEngine:
         window = self.scheduler.plan_window(self._lengths, self.sync_every)
         snapshot = sorted(self.scheduler.running.items())
         rem0 = {slot: req.remaining for slot, req in snapshot}
-        bt = self._device_tables()
-        dev = self.device
+        w = self.window
+        self._upload_tables()
         t1 = time.perf_counter()
-        toks, self.pool, _, _ = self.model.paged_decode_multi_step(
-            self.params, torch.from_numpy(self._cur_tok).to(dev), self.pool,
-            bt, torch.from_numpy(self._lengths).to(dev),
-            torch.from_numpy(self._remaining).to(dev), n_steps=window,
-            trash_page=TRASH_PAGE)
-        toks = toks.cpu().numpy()     # the one host transfer per window
+        w.state.copy_(torch.from_numpy(np.stack(
+            [self._cur_tok, self._lengths, self._remaining])))
+        w.run(window)
+        flags = [w.tokens[:window].reshape(-1), w.bad.to(torch.int32)]
+        if self.health_checks and self.model.cfg.mx.kv_key is not None:
+            # lengths after the window: every position a slot wrote
+            flags.append(slot_scale_poison(self.pool, w.block_tables,
+                                           w.state[1], self.model.cfg)
+                         .to(torch.int32))
+        host = torch.cat(flags).cpu().numpy()   # the one transfer per window
         t2 = time.perf_counter()
+        slots = w.bad.shape[0]
+        toks = host[:window * slots].reshape(window, slots)
+        badl = host[window * slots:(window + 1) * slots] != 0
+        poison = host[(window + 1) * slots:] != 0
+        if not poison.size:
+            poison = np.zeros(slots, bool)
         self._c_steps.inc(window)
         self._c_syncs.inc()
         for t in range(window):
             for slot, req in snapshot:
+                if badl[slot] or poison[slot]:
+                    continue            # quarantined below; no tokens out
                 if t < rem0[slot]:
                     tok = int(toks[t, slot])
                     req.out.append(tok)
                     emitted.append((req.rid, tok))
                     self._c_generated.inc()
         for slot, req in snapshot:
+            if badl[slot] or poison[slot]:
+                why = ("non-finite logits in decode window" if badl[slot]
+                       else "MX scale poison marker in KV pages")
+                self._quarantine(req, f"numeric-health guard: {why}")
+                continue
             take = min(window, rem0[slot])
             self._lengths[slot] += take
             self._remaining[slot] -= take
@@ -260,43 +337,60 @@ class ContinuousBatchingEngine:
         return emitted
 
     def run(self) -> Dict[int, np.ndarray]:
-        """Drive ``step()`` until every queued request finishes; returns
-        {request id: generated tokens} for the requests this call
-        finished."""
+        """Drive ``step()`` until every queued request finishes or is
+        quarantined; returns {request id: generated tokens} for the
+        requests this call finished.  Quarantined requests are not in the
+        result: they sit in ``scheduler.failed`` with ``error`` set."""
         start = len(self.scheduler.finished)
         while self.scheduler.has_work():
             emitted = self.step()
-            if not emitted and not self.scheduler.running:
+            if not emitted and not self.scheduler.running \
+                    and not self._step_progress:
                 raise RuntimeError(
                     "no progress: waiting requests cannot be admitted")
         return {r.rid: np.asarray(r.out, np.int32)
                 for r in self.scheduler.finished[start:]}
 
     # ------------------------------------------------------------ internals
-    def _device_tables(self) -> torch.Tensor:
-        """Device block table, re-uploaded only when the host tables
-        changed (admission / page grant / eviction)."""
+    def _upload_tables(self) -> None:
+        """Copy the host block table into the captured step's buffer, only
+        when the host tables changed (admission / page grant / eviction)."""
         if self._bt_version != self.blocks.version:
-            self._bt_dev = torch.from_numpy(self.blocks.tables).to(
-                self.device)
+            self.window.block_tables.copy_(
+                torch.from_numpy(self.blocks.tables))
             self._bt_version = self.blocks.version
-        return self._bt_dev
 
     def _prefill_scatter(self, tokens: np.ndarray, lens: np.ndarray,
-                         page_ids: np.ndarray) -> np.ndarray:
+                         rids: List[int], page_ids: np.ndarray):
         """Prefill one bucket of G same-padded prompts, scatter every
-        request's pages into the pool (packing sub-byte codes) and pick
-        each request's first token from its last prompt position."""
+        request's pages into the pool (packing sub-byte codes) and sample
+        each request's first token from its last prompt position with its
+        fresh keys.  With health checks on, a per-request flag (non-finite
+        last-position logits, or an MX poison marker in the pages just
+        written) rides the same host transfer.  Returns (first tokens,
+        keys after the draw, flags)."""
         dev = self.device
-        tok_d = torch.from_numpy(tokens).to(dev)
-        logits, cache, _ = self.model.prefill(self.params, tok_d,
-                                              max_len=tokens.shape[1])
-        self.pool = self.model.scatter_prefill(
-            self.pool, cache, torch.from_numpy(page_ids).to(dev))
-        rows = torch.arange(tokens.shape[0], device=dev)
-        last_pos = torch.from_numpy(lens - 1).to(dev).to(torch.int64)
-        first = sample_tokens(logits[rows, last_pos, :self.vocab])
-        return first.cpu().numpy()
+        g = tokens.shape[0]
+        logits, cache, _ = self.model.prefill(
+            self.params, torch.from_numpy(tokens).to(dev),
+            max_len=tokens.shape[1])
+        pids = torch.from_numpy(page_ids).to(dev)
+        self.model.scatter_prefill(self.pool, cache, pids)
+        lens_d = torch.from_numpy(lens).to(dev)
+        last = logits[torch.arange(g, device=dev),
+                      lens_d.to(torch.int64) - 1, :self.vocab]
+        keys, first = sample_tokens(
+            last, _stream_keys(self.gen.seed, rids, dev),
+            self.gen.temperature)
+        out = [first]
+        if self.health_checks:
+            bad = ~torch.isfinite(last).all(dim=-1)
+            if self.model.cfg.mx.kv_key is not None:
+                bad |= slot_scale_poison(self.pool, pids, lens_d,
+                                         self.model.cfg)
+            out.append(bad.to(torch.int32))
+        host = torch.cat(out).cpu().numpy()
+        return host[:g], keys, host[g:] != 0
 
     def _batched_prefill(self, admitted: List[Request],
                          emitted: List[Tuple[int, int]]) -> None:
@@ -316,14 +410,22 @@ class ContinuousBatchingEngine:
             # rows are trash-padded past each request's allocation, so a
             # bucket-padded prompt's excess pages scatter harmlessly
             page_ids = self.blocks.tables[slots, :lp // self.page_size]
-            first = self._prefill_scatter(toks, lens, page_ids)
+            first, keys, bad = self._prefill_scatter(
+                toks, lens, [r.rid for r in reqs], page_ids)
+            self.window.keys[torch.from_numpy(slots).to(self.device)] = keys
             self._c_prefill_batches.inc()
-            self._finish_prefill(reqs, first, emitted)
+            self._finish_prefill(reqs, first, bad, emitted)
         self._phase_add("prefill", time.perf_counter() - t0)
 
     def _finish_prefill(self, reqs: List[Request], first: np.ndarray,
+                        bad: np.ndarray,
                         emitted: List[Tuple[int, int]]) -> None:
         for i, r in enumerate(reqs):
+            if bad.size and bad[i]:
+                self._quarantine(
+                    r, "numeric-health guard: non-finite logits or MX "
+                       "poison marker at prefill")
+                continue
             slot = r.slot
             tok = int(first[i])
             self._cur_tok[slot] = tok
@@ -339,6 +441,23 @@ class ContinuousBatchingEngine:
                 # prompt's allocation; admission reserved it
                 granted = self.blocks.ensure(slot, r.prompt_len + 1)
                 assert granted, "admission reserved the first decode page"
+
+    def _quarantine(self, req: Request, diag: str) -> None:
+        """Park a guard-flagged request: free its slot and pages, record
+        the diagnostic; its tokens were already skipped.  Its pages hold
+        the poison that tripped the guard, so they are scrubbed to zeros
+        before the allocator can hand them to a healthy slot.  Healthy
+        slots are untouched: batch rows are independent, so their tokens
+        are those of a run without the poisoned neighbour."""
+        slot = req.slot
+        dead = self.blocks.slot_page_ids(slot)
+        self.scheduler.fail(req, diag)
+        scrub_pool_pages(self.pool, dead)
+        self._c_quar.inc()
+        self._step_progress = True
+        self._cur_tok[slot] = 0
+        self._lengths[slot] = 0
+        self._remaining[slot] = 0
 
     def _release(self, req: Request) -> None:
         slot = req.slot

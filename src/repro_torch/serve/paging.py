@@ -84,6 +84,10 @@ class BlockManager:
     def slot_pages(self, slot: int) -> int:
         return len(self._owned[slot])
 
+    def slot_page_ids(self, slot: int) -> List[int]:
+        """The physical pages ``slot`` owns, in block-table order."""
+        return list(self._owned[slot])
+
     def slot_capacity(self, slot: int) -> int:
         """Token positions the slot's current allocation can hold."""
         return len(self._owned[slot]) * self.page_size

@@ -7,24 +7,40 @@ a request is only admitted when the pool can hold its whole sequence
 (prompt + max_new_tokens), so an in-flight request can never stall on
 page exhaustion.
 
-SLO classes, preempt-and-swap, quarantine and prefix-cache admission are
-left to the slices that port them.
+A request whose numeric-health guard trips is quarantined
+(:meth:`Scheduler.fail`): its slot and pages free as on eviction, and it
+is parked on ``failed`` with a diagnostic.  SLO classes, preempt-and-swap,
+retries and prefix-cache admission are left to the slices that port
+them.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.models.decoder import mix32
 from repro_torch.serve.paging import BlockManager, pages_needed
+
+
+def request_seed(seed: int, rid: int) -> int:
+    """The 32-bit PRNG stream of request ``rid`` under the engine's
+    ``seed`` (the reference folds the rid into the engine key).  A slot's
+    sampling keys start from it (``decoder.request_keys``) and advance
+    with the request's own steps only, so its tokens depend on (seed,
+    rid, step) alone: not on the batch, the slot or the decode window,
+    and a replay under the same rid is token-identical."""
+    lane = 0xFFFFFFFF
+    return mix32(mix32((seed ^ 0x9E3779B9) & lane) ^ (rid & lane))
 
 
 class RequestState(enum.Enum):
     WAITING = "waiting"
     RUNNING = "running"
     FINISHED = "finished"
+    FAILED = "failed"           # quarantined by a numeric-health guard
 
 
 @dataclasses.dataclass
@@ -36,6 +52,7 @@ class Request:
     state: RequestState = RequestState.WAITING
     slot: int = -1
     out: List[int] = dataclasses.field(default_factory=list)
+    error: Optional[str] = None         # quarantine diagnostic (FAILED)
 
     @property
     def prompt_len(self) -> int:
@@ -66,6 +83,7 @@ class Scheduler:
         self.waiting: List[Request] = []        # arrival order
         self.running: Dict[int, Request] = {}   # slot -> request
         self.finished: List[Request] = []
+        self.failed: List[Request] = []         # quarantined
         self._free_slots = list(range(max_slots - 1, -1, -1))
 
     # ------------------------------------------------------------- queries
@@ -156,3 +174,18 @@ class Scheduler:
         self._free_slots.append(req.slot)
         req.slot = -1
         self.finished.append(req)
+
+    def fail(self, req: Request, error: str) -> None:
+        """Quarantine a running request: free its slot and pages exactly
+        like :meth:`evict`, but record the health-guard diagnostic and
+        park it on ``failed`` instead of ``finished`` — its tokens were
+        suppressed, not served."""
+        assert req.state is RequestState.RUNNING, \
+            "only a running request can be quarantined"
+        req.error = error
+        req.state = RequestState.FAILED
+        self.blocks.release(req.slot)
+        del self.running[req.slot]
+        self._free_slots.append(req.slot)
+        req.slot = -1
+        self.failed.append(req)

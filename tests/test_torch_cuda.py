@@ -676,3 +676,288 @@ def test_paged_reference_agrees_on_card(dev):
                                           key_spec=spec, value_spec=spec,
                                           rep=2)
     torch.testing.assert_close(b.cpu(), a, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# positions in device memory, and the decode steps as captured CUDA graphs
+# ---------------------------------------------------------------------------
+POLICY = "weights=e4m3@32:ocp,kv_key=int8@32:ocp,kv_value=e2m1@32:ocp"
+
+
+@pytest.mark.parametrize("kv", ["int8@32:ocp/e2m1@32:ocp",
+                                "e3m2@32:paper/e5m2@32:ocp"])
+def test_cache_kv_write_device_pos_matches_plain(dev, kv):
+    """The contiguous write at a pos the kernel reads from device memory
+    writes the plain version's bytes, at s 1 and s 300."""
+    kk, vv = (QuantSpec.parse(x) for x in kv.split("/"))
+    rng = np.random.default_rng(21)
+    cpu = {n: torch.from_numpy(rng.integers(0, 256, size=(
+        3, 320, 2, w)).astype(np.uint8)) for n, w in
+        (("k_codes", 128), ("k_scales", 4), ("v_codes", 128),
+         ("v_scales", 4))}
+    dcache = {n: t.to(dev) for n, t in cpu.items()}
+    for pos, s in ((0, 300), (300, 1), (319, 1)):
+        kd, kc, vd, vc = _kv_pair(rng, (3, s, 2, 128), torch.bfloat16, dev,
+                                  special="paper" in kv)
+        mx_cache_kv_write(dcache, kd, vd, torch.tensor(
+            [pos], dtype=torch.int32, device=dev), kk, vv)
+        mx_cache_kv_write(cpu, kc, vc, pos, kk, vv)
+    torch.cuda.synchronize()
+    for n in cpu:
+        assert torch.equal(dcache[n].cpu(), cpu[n]), (kv, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_device_pos(dev, dtype):
+    """Contiguous decode attention with pos in device memory: the host
+    int's bits (the grid is sized from S either way) and the plain
+    version's values, at the first, a middle and the last position."""
+    rng = np.random.default_rng(22)
+    args, kw = _bf16_contiguous(rng, 16, 2, 128, b=4)
+    q = args[0].to(dtype)
+    on_dev = [t.to(dev) for t in (q, *args[1:])]
+    for pos in (0, 63, 64, 575, 639):
+        pos_d = torch.tensor([pos], dtype=torch.int32, device=dev)
+        got = mx_decode_attention(*on_dev, pos_d, **kw)
+        assert torch.equal(got, mx_decode_attention(*on_dev, pos, **kw))
+        want = mx_decode_attention(q, *args[1:], pos, **kw)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-5,
+                                       atol=2e-5)
+        else:
+            torch.testing.assert_close(got.cpu(), want)
+
+
+_BAD_POS_SCRIPT = """
+import sys, torch
+from repro_torch.core.spec import QuantSpec
+from repro_torch.kernels.mx_kv_write import mx_cache_kv_write
+from repro_torch.serve.graphs import CapturedStep
+kk = QuantSpec.parse("int8@32:ocp")
+cache = {{n: torch.zeros(2, 8, 2, w, dtype=torch.uint8, device="cuda")
+         for n, w in (("k_codes", 64), ("k_scales", 2), ("v_codes", 64),
+                      ("v_scales", 2))}}
+k = torch.ones(2, 1, 2, 64, device="cuda")
+pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+step = CapturedStep(lambda: mx_cache_kv_write(cache, k, k, pos, kk, kk),
+                    torch.device("cuda"))
+step()
+torch.cuda.synchronize()
+pos.fill_({pos})
+try:
+    step()
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("pos", [8, -1])
+def test_kv_write_trap_surfaces_from_a_replay(dev, pos):
+    """A device pos outside the cache makes the KV write trap inside a
+    graph replay, and the next synchronizing call raises, as an eager
+    launch's would (in a child process: a trap spoils the context)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    run = subprocess.run(
+        [sys.executable, "-c", _BAD_POS_SCRIPT.format(pos=pos)],
+        env=dict(os.environ, PYTHONPATH=src), capture_output=True,
+        text=True, timeout=300)
+    assert run.returncode == 0, (run.stdout, run.stderr[-2000:])
+
+
+_HOST_SYNC_SCRIPT = """
+import sys, torch
+from repro_torch.serve.graphs import CapturedStep
+x = torch.ones(4, device="cuda")
+try:
+    CapturedStep(lambda: x.add_(float(x.sum())), torch.device("cuda"))
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+def test_capture_failure_raises(dev):
+    """A step that waits for the host cannot be captured: building the
+    graph raises, and nothing falls back to an eager run (in a child
+    process: a failed capture may leave the context unusable)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    run = subprocess.run([sys.executable, "-c", _HOST_SYNC_SCRIPT],
+                         env=dict(os.environ, PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, (run.stdout, run.stderr[-2000:])
+
+
+def _full_width_2_layers(dev, policy=POLICY):
+    """Full-width chatglm3-6b cut to 2 layers, MX weights, on the card."""
+    from repro_torch.launch.serve import build_model
+    return build_model("chatglm3_6b", reduced=False, quant=policy,
+                       weight_resident=True, device=str(dev), seed=0,
+                       n_layers=2)
+
+
+def _prompts(vocab, n, lo, hi, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(m)).astype(np.int32)
+            for m in rng.integers(lo, hi, size=n)]
+
+
+def _serve_all(eng, prompts, new):
+    rids = [eng.add_request(p, new) for p in prompts]
+    out = eng.run()
+    return [out[r].tolist() for r in rids]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_graph_window_matches_eager(dev, temperature):
+    """One window of the continuous engine (replays of its captured step)
+    against ``paged_decode_multi_step`` eagerly from the same state:
+    identical tokens, lengths, budgets, keys and flags; byte-identical
+    pools (page 0, the trash page the capture's warm-up writes, left
+    out).  One replay credits 7 matmul, 1 KV-write and 1 paged-attention
+    launch per layer."""
+    from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
+    from repro_torch.serve.paging import TRASH_PAGE
+    model, params = _full_width_2_layers(dev)
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=4, page_size=16, max_len=200, sync_every=8,
+        prefill_bucket=64, gen=GenerationConfig(temperature=temperature))
+    assert {w.__name__: n for w, n in eng.window.step.launches.items()} \
+        == {"mx_matmul_2d": 14, "mx_paged_kv_write": 2,
+            "mx_paged_decode_attention": 2}
+    for p in _prompts(model.cfg.vocab, 4, 20, 150):
+        eng.add_request(p, 24)
+    eng.step()
+    window = eng.scheduler.plan_window(eng._lengths, eng.sync_every)
+    eng._upload_tables()
+    w = eng.window
+    state = [torch.from_numpy(a.copy()).to(dev)
+             for a in (eng._cur_tok, eng._lengths, eng._remaining)]
+    pool = {k: v.clone() for k, v in eng.pool.items()}
+    toks, pool, lengths, remaining, keys, bad = \
+        model.paged_decode_multi_step(
+            params, state[0], pool, w.block_tables.clone(), state[1],
+            state[2], w.keys.clone(), n_steps=window,
+            temperature=temperature, trash_page=TRASH_PAGE, health=True)
+    eng.step()
+    assert torch.equal(w.tokens[:window], toks)
+    assert torch.equal(w.state[1], lengths)
+    assert torch.equal(w.state[2], remaining)
+    assert torch.equal(w.keys, keys) and torch.equal(w.bad, bad)
+    for k in pool:
+        assert torch.equal(eng.pool[k][:, 1:], pool[k][:, 1:]), k
+
+
+def test_sync_every_gives_identical_sampled_tokens(dev):
+    from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
+    model, params = _full_width_2_layers(dev)
+    prompts = _prompts(model.cfg.vocab, 6, 10, 90, seed=1)
+    outs = []
+    for se in (1, 8):
+        eng = ContinuousBatchingEngine(
+            model, params, max_slots=4, page_size=16, max_len=120,
+            sync_every=se, prefill_bucket=32,
+            gen=GenerationConfig(temperature=0.8, seed=2))
+        outs.append(_serve_all(eng, prompts, 12))
+    assert outs[0] == outs[1]
+
+
+def test_static_graph_matches_eager_and_continuous(dev):
+    """The static engine's replayed step (pos on the device) gives the
+    eager loop's tokens (``decode_step`` at host positions) and the
+    continuous engine's; the second call replays the first call's graph;
+    one replay credits 7 matmul, 1 KV-write and 1 decode-attention launch
+    per layer."""
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   GenerationConfig, ServeEngine)
+    model, params = _full_width_2_layers(dev)
+    vocab = model.cfg.vocab
+    tokens = np.random.default_rng(3).integers(0, vocab, size=(4, 100))
+    tokens = tokens.astype(np.int32)
+    eng = ServeEngine(model, params, max_len=120)
+    gen = GenerationConfig(max_new_tokens=12)
+    first = eng.generate({"tokens": tokens}, gen)
+    again = eng.generate({"tokens": tokens}, gen)
+    assert eng.n_captures == 1 and np.array_equal(first, again)
+    graph = eng._graphs[(4, 0.0)]
+    assert {w.__name__: n for w, n in graph.step.launches.items()} \
+        == {"mx_matmul_2d": 14, "mx_cache_kv_write": 2,
+            "mx_decode_attention": 2}
+    logits, cache, pos = model.prefill(
+        params, torch.from_numpy(tokens).to(dev), max_len=120)
+    tok = torch.argmax(logits[:, -1, :vocab], -1).to(torch.int32)
+    eager = [tok]
+    for i in range(11):
+        lg, cache = model.decode_step(params, tok, cache, pos + i)
+        tok = torch.argmax(lg[:, -1, :vocab], -1).to(torch.int32)
+        eager.append(tok)
+    assert np.array_equal(first, torch.stack(eager, 1).cpu().numpy())
+    cont = ContinuousBatchingEngine(model, params, max_slots=4,
+                                    page_size=16, max_len=120,
+                                    prefill_bucket=32)
+    assert _serve_all(cont, list(tokens), 12) == first.tolist()
+
+
+def test_quarantine_on_card(dev):
+    """A prompt holding a token whose embedding row is NaN is quarantined
+    at admission; its neighbour gets its solo tokens."""
+    from repro_torch.serve import ContinuousBatchingEngine
+    model, params = _full_width_2_layers(dev)
+    params = dict(params, embed=params["embed"].clone())
+    params["embed"][7] = float("nan")
+    healthy, poisoned = _prompts(model.cfg.vocab, 2, 30, 60, seed=4)
+    healthy = healthy[healthy != 7]
+    poisoned[5] = 7
+
+    def engine():
+        return ContinuousBatchingEngine(model, params, max_slots=4,
+                                        page_size=16, max_len=80,
+                                        prefill_bucket=32)
+
+    solo = engine()
+    want = _serve_all(solo, [healthy], 10)[0]
+    eng = engine()
+    rh, rp = eng.add_request(healthy, 10), eng.add_request(poisoned, 10)
+    out = eng.run()
+    assert [r.rid for r in eng.scheduler.failed] == [rp]
+    assert "health guard" in eng.scheduler.failed[0].error
+    assert eng.n_quarantined == 1 and out[rh].tolist() == want
+
+
+def test_attribute_calls_are_accepted_during_capture(dev):
+    """Kernels whose wrappers call ``cudaFuncSetAttribute`` on every launch
+    (f32 flash; f32 contiguous decode attention above 48 KB of shared
+    memory, here rep 32 at D 128) capture and replay: the call is made
+    while the capture is open, and a replay gives the eager call's bits."""
+    from repro_torch.serve.graphs import CapturedStep
+    rng = np.random.default_rng(23)
+    args, kw = _bf16_contiguous(rng, 32, 1, 128, b=2)
+    q = args[0].float().to(dev)
+    cache = [t.to(dev) for t in args[1:]]
+    x = torch.from_numpy(rng.normal(size=(1, 64, 4, 128)).astype(
+        np.float32)).to(dev)
+    out = {}
+
+    def step():
+        out["attn"] = mx_decode_attention(q, *cache, 300, **kw)
+        out["flash"] = flash_attention(x, x, x, causal=True)
+
+    graph = CapturedStep(step, dev)
+    assert graph.graph is not None
+    graph()
+    torch.cuda.synchronize()
+    assert torch.equal(out["attn"], mx_decode_attention(q, *cache, 300,
+                                                        **kw))
+    assert torch.equal(out["flash"], flash_attention(x, x, x, causal=True))

@@ -182,3 +182,29 @@ def test_paged_kv_write_rejects_slots_it_cannot_place(case):
         mx_paged_kv_write(pool, k, k, torch.tensor(bt, dtype=torch.int32),
                           torch.tensor(lengths, dtype=torch.int32),
                           tcfg.mx.kv_key, tcfg.mx.kv_value)
+
+
+@pytest.mark.parametrize("policy", POLICIES[:3])
+def test_cache_kv_write_device_pos_bit_identical(policy):
+    """The contiguous write at a position held in a one-element int32
+    tensor writes the host int's bytes; a tensor position outside the
+    cache raises as the host int does."""
+    _, tcfg = _cfgs(policy, 32)
+    kk, vv = tcfg.mx.kv_key, tcfg.mx.kv_value
+    rng = np.random.default_rng(5)
+    for pos, s in ((0, 5), (7, 1), (11, 1)):
+        want = TL.init_kv_cache(tcfg, 2, 12, N_KV, 32, "cpu")
+        got = {k: v.clone() for k, v in want.items()}
+        (_, k), (_, v) = _kv(rng, (2, s, N_KV, 32), "float32")
+        mx_cache_kv_write(want, k, v, pos, kk, vv)
+        mx_cache_kv_write(got, k, v, torch.tensor([pos], dtype=torch.int32),
+                          kk, vv)
+        for n in want:
+            assert torch.equal(got[n], want[n]), (pos, n)
+    for bad in (-1, 12):
+        with pytest.raises(ValueError, match="do not fit"):
+            mx_cache_kv_write(got, k, v, torch.tensor([bad],
+                                                      dtype=torch.int32),
+                              kk, vv)
+    with pytest.raises(ValueError, match="one int32"):
+        mx_cache_kv_write(got, k, v, torch.tensor([3]), kk, vv)

@@ -66,8 +66,15 @@ def test_static_engine_tokens_match_jax(monkeypatch, name):
     cache = tm.init_cache(B, S + 8)
     assert eng.kv_cache_nbytes == sum(t.numel() * t.element_size()
                                       for t in cache.values())
-    with pytest.raises(NotImplementedError):
-        eng.generate(batch, GenerationConfig(temperature=0.7))
+    # temperature sampling (the reference's too): valid tokens, the same
+    # for the same seed, from the greedy prefix on
+    hot = [eng.generate(batch, GenerationConfig(
+        max_new_tokens=NEW_STATIC, temperature=0.7, seed=seed))
+        for seed in (3, 3, 4)]
+    assert all(h.shape == (B, NEW_STATIC) for h in hot)
+    assert (hot[0] >= 0).all() and (hot[0] < tcfg.vocab).all()
+    np.testing.assert_array_equal(hot[0], hot[1])
+    assert not np.array_equal(hot[0], hot[2])
 
 
 def test_continuous_matches_static_solo():
@@ -90,3 +97,27 @@ def test_continuous_matches_static_solo():
         ref = solos[n].generate({"tokens": p[None]},
                                 GenerationConfig(max_new_tokens=NEW))[0]
         assert outs[rid].tolist() == ref.tolist()
+
+
+@pytest.mark.parametrize("name", sorted(POLICIES))
+def test_decode_step_device_pos_matches_host_int(name):
+    """The static decode step at a position held in a one-element int32
+    tensor (what the captured step advances on the device) gives the
+    host int's logits and cache bytes bit for bit, step after step."""
+    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(POLICIES[name]))
+    tm = TModel(tcfg, device="cpu")
+    tp = tm.init(seed=0, quantize=True)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, tcfg.vocab, size=(B, S)).astype(np.int32))
+    logits, cache, pos = tm.prefill(tp, tokens, max_len=S + 8)
+    dev_cache = {k: v.clone() for k, v in cache.items()}
+    tok = torch.argmax(logits[:, -1, :tcfg.vocab], -1).to(torch.int32)
+    dev_pos = torch.tensor([pos], dtype=torch.int32)
+    for i in range(4):
+        want, cache = tm.decode_step(tp, tok, cache, pos + i)
+        got, dev_cache = tm.decode_step(tp, tok, dev_cache, dev_pos)
+        assert torch.equal(got, want)
+        for k in cache:
+            assert torch.equal(dev_cache[k], cache[k]), k
+        dev_pos += 1
+        tok = torch.argmax(want[:, -1, :tcfg.vocab], -1).to(torch.int32)
