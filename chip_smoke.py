@@ -15,7 +15,8 @@ failure (the script then exits non-zero and prints no result line):
    converter's two kernels (vectorized, and one lane per element for
    ragged or misaligned rows) and the fused KV write (paged and
    contiguous, every format and mode, bit for bit; timed beside today's
-   composition of separate launches); the MX
+   composition of separate launches; the paged mode that writes a span of
+   tokens per row, the suffix prefill's, bit for bit and timed); the MX
    matmul, flash attention and both MX decode attentions in bf16 (tensor
    cores) and f32 (CUDA cores), and the matmul's rows bit-identical
    whatever the batch; decode attention's library call is timed under
@@ -36,7 +37,13 @@ failure (the script then exits non-zero and prints no result line):
    eager loop of the same step (identical tokens, keys and flags,
    byte-identical pools), greedy and sampled, and confirm one replay's
    launches with the profiler; quarantine a prompt with a NaN embedding
-   row while its neighbour keeps its solo tokens; then serve a static
+   row while its neighbour keeps its solo tokens; serve requests sharing
+   a 256-token system prompt with the prefix cache off and on (greedy
+   and at temperature 0.8: identical tokens, the hits' suffix prefill
+   through the multi-token KV write, a copy-on-write fork, a prompt
+   extending a finished conversation), and once more with the cache on
+   over half the pool (admission reclaims trie pages and backs a
+   tentative mapping out; the same tokens); then serve a static
    batch through ``ServeEngine`` on the same weights (its decode step
    captured on a first call, replayed on the second), once with the MX
    KV cache (contiguous MX decode attention, pos on the device) and once
@@ -50,8 +57,10 @@ failure (the script then exits non-zero and prints no result line):
    logits and greedy tokens must agree; likewise ``ServeEngine`` over an
    fp cache (flash prefill) on 2 full-width f32 layers.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Every model here runs at ``attn_impl="flash"`` (attention through the
+kernels), as the reference's serving cells do.  The line before the last
+is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -311,7 +320,8 @@ def check_kv_write(torch, flush):
     from repro_torch.core.spec import QuantSpec
     from repro_torch.kernels import ref
     from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
-                                                 mx_paged_kv_write)
+                                                 mx_paged_kv_write,
+                                                 mx_paged_kv_write_tokens)
     gen = torch.Generator(device="cuda").manual_seed(9)
     dev = "cuda"
 
@@ -335,7 +345,7 @@ def check_kv_write(torch, flush):
                                      f"version")
 
     b, n_kv, npg = 8, 2, 4
-    n_paged = n_cache = 0
+    n_paged = n_cache = n_tokens = 0
     for kname in ("int8@32:ocp", "e4m3@32:paper"):
         kspec = QuantSpec.parse(kname)
         for fmt in KV_WRITE_FMTS:
@@ -368,6 +378,27 @@ def check_kv_write(torch, flush):
                                     f"{page} D {hd} {dt}: {n} differs from "
                                     f"the plain version")
                         n_paged += 1
+                        # a span of tokens per row (the suffix prefill):
+                        # starts mid-page, one row wholly padding
+                        s_ = 2 * page + 3
+                        starts = torch.tensor([3, page - 1, page, 2],
+                                              dtype=torch.int32, device=dev)
+                        ends = starts + torch.tensor(
+                            [s_, s_ - 5, 1, 0], dtype=torch.int32,
+                            device=dev)
+                        k, v = (_kv_rand(torch, gen, (4, s_, n_kv, hd), dt,
+                                         "paper" in (mode, kspec.mode))
+                                for _ in range(2))
+                        plain = {n: t.clone() for n, t in pool.items()}
+                        mx_paged_kv_write_tokens(pool, k, v, bt[:4], starts,
+                                                 ends, kspec, vspec)
+                        ref.mx_paged_kv_write_tokens_ref(
+                            plain, k, v, bt[:4], starts, ends, kspec, vspec)
+                        same(f"mx_paged_kv_write_tokens {kspec}/{vspec} "
+                             f"page {page} D {hd} {dt}",
+                             {n: t[1:] for n, t in pool.items()},
+                             {n: t[1:] for n, t in plain.items()})
+                        n_tokens += 1
                 # the contiguous cache: a prefill of 512, then a decode
                 vspec = QuantSpec(fmt, mode)
                 for hd, dt in ((128, torch.bfloat16), (48, torch.float32)):
@@ -438,6 +469,9 @@ def check_kv_write(torch, flush):
     except RuntimeError:
         row["composed_graph_ms"] = None
     emit("time", **row)
+    row["multi_token"] = _time_kv_write_tokens(torch, flush, gen, pool_of,
+                                               same)
+    n_tokens += 1
     # the static prefill's write: 8 rows x 512 positions
     cache = {n: rand_bytes((8, 584, n_kv, w)) for n, w in
              (("k_codes", hd), ("k_scales", hd // 32), ("v_codes", hd),
@@ -449,7 +483,7 @@ def check_kv_write(torch, flush):
     ref.mx_cache_kv_write_ref(plain, k, v, 0, kspec, vspec)
     same("mx_cache_kv_write at the timed shape", cache, plain)
     emit("check", kernel="mx_kv_write", compared_paged=n_paged + 1,
-         compared_contiguous=n_cache + 1,
+         compared_contiguous=n_cache + 1, compared_multi_token=n_tokens,
          criterion="bit-identical pool and cache bytes (page 0, the trash "
                    "page, left out); the contiguous cache at a host pos and "
                    "at a pos in device memory; the timed paged and prefill "
@@ -493,6 +527,62 @@ def _matmul_row(torch, ref, mx_matmul_2d, a, mw, codes, spec, pname, flush):
             a, codes, mw.scales, spec), flush=flush),
         library_ms=time_ms(torch, lambda: torch.matmul(a, wd), flush=flush),
         bound_ms=tb, bound_by=by)
+    emit("time", **row)
+    return row
+
+
+def _time_kv_write_tokens(torch, flush, gen, pool_of, same):
+    """The multi-token paged write at the suffix prefill's shape: 8 rows
+    of a 64-token bucket, starts off page boundaries, each row's tail
+    past its end on the trash page; INT8 keys / packed E2M1 values, bf16,
+    D 128, pages of 16.  Bit for bit against the plain version (the trash
+    page left out), then timed beside it and its byte bound."""
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_kv_write import mx_paged_kv_write_tokens
+    kspec, vspec = QuantSpec.parse("int8@32:ocp"), QuantSpec.parse(
+        "e2m1@32:ocp")
+    g, s, n_kv, hd, page, npg = 8, 64, 2, 128, 16, 20
+    dev = "cuda"
+    pool = pool_of(kspec, vspec, 1 + g * npg, page, n_kv, hd)
+    bt = (1 + torch.randperm(g * npg, generator=gen, device=dev)).reshape(
+        g, npg).to(torch.int32)
+    starts = torch.randint(0, 256, (g,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    starts[0] = 17                                  # off a page boundary
+    ends = starts + torch.randint(1, s + 1, (g,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+    k, v = (_kv_rand(torch, gen, (g, s, n_kv, hd), torch.bfloat16, False)
+            for _ in range(2))
+    args = (pool, k, v, bt, starts, ends, kspec, vspec)
+    plain = {n: t.clone() for n, t in pool.items()}
+    mx_paged_kv_write_tokens(*args)
+    ref.mx_paged_kv_write_tokens_ref(plain, *args[1:])
+    same("mx_paged_kv_write_tokens at the timed shape",
+         {n: t[1:] for n, t in pool.items()},
+         {n: t[1:] for n, t in plain.items()})
+    # the work these rows need: the live tokens' k/v read once, their
+    # codes and scales written once (the padding's trash stores are waste)
+    rows = int((ends - starts).sum()) * n_kv
+    nbytes = (rows * hd * 2 * k.element_size() + bt.numel() * 4 + 2 * g * 4
+              + rows * (kspec.storage_nbytes(hd) + vspec.storage_nbytes(hd)
+                        + 2 * hd // 32))
+    tb, by = bound(nbytes, 2 * rows * hd * CONVERTER_OPS_PER_ELEMENT,
+                   F32_CUDA_CORE_FLOPS)
+    row = dict(kernel="mx_kv_write",
+               shape="paged multi-token write: 8 rows x 64 tokens, Hkv 2, "
+                     "D 128, bf16",
+               spec="int8@32:ocp/e2m1@32:ocp", max_abs_err=0.0,
+               live_tokens=int((ends - starts).sum()),
+               ms=time_ms(torch, lambda: mx_paged_kv_write_tokens(*args),
+                          flush=flush),
+               graph_ms=graph_ms(torch,
+                                 lambda: mx_paged_kv_write_tokens(*args),
+                                 flush=flush),
+               plain_ms=time_ms(torch, lambda: ref
+                                .mx_paged_kv_write_tokens_ref(*args),
+                                flush=flush),
+               bound_ms=tb, bound_by=by, library_ms=None)
     emit("time", **row)
     return row
 
@@ -935,11 +1025,13 @@ def _counters():
     from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
                                                     mx_paged_decode_attention)
     from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
-                                                 mx_paged_kv_write)
+                                                 mx_paged_kv_write,
+                                                 mx_paged_kv_write_tokens)
     from repro_torch.kernels.mx_matmul import mx_matmul_2d
     from repro_torch.kernels.mx_quant import mx_quantize_2d
     return {"mx_quantize_2d": (mx_quantize_2d,),
-            "mx_kv_write": (mx_paged_kv_write, mx_cache_kv_write),
+            "mx_kv_write": (mx_paged_kv_write, mx_paged_kv_write_tokens,
+                            mx_cache_kv_write),
             "mx_matmul_2d": (mx_matmul_2d,),
             "mx_paged_decode_attention": (mx_paged_decode_attention,),
             "mx_decode_attention": (mx_decode_attention,),
@@ -969,7 +1061,8 @@ KERNEL_FAMILIES = {
                                    "mx_matmul_tc_prefill_kernel",
                                    "mx_matmul_skinny_kernel",
                                    "mx_matmul_tiled_kernel")),
-    "kv_write": (("mx_paged_kv_write", "mx_cache_kv_write"),
+    "kv_write": (("mx_paged_kv_write", "mx_paged_kv_write_tokens",
+                  "mx_cache_kv_write"),
                  ("mx_kv_write_kernel",)),
     "decode_attention": (("mx_paged_decode_attention",
                           "mx_decode_attention"),
@@ -1057,7 +1150,7 @@ def serve_full_width(torch):
     from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
     (model, params), load, load_s = _drive(torch, lambda: build_model(
         "chatglm3_6b", reduced=False, quant=POLICY, weight_resident=True,
-        device="cuda", seed=0))
+        device="cuda", seed=0, attn_impl="flash"))
     cfg = model.cfg
     n_l = cfg.n_layers
     _check_launches("model load", load, {"mx_quantize_2d": 7 * n_l})
@@ -1130,11 +1223,13 @@ def serve_full_width(torch):
     for temperature in (0.0, 0.8):
         check_graph_window(torch, model, params, short, temperature)
     check_quarantine(torch, model, params, short[:2])
+    tokens_launches = serve_prefix(torch, model, params)
     static = serve_static(torch, model, params)
     del params, model
     torch.cuda.empty_cache()
     return {**launches, **static,
-            "mx_quantize_2d": load["mx_quantize_2d"]}
+            "mx_quantize_2d": load["mx_quantize_2d"],
+            "mx_kv_write_tokens": tokens_launches}
 
 
 def check_graph_window(torch, model, params, prompts, temperature):
@@ -1226,6 +1321,240 @@ def check_quarantine(torch, model, params, prompts):
          neighbour_tokens_identical=True, tokens=out[rh].tolist())
     del eng, poisoned_params
     torch.cuda.empty_cache()
+
+
+PREFIX_LEN = 256       # the prefix phase's shared system prompt: 16 pages
+
+
+def _prefix_traffic(vocab):
+    """16 prompts: the shared system prompt and a seeded tail of 16-256
+    tokens (the fourth 64 long, so its prompt is page-aligned)."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    system = rng.integers(0, vocab, size=PREFIX_LEN).astype(np.int32)
+    tails = rng.integers(16, 257, size=16)
+    tails[3] = 64
+    prompts = [np.concatenate([system, rng.integers(0, vocab, size=int(t))
+                               .astype(np.int32)]) for t in tails]
+    return prompts, rng.integers(0, vocab, size=24).astype(np.int32)
+
+
+def _serve_prefix_run(torch, model, params, prefix_cache, temperature,
+                      record, num_pages=None):
+    """One serving run of the prefix phase: the 16 prompts, then (once
+    they finished) a repeat of the page-aligned prompt (fully cached on
+    the prefix path: a copy-on-write fork) and a prompt extending the
+    shortest first-wave request's prompt and output (cached through the
+    pages its release published).  The pool is the engine's default
+    (full occupancy) unless ``num_pages`` is given.  Returns (tokens per
+    request, engine, launches, wall s, {rid: (prefill start, prompt K/V
+    bytes as the prefill left them)} when ``record``, {"reclaimed":
+    pages the trie's reclaim freed, "backouts": admissions whose
+    tentative prefix mapping was undone})."""
+    import numpy as np
+    from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
+    new = 32
+    prompts, ext_tail = _prefix_traffic(model.cfg.vocab)
+    first_wave = min(range(8), key=lambda i: len(prompts[i]))
+    max_len = len(prompts[first_wave]) + new + len(ext_tail) + new + 1
+    max_len = max(max_len, max(len(p) for p in prompts) + new + 1)
+    recorded = {}
+
+    class Recorder(ContinuousBatchingEngine):
+        """Keeps each request's prompt K/V bytes as its prefill left
+        them, for the byte comparison of the two runs; read after the
+        engine's timed prefill phase returns, before the first decode
+        window writes."""
+
+        def _batched_prefill(self, admitted, emitted):
+            super()._batched_prefill(admitted, emitted)
+            for r in admitted:
+                if self.scheduler.running.get(r.slot) is not r:
+                    continue
+                ids = torch.tensor(self.blocks.slot_page_ids(r.slot),
+                                   device=self.device)
+                recorded[r.rid] = (r.prefill_start, {
+                    n: t[:, ids].reshape((t.shape[0], -1) + t.shape[3:])
+                    [:, :r.prompt_len] for n, t in self.pool.items()})
+
+    cls = Recorder if record else ContinuousBatchingEngine
+    eng = cls(model, params, max_slots=8, page_size=16, max_len=max_len,
+              num_pages=num_pages, sync_every=8, prefill_bucket=64,
+              prefix_cache=prefix_cache,
+              gen=GenerationConfig(temperature=temperature, seed=5))
+    pressure = {"reclaimed": 0, "backouts": 0}
+    if prefix_cache:
+        # count what admission under pool pressure does: the trie's
+        # reclaim and the undoing of a tentative mapping (a release of a
+        # slot with pages inside admit)
+        reclaim, release, admit = (eng.prefix.reclaim, eng.blocks.release,
+                                   eng.scheduler.admit)
+        in_admit = [False]
+
+        def counted_reclaim(n):
+            freed = reclaim(n)
+            pressure["reclaimed"] += freed
+            return freed
+
+        def counted_release(slot):
+            if in_admit[0] and eng.blocks.slot_pages(slot):
+                pressure["backouts"] += 1
+            return release(slot)
+
+        def counted_admit():
+            in_admit[0] = True
+            try:
+                return admit()
+            finally:
+                in_admit[0] = False
+
+        eng.prefix.reclaim = counted_reclaim
+        eng.blocks.release = counted_release
+        eng.scheduler.admit = counted_admit
+
+    def serve():
+        out = _serve(eng, prompts, new)
+        ext = np.concatenate([prompts[first_wave], out[first_wave],
+                              ext_tail])
+        return out + _serve(eng, [prompts[3].copy(), ext], new)
+
+    outs, launches, wall = _drive(torch, serve)
+    return ([o.tolist() for o in outs], eng, launches, wall, recorded,
+            pressure)
+
+
+def _equal_share(on, off, suffix):
+    """Share of equal K/V bytes between the two runs' pages at the hits'
+    suffix positions (``suffix``) or at their cached prefix positions."""
+    same = total = 0
+    for rid, (start, pages) in on.items():
+        if start == 0:
+            continue
+        for n, t in pages.items():
+            a, b = t, off[rid][1][n]
+            if suffix:
+                a, b = a[:, start:], b[:, start:]
+            else:
+                a, b = a[:, :start], b[:, :start]
+            same += int((a == b).sum())
+            total += a.numel()
+    return same / total if total else None
+
+
+def serve_prefix(torch, model, params):
+    """Prefix caching at full width (the model of phase 3, MX weights,
+    INT8 / E2M1 KV pages of 16, 8 slots, bucket 64, sync_every 8, the
+    engine's default pool): the traffic of ``_serve_prefix_run`` with the
+    cache off and on, greedy and at temperature 0.8, then once more
+    greedy with the cache on over half that pool (4 slots' worth of
+    pages), where admission must reclaim trie pages and back a tentative
+    mapping out; each run a main path of its own.  Raises unless the
+    tokens of every on-run are those of the off-run at its temperature,
+    the default-pool on-run has at least 8 hits, at least one
+    copy-on-write fork, and computes at least 8 x 256 fewer prefill
+    tokens, the half-pool run has at least 8 hits, reclaims pages and
+    backs out at least once, and every run launches its kernels as often
+    as its steps and prefill batches imply (the hits' suffix prefill
+    through the multi-token KV write, once per layer per hit batch).
+    Reports prefill seconds, decode tokens/s, hit rate, effective pool
+    bytes and launches per run, and the share of equal K/V bytes between
+    the pages the hits' suffix prefill wrote and the off-run's pages at
+    the same positions (a measurement, not a gate).  Returns the
+    multi-token write's launches in the greedy default-pool on-run."""
+    from repro_torch.kernels.mx_kv_write import mx_paged_kv_write_tokens
+    n_l = model.cfg.n_layers
+
+    def run(pc, temperature, record=False, num_pages=None):
+        toks, eng, launches, wall, rec, pressure = _serve_prefix_run(
+            torch, model, params, pc, temperature, record, num_pages)
+        steps, batches = eng.n_steps, eng.n_prefill_batches
+        hit_batches = eng.n_hit_batches
+        tok_launches = mx_paged_kv_write_tokens.launches
+        path = (f"prefix cache {'on' if pc else 'off'}, T {temperature}, "
+                f"{eng.blocks.num_pages} pages")
+        _check_launches(path, launches, {
+            "mx_matmul_2d": 7 * n_l * (steps + batches),
+            "mx_kv_write": n_l * (steps + batches),
+            "mx_paged_decode_attention": n_l * steps})
+        if tok_launches != n_l * hit_batches:
+            raise AssertionError(f"{path}: the multi-token KV write "
+                                 f"launched {tok_launches} times, "
+                                 f"expected {n_l * hit_batches}")
+        if eng.n_quarantined:
+            raise AssertionError(f"{path}: a healthy request was "
+                                 f"quarantined")
+        ph = eng.phase
+        px = eng.prefix
+        emit("prefix", prefix_cache=pc, temperature=temperature,
+             num_pages=eng.blocks.num_pages, requests=len(toks),
+             new_tokens=32, wall_s=wall, prefill_s=ph["prefill"],
+             decode_s=ph["decode"],
+             decode_tokens_per_s=(eng.n_generated - len(toks))
+             / ph["decode"],
+             prefill_tokens_computed=eng.prefill_tokens_computed,
+             prefill_batches=batches, hit_batches=hit_batches,
+             decode_steps=steps, hits=px.hits if px else 0,
+             lookups=px.lookups if px else 0,
+             hit_rate=eng.prefix_hit_rate, cow_forks=eng.n_cow_forks,
+             reclaimed_pages=pressure["reclaimed"],
+             backouts=pressure["backouts"],
+             peak_shared_pages=eng.peak_shared_pages,
+             kv_pool_bytes_effective=eng.kv_pool_bytes_effective,
+             kv_pool_nbytes=eng.kv_pool_nbytes, launches=launches,
+             multi_token_kv_write_launches=tok_launches)
+        return toks, eng, rec, pressure, tok_launches
+
+    def same(on, off, what):
+        if on != off:
+            bad = [i for i, (a, b) in enumerate(zip(on, off)) if a != b]
+            raise AssertionError(f"{what} gives other tokens than the "
+                                 f"cache off: requests {bad}")
+
+    tokens_launches = greedy_off = None
+    for temperature in (0.0, 0.8):
+        record = temperature == 0.0
+        off, eng_off, rec_off, _, _ = run(False, temperature, record)
+        on, eng_on, rec_on, _, launched = run(True, temperature, record)
+        same(on, off, f"prefix cache on at temperature {temperature}")
+        saved = eng_off.prefill_tokens_computed \
+            - eng_on.prefill_tokens_computed
+        if eng_on.prefix.hits < 8 or eng_on.n_cow_forks < 1 \
+                or saved < 8 * PREFIX_LEN:
+            raise AssertionError(
+                f"prefix cache at temperature {temperature}: "
+                f"{eng_on.prefix.hits} hits, {eng_on.n_cow_forks} forks, "
+                f"{saved} prefill tokens saved")
+        row = dict(temperature=temperature, num_pages=eng_on.blocks
+                   .num_pages, identical=True, hits=eng_on.prefix.hits,
+                   cow_forks=eng_on.n_cow_forks,
+                   prefill_tokens_saved=saved)
+        if record:
+            tokens_launches, greedy_off = launched, off
+            off_prefill = eng_off.prefill_tokens_computed
+            half = 1 + 4 * eng_on.max_pages_per_slot
+            row["suffix_bytes_equal_share"] = _equal_share(
+                rec_on, rec_off, suffix=True)
+            row["prefix_bytes_equal_share"] = _equal_share(
+                rec_on, rec_off, suffix=False)
+        emit("prefix_check", **row)
+        del eng_off, eng_on, rec_off, rec_on
+        torch.cuda.empty_cache()
+    on, eng, _, pressure, _ = run(True, 0.0, num_pages=half)
+    same(on, greedy_off, f"prefix cache on over {half} pages")
+    if eng.prefix.hits < 8 or pressure["reclaimed"] < 1 \
+            or pressure["backouts"] < 1:
+        raise AssertionError(
+            f"prefix cache over {half} pages: {eng.prefix.hits} hits, "
+            f"{pressure['reclaimed']} pages reclaimed, "
+            f"{pressure['backouts']} back-outs")
+    emit("prefix_check", temperature=0.0, num_pages=half, identical=True,
+         hits=eng.prefix.hits, cow_forks=eng.n_cow_forks,
+         reclaimed_pages=pressure["reclaimed"],
+         backouts=pressure["backouts"],
+         prefill_tokens_saved=off_prefill - eng.prefill_tokens_computed)
+    del eng
+    torch.cuda.empty_cache()
+    return tokens_launches
 
 
 def _static_eager(torch, model, params, tokens, new, max_len):
@@ -1338,7 +1667,8 @@ def serve_c5(torch):
                                    GenerationConfig, ServeEngine)
     model, params = build_model("chatglm3_6b", reduced=True, quant=POLICY,
                                 weight_resident=True, device="cuda", seed=3,
-                                head_dim=48, dtype="bfloat16")
+                                head_dim=48, dtype="bfloat16",
+                                attn_impl="flash")
     cfg, n_l, new = model.cfg, model.cfg.n_layers, 8
     cpu_params = _to_cpu(params)
     fp_cfg = dataclasses.replace(cfg, mx=QuantPolicy(weights=cfg.mx.weights))
@@ -1413,7 +1743,8 @@ def card_vs_cpu(torch):
     from repro_torch.serve import ContinuousBatchingEngine
     model, params = build_model("chatglm3_6b", reduced=False, quant=POLICY,
                                 weight_resident=True, device="cuda", seed=1,
-                                n_layers=2, dtype="float32")
+                                n_layers=2, dtype="float32",
+                                attn_impl="flash")
     cpu_model = Model(model.cfg, device="cpu")
     cpu_params = _to_cpu(params)
     vocab = model.cfg.vocab
@@ -1454,7 +1785,8 @@ def static_card_vs_cpu(torch):
     from repro_torch.serve import GenerationConfig, ServeEngine
     model, params = build_model("chatglm3_6b", reduced=False, quant="none",
                                 weight_resident=False, device="cuda", seed=2,
-                                n_layers=2, dtype="float32")
+                                n_layers=2, dtype="float32",
+                                attn_impl="flash")
     cpu_model = Model(model.cfg, device="cpu")
     cpu_params = _to_cpu(params)
     vocab = model.cfg.vocab
@@ -1561,6 +1893,14 @@ def main() -> int:
             if key in row:      # the f32 kernel's error; SDPA's backend;
                 #                 the KV write's composed yardstick
                 kernels[-1][key] = row[key]
+        if "multi_token" in row:    # the KV write's suffix-prefill mode,
+            mt = row["multi_token"]  # launched on the prefix path
+            kernels[-1]["multi_token"] = {
+                "shape": mt["shape"],
+                "launches": launches["mx_kv_write_tokens"],
+                "max_abs_err": mt["max_abs_err"], "ms": mt["ms"],
+                "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
+                "bound_by": mt["bound_by"], "library_ms": mt["library_ms"]}
     RESULTS["kernels"] = kernels
     RESULTS["seconds"] = time.perf_counter() - t_start
     if args.out:

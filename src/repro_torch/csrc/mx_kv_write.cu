@@ -24,16 +24,21 @@
 // 8-bit codes are stored as they are.  Lane 0 stores the block's scale.
 // Codes and scales are bit-identical to the plain converter.
 //
-// Destinations.  Paged (one token per row): the warp reads lengths[b]
-// and block_tables[b, lengths[b] / page] itself and writes at offset
-// lengths[b] % page, so the launch needs nothing from the host but
-// pointers.  A row whose length lies outside its table, or whose table
-// names no page of the pool, stops the kernel with __trap(): the launch
-// fails and the next synchronizing call raises, as the plain version's
-// indexing raises on the same inputs (a scheduler fault must not drop
-// a token's K/V in silence).  Rows that are done point
-// at the trash page with length 0, so their stores collide there, as the
-// indexed stores' do; nothing reads that page.  Contiguous: token t of
+// Destinations.  Paged, one token per row (decode): the warp reads
+// lengths[b] and block_tables[b, lengths[b] / page] itself and writes at
+// offset lengths[b] % page, so the launch needs nothing from the host
+// but pointers.  Paged, many tokens per row (the suffix prefill under
+// prefix caching; the reference's paged_cache_write_tokens): token t of
+// row b sits at position starts[b] + t and lands through the block
+// table when that position is below ends[b], else on the trash page at
+// the same offset (bucket padding).  A live position outside its table,
+// or a table entry naming no page of the pool, stops the kernel with
+// __trap(): the launch fails and the next synchronizing call raises, as
+// the plain version's indexing raises on the same inputs (a scheduler
+// fault must not drop a token's K/V in silence).  Rows that are done
+// point at the trash page with length 0, and padded positions go there
+// too, so their stores collide there, as the indexed stores' do;
+// nothing reads that page.  Contiguous: token t of
 // row b goes to position pos + t, with pos a launch argument or, when
 // pos_dev is given, read from device memory (the static decode step
 // replayed from a CUDA graph advances it on the device); a pos that puts
@@ -59,6 +64,8 @@ __global__ void mx_kv_write_kernel(const T* __restrict__ k,
                                    int hd, int nblk,
                                    const int* __restrict__ block_tables,
                                    const int* __restrict__ lengths,
+                                   const int* __restrict__ starts,
+                                   const int* __restrict__ ends, int trash,
                                    const int* __restrict__ pos_dev,
                                    int max_pages, int page, int n_pages,
                                    int s_max, int pos) {
@@ -78,12 +85,14 @@ __global__ void mx_kv_write_kernel(const T* __restrict__ k,
   // destination (token, KV head) row
   long long dst;
   if (block_tables != nullptr) {
-    const int len = lengths[b];
-    const int lp = len / page;
-    if (len < 0 || lp >= max_pages) __trap();      // see "Destinations"
-    const int pg = block_tables[(long long)b * max_pages + lp];
+    // the token's position, and whether it lands through the table
+    const int p = starts != nullptr ? starts[b] + t : lengths[b];
+    const bool live = starts == nullptr || p < ends[b];
+    if (p < 0 || (live && p / page >= max_pages)) __trap();  // see
+    const int pg =                                  // "Destinations"
+        live ? block_tables[(long long)b * max_pages + p / page] : trash;
     if (pg < 0 || pg >= n_pages) __trap();
-    dst = ((long long)pg * page + len % page) * n_kv + h;
+    dst = ((long long)pg * page + p % page) * n_kv + h;
   } else {
     const int p = pos_dev != nullptr ? *pos_dev : pos;
     if (p < 0 || p + s > s_max) __trap();          // see "Destinations"
@@ -109,11 +118,15 @@ Fmt fmt_of(const int* a) {
 // ::_format_args) followed by its pack kind and code-row bytes.
 // block_tables null: contiguous cache (rows, s_max, n_kv, X), token t at
 // pos + t, pos read from pos_dev when that is not null; else paged pool
-// (pages, page, n_kv, X), s == 1.
+// (pages, page, n_kv, X): with starts null, one token per row (s == 1) at
+// lengths[b]; else token t of row b at starts[b] + t, through the table
+// below ends[b], on page ``trash`` from there on.
 extern "C" int mx_kv_write_launch(const void* k, const void* v, void* kc,
                                   void* ks, void* vc, void* vs,
                                   const void* block_tables,
-                                  const void* lengths, const void* pos_dev,
+                                  const void* lengths, const void* starts,
+                                  const void* ends, int trash,
+                                  const void* pos_dev,
                                   const void* fk,
                                   const void* fv, int is_bf16, int rows,
                                   int s, int n_kv, int hd, int max_pages,
@@ -131,15 +144,18 @@ extern "C" int mx_kv_write_launch(const void* k, const void* v, void* kc,
     cudaStream_t st = (cudaStream_t)stream;
     const int* bt = (const int*)block_tables;
     const int* ln = (const int*)lengths;
+    const int* st0 = (const int*)starts;
+    const int* en = (const int*)ends;
     const int* pd = (const int*)pos_dev;
     if (is_bf16) {
       mx_kv_write_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, st>>>(
           (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, sk, sv, rows, s,
-          n_kv, hd, nblk, bt, ln, pd, max_pages, page, n_pages, s_max, pos);
+          n_kv, hd, nblk, bt, ln, st0, en, trash, pd, max_pages, page,
+          n_pages, s_max, pos);
     } else {
       mx_kv_write_kernel<float><<<(unsigned)blocks, threads, 0, st>>>(
           (const float*)k, (const float*)v, sk, sv, rows, s, n_kv, hd, nblk,
-          bt, ln, pd, max_pages, page, n_pages, s_max, pos);
+          bt, ln, st0, en, trash, pd, max_pages, page, n_pages, s_max, pos);
     }
   }
   return (int)cudaGetLastError();

@@ -39,7 +39,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 SIGNATURES: Dict[str, str] = {
     "mx_quant_launch": "ppp" + "ii" + "i" * 11 + "p",
     "mx_quant_vec_launch": "ppp" + "ii" + "i" * 11 + "p",
-    "mx_kv_write_launch": "p" * 11 + "i" * 10 + "p",
+    "mx_kv_write_launch": "p" * 10 + "i" + "ppp" + "i" * 10 + "p",
     "mx_matmul_launch": "ppppppp" + "i" * 5 + "p",
     "mx_matmul_tc_launch": "ppppppp" + "i" * 5 + "p",
     "mx_paged_decode_attn_launch": "p" * 12 + "i" * 11 + "p",

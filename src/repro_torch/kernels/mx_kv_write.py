@@ -2,14 +2,17 @@
 
 One launch quantizes k and v along the head dim, bit-packs sub-byte
 codes where the role's spec says ``packed`` (page pools only), and
-stores codes and E8M0 scales into the page pool or the contiguous cache.
+stores codes and E8M0 scales into the page pool (one token per row at
+decode, a span per row at the suffix prefill) or the contiguous cache.
 It takes the converter's role on the port's serving paths; the
 reference writes the cache in plain jnp
-(src/repro/models/layers.py::paged_cache_write / cache_write).  On CUDA
-tensors each wrapper launches the kernel (or raises); on CPU tensors it
-computes the plain version, ``ref.mx_paged_kv_write_ref`` /
-``ref.mx_cache_kv_write_ref``.  Codes and scales are bit-identical to
-the plain converter: the kernel runs its integer sequence.
+(src/repro/models/layers.py::paged_cache_write /
+paged_cache_write_tokens / cache_write).  On CUDA tensors each wrapper
+launches the kernel (or raises); on CPU tensors it computes the plain
+version, ``ref.mx_paged_kv_write_ref`` /
+``ref.mx_paged_kv_write_tokens_ref`` / ``ref.mx_cache_kv_write_ref``.
+Codes and scales are bit-identical to the plain converter: the kernel
+runs its integer sequence.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch.core.spec import QuantSpec, as_spec
 from repro_torch.kernels import build, ref, tables
 from repro_torch.kernels.mx_quant import _format_args
 
+TRASH_PAGE = 0      # where the multi-token mode stores bucket padding
 _CODE_LEAVES = {"paged": ("kc_pages", "ks_pages", "vc_pages", "vs_pages"),
                 "cache": ("k_codes", "k_scales", "v_codes", "v_scales")}
 
@@ -56,13 +60,15 @@ def _check_leaves(name: str, leaves, lead, hd: int, kspec, vspec,
                              f"uint8")
 
 
-def _launch(name, k, v, leaves, kspec, vspec, kinds, bt, lengths,
-            max_pages, page, s_max, pos, pos_dev=None) -> None:
-    """Check what the kernel takes and launch it on k's stream."""
+def _launch(name, k, v, leaves, kspec, vspec, kinds, *, bt=None,
+            lengths=None, starts=None, ends=None, max_pages=0, page=0,
+            s_max=0, pos=0, pos_dev=None) -> None:
+    """Check what the kernel takes and launch it on k's stream.  Paged
+    modes pass ``bt`` with ``lengths`` (one token per row) or with
+    ``starts`` and ``ends`` (many); the contiguous mode passes none."""
+    tables = tuple(t for t in (bt, lengths, starts, ends) if t is not None)
     if k.device.type != "cuda" or any(
-            t.device != k.device for t in (v, *leaves)
-            if t is not None) or (bt is not None and (
-                bt.device != k.device or lengths.device != k.device)):
+            t.device != k.device for t in (v, *leaves, *tables)):
         raise ValueError(f"{name}: all operands must lie on one CUDA "
                          f"device")
     if k.dtype not in (torch.float32, torch.bfloat16):
@@ -73,19 +79,18 @@ def _launch(name, k, v, leaves, kspec, vspec, kinds, bt, lengths,
             raise ValueError(f"{name}: {role}={spec} has block={spec.block};"
                              f" the kernel takes block=32 (one warp per "
                              f"block)")
-    tensors = (k, v, *leaves) + ((bt, lengths) if bt is not None else ())
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in (k, v, *leaves, *tables)):
         raise ValueError(f"{name}: operands must be contiguous")
-    if bt is not None and (bt.dtype != torch.int32
-                           or lengths.dtype != torch.int32):
-        raise ValueError(f"{name}: block_tables and lengths must be int32")
+    if any(t.dtype != torch.int32 for t in tables):
+        raise ValueError(f"{name}: block_tables and the row positions "
+                         f"must be int32")
     b, s, n_kv, hd = k.shape
     fk = _side_args(kspec, kinds[0], leaves[0].shape[-1])
     fv = _side_args(vspec, kinds[1], leaves[2].shape[-1])
     err = build.lib().mx_kv_write_launch(
         k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in leaves),
-        None if bt is None else bt.data_ptr(),
-        None if bt is None else lengths.data_ptr(),
+        *(None if t is None else t.data_ptr()
+          for t in (bt, lengths, starts, ends)), TRASH_PAGE,
         None if pos_dev is None else pos_dev.data_ptr(),
         ctypes.addressof(fk), ctypes.addressof(fv),
         int(k.dtype == torch.bfloat16), b, s, n_kv, hd, max_pages, page,
@@ -131,8 +136,53 @@ def mx_paged_kv_write(pool, k: torch.Tensor, v: torch.Tensor,
                                          key_spec, value_spec)
     _launch("mx_paged_kv_write", k, v, leaves, key_spec, value_spec,
             (tables.pack_kind(key_spec), tables.pack_kind(value_spec)),
-            block_tables, lengths, block_tables.shape[1], page, 0, 0)
+            bt=block_tables, lengths=lengths,
+            max_pages=block_tables.shape[1], page=page)
     mx_paged_kv_write.launches += 1
+    return pool
+
+
+def mx_paged_kv_write_tokens(pool, k: torch.Tensor, v: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             starts: torch.Tensor, ends: torch.Tensor,
+                             key_spec, value_spec):
+    """Write a span of tokens per row into one layer's MX page pool (in
+    place; returns the pool): the suffix prefill under prefix caching,
+    the reference's ``paged_cache_write_tokens``.
+
+    pool          as ``mx_paged_kv_write``'s
+    k, v          (G, S, n_kv, hd) f32 or bf16
+    block_tables  (G, P) int32, the rows' full tables
+    starts, ends  (G,) int32: token t of row g sits at position
+                  starts[g] + t; below ends[g] it lands at page
+                  block_tables[g, pos // page], offset pos % page, and
+                  from ends[g] on (bucket padding) on the trash page 0
+                  at the same offset.  A live position past its table, or a
+                  table entry naming no page of the pool, is an error on
+                  every device: the plain version raises at once, the
+                  kernel traps"""
+    key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
+    name = "mx_paged_kv_write_tokens"
+    _check_kv(name, k, v)
+    g, s, n_kv, hd = k.shape
+    leaves = tuple(pool[n] for n in _CODE_LEAVES["paged"])
+    n_pages, page = leaves[0].shape[:2]
+    _check_leaves(name, leaves, (n_pages, page, n_kv), hd, key_spec,
+                  value_spec, packed=True)
+    if block_tables.dim() != 2 or block_tables.shape[0] != g \
+            or tuple(starts.shape) != (g,) or tuple(ends.shape) != (g,):
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} need block_tables "
+                         f"(G, P), starts (G,) and ends (G,), got "
+                         f"{tuple(block_tables.shape)}, "
+                         f"{tuple(starts.shape)} and {tuple(ends.shape)}")
+    if k.device.type == "cpu":
+        return ref.mx_paged_kv_write_tokens_ref(
+            pool, k, v, block_tables, starts, ends, key_spec, value_spec)
+    _launch(name, k, v, leaves, key_spec, value_spec,
+            (tables.pack_kind(key_spec), tables.pack_kind(value_spec)),
+            bt=block_tables, starts=starts, ends=ends,
+            max_pages=block_tables.shape[1], page=page)
+    mx_paged_kv_write_tokens.launches += 1
     return pool
 
 
@@ -168,10 +218,11 @@ def mx_cache_kv_write(cache, k: torch.Tensor, v: torch.Tensor, pos,
         return ref.mx_cache_kv_write_ref(cache, k, v, host_pos, key_spec,
                                          value_spec)
     _launch("mx_cache_kv_write", k, v, leaves, key_spec, value_spec, (0, 0),
-            None, None, 0, 0, s_max, host_pos or 0, pos_dev)
+            s_max=s_max, pos=host_pos or 0, pos_dev=pos_dev)
     mx_cache_kv_write.launches += 1
     return cache
 
 
 mx_paged_kv_write.launches = 0
+mx_paged_kv_write_tokens.launches = 0
 mx_cache_kv_write.launches = 0

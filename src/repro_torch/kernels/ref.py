@@ -85,6 +85,53 @@ def mx_paged_kv_write_ref(pool, k: torch.Tensor, v: torch.Tensor,
     return pool
 
 
+def token_pages(block_tables: torch.Tensor, starts: torch.Tensor,
+                ends: torch.Tensor, s: int, page: int):
+    """Destinations of a multi-token paged write: token t of row g sits at
+    position starts[g] + t, which lands at page block_tables[g, pos //
+    page] when pos < ends[g] and on the trash page 0 otherwise, offset
+    pos % page either way.  Returns (pages, offsets) (G, S) int64.  A live
+    position outside its table, or a table entry below 0, raises (the
+    kernel traps on the same inputs)."""
+    pos = starts.to(torch.int64)[:, None] \
+        + torch.arange(s, device=starts.device)[None, :]
+    live = pos < ends.to(torch.int64)[:, None]
+    idx = pos // page
+    n_tab = block_tables.shape[1]
+    if bool((live & ((pos < 0) | (idx >= n_tab))).any()):
+        raise IndexError("a live position lies outside its block table")
+    found = torch.gather(block_tables.to(torch.int64), 1,
+                         idx.clamp(0, n_tab - 1))
+    pages = torch.where(live, found, 0)
+    if bool((pages < 0).any()):        # indexing would wrap, not raise
+        raise IndexError("a block table names a page below 0")
+    return pages, pos % page
+
+
+def mx_paged_kv_write_tokens_ref(pool, k: torch.Tensor, v: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 starts: torch.Tensor, ends: torch.Tensor,
+                                 key_spec: QuantSpec, value_spec: QuantSpec):
+    """Paged MX write of a multi-token span per row (in place): k/v (G, S,
+    n_kv, hd); token t of row g lands at position starts[g] + t through
+    the block table below ends[g], on the trash page past it
+    (``token_pages``).  Sub-byte codes are bit-packed per role's
+    ``packed``.  Indices collide only on the trash page."""
+    page = pool["kc_pages"].shape[-3]
+    pages, offsets = token_pages(block_tables, starts, ends, k.shape[1],
+                                 page)
+    kc, ks = kv_quant_ref(k, key_spec)
+    vc, vs = kv_quant_ref(v, value_spec)
+    if key_spec.packed:
+        kc = pack_codes(kc, key_spec.fmt)
+    if value_spec.packed:
+        vc = pack_codes(vc, value_spec.fmt)
+    for name, val in (("kc_pages", kc), ("ks_pages", ks),
+                      ("vc_pages", vc), ("vs_pages", vs)):
+        pool[name][pages, offsets] = val
+    return pool
+
+
 def dequant_ref(codes: torch.Tensor, scales: torch.Tensor,
                 spec) -> torch.Tensor:
     """Dequantize (K, N) codes quantized along axis 0 (contraction dim)."""

@@ -1,6 +1,7 @@
 """Where a decode step's time goes on the card: traced decode steps, each
 path as replays of its captured CUDA graph beside the eager loop of the
-same step function, in the same call.
+same step function, in the same call; then one traced prefill batch,
+cold and prefix-cache hit.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode
 
@@ -22,8 +23,16 @@ traces ``SYNC_EVERY`` decode steps of each serving path with
   in one host transfer of the tokens.
 
 Both modes of a path write the same cache positions with the same
-values, so the second repeats the first's work.  Prints one JSON line
-per (path, mode): wall time per step, the device's busy time per step
+values, so the second repeats the first's work.  Then one prefill
+batch of each kind of the continuous engine with the prefix cache on
+(``prefill``, after a warm batch of each): ``cold``, 8 prompts of 320
+tokens with no cached prefix (the contiguous prefill and its page
+scatter), and ``hit``, 8 prompts whose 256 leading tokens are cached
+(the suffix prefill of 64 tokens each over the paged pool); one JSON
+line each with the batch's wall time, device busy time and share, host
+launch calls, device kernels, prompt tokens computed and top kernels.
+Prints one JSON line per (path, mode): wall time per step, the device's
+busy time per step
 (union of kernel intervals), its busy share, the host's launch calls
 per step (kernel launches and graph launches), device kernels per step,
 decode tokens/s (8 rows over the wall time), the MX decode-attention
@@ -83,8 +92,9 @@ def _trace(fn):
     return prof, wall
 
 
-def _report(path: str, mode: str, prof, wall: float, steps: int,
-            layers: int) -> dict:
+def _kernels(prof):
+    """(device kernel events, host launch calls, busy us, us and launches
+    by kernel name) of a trace."""
     events = prof.events()
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -97,6 +107,12 @@ def _report(path: str, mode: str, prof, wall: float, steps: int,
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us()
         counts[e.name] += 1
+    return kernels, launches, busy_us, by_name, counts
+
+
+def _report(path: str, mode: str, prof, wall: float, steps: int,
+            layers: int) -> dict:
+    kernels, launches, busy_us, by_name, counts = _kernels(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     attn = {"split": 0.0, "merge": 0.0}      # MX decode attention, us
     kv_us = kv_n = 0
@@ -188,12 +204,59 @@ def _static(path: str, m: Model, params, prompts) -> None:
     _report(path, "graph", prof, wall, SYNC_EVERY, n_l)
 
 
+def _prefill(model: Model, params, rng) -> None:
+    """One cold and one hit prefill batch of 8 prompts, traced (see the
+    module docstring); each after an untraced batch of its kind."""
+    vocab = model.cfg.vocab
+    system = rng.integers(0, vocab, size=PROMPT_LEN).astype(np.int32)
+    max_len = PROMPT_LEN + 64 + 1
+    # room for every batch's pages in the trie: no reclaim drops the
+    # shared system prompt before the traced hit batch
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=ROWS, page_size=16, max_len=max_len,
+        num_pages=1 + 4 * ROWS * -(-max_len // 16), sync_every=SYNC_EVERY,
+        prefill_bucket=64, prefix_cache=True)
+
+    def batch(shared: bool) -> int:
+        """Admit 8 prompts (a shared system prompt + 64 tokens, or 320
+        fresh tokens) and prefill them; one new token each, so each
+        request finishes, publishing its pages, at its prefill."""
+        for _ in range(ROWS):
+            tail = rng.integers(0, vocab, size=64).astype(np.int32)
+            head = system if shared else rng.integers(
+                0, vocab, size=PROMPT_LEN).astype(np.int32)
+            eng.add_request(np.concatenate([head, tail]), 1)
+        before = eng.prefill_tokens_computed
+        eng._batched_prefill(eng.scheduler.admit(), [])
+        torch.cuda.synchronize()
+        return eng.prefill_tokens_computed - before
+
+    batch(True)                         # warm: cold, publishes the system
+    batch(True)                         # warm: hits
+    for mode, shared in (("cold", False), ("hit", True)):
+        tokens = {}
+        prof, wall = _trace(lambda: tokens.setdefault("n", batch(shared)))
+        kernels, launches, busy_us, by_name, counts = _kernels(prof)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(json.dumps({
+            "phase": "profile_prefill", "path": "continuous prefill",
+            "mode": mode, "card": torch.cuda.get_device_name(0),
+            "layers": model.cfg.n_layers, "rows": ROWS,
+            "prompt_tokens_computed": tokens["n"], "wall_ms": wall * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "host_launch_calls": launches, "device_kernels": len(kernels),
+            "top_kernels_ms": [{"name": n[:80], "ms": us / 1e3,
+                                "launches": counts[n]} for n, us in top]}),
+            flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
     model, params = build_model("chatglm3_6b", reduced=False, quant=POLICY,
                                 weight_resident=True, device="cuda",
-                                seed=0)
+                                seed=0, attn_impl="flash")
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, model.cfg.vocab,
                            size=(ROWS, PROMPT_LEN)).astype(np.int32)
@@ -204,6 +267,7 @@ def main() -> None:
     for path, m in (("static_mx_kv", model), ("static_bf16_kv", fp_kv)):
         _static(path, m, params, prompts)
         torch.cuda.empty_cache()
+    _prefill(model, params, rng)
 
 
 if __name__ == "__main__":

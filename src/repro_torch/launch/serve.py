@@ -12,11 +12,20 @@ continuous batching over the paged MX KV cache.
 
 Runs on the CUDA device, each decode step one replay of a captured CUDA
 graph; ``--device cpu`` computes every kernel's plain version instead
-(use it with ``--reduced``).  ``--temperature`` / ``--seed`` sample as
-the reference's flags do; paged mode runs the numeric-health guards
-unless ``--no-health-checks``.  Weights are random, made
-on the device from seed 0; with ``--weight-resident`` each layer is
-quantized to MX storage as soon as it is made.
+(use it with ``--reduced``).  Attention runs through the kernels
+(``attn_impl="flash"``, as the reference's serving cells set it).
+``--temperature`` /
+``--seed`` sample as the reference's flags do; paged mode runs the
+numeric-health guards unless ``--no-health-checks``.  ``--prefix-cache``
+shares the KV pages of common prompt prefixes (``--shared-prefix N``
+gives every prompt N common leading tokens) and prints the hit rate and
+the effective pool beside the allocated one; the tokens are those of a
+run without it.  It needs MX KV pages (``kv_key`` / ``kv_value`` in
+``--quant``): over an fp pool at ``"flash"`` the cold and the suffix
+prefill attend by different routes, and the engine refuses it.
+Weights are random, made on the device from seed 0; with
+``--weight-resident`` each layer is quantized to MX storage as soon as
+it is made.
 """
 from __future__ import annotations
 
@@ -48,17 +57,20 @@ def build_model(arch: str, *, reduced: bool, quant: str,
     return model, model.init(seed=seed, quantize=weight_resident)
 
 
-def make_prompts(n: int, prompt_len: int, mixed: bool,
-                 vocab: int) -> List[np.ndarray]:
+def make_prompts(n: int, prompt_len: int, mixed: bool, vocab: int,
+                 shared_prefix: int = 0) -> List[np.ndarray]:
     """``n`` random prompts from seed 0; ``mixed`` draws lengths from
-    [prompt_len // 4, 2 * prompt_len) (the reference launcher's rule)."""
+    [prompt_len // 4, 2 * prompt_len) (the reference launcher's rule);
+    ``shared_prefix`` common leading tokens (a system prompt) go before
+    every prompt."""
     rng = np.random.default_rng(0)
     if mixed:
         lens = rng.integers(max(1, prompt_len // 4), 2 * prompt_len, size=n)
     else:
         lens = np.full(n, prompt_len)
-    return [rng.integers(0, vocab, size=int(m)).astype(np.int32)
-            for m in lens]
+    shared = rng.integers(0, vocab, size=shared_prefix).astype(np.int32)
+    return [np.concatenate([shared, rng.integers(0, vocab, size=int(m))
+                            .astype(np.int32)]) for m in lens]
 
 
 def main(argv=None) -> None:
@@ -80,6 +92,16 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-bucket", type=int, default=0,
                     help="pad prompts to a multiple of this (default: "
                          "the page size)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged mode: share full KV pages across requests "
+                         "with a common prompt prefix (refcounted, "
+                         "copy-on-write); only the uncached suffix is "
+                         "prefilled, and the tokens stay those of a run "
+                         "without it; needs MX KV pages (kv_key/kv_value "
+                         "in --quant)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give every prompt this many common leading "
+                         "tokens (a system prompt)")
     ap.add_argument("--requests", type=int, default=0,
                     help="requests to serve (default 2 * batch)")
     ap.add_argument("--mixed", action="store_true",
@@ -101,11 +123,13 @@ def main(argv=None) -> None:
     if args.no_health_checks and not args.paged:
         ap.error("--no-health-checks needs --paged (the guards live in "
                  "the paged engine)")
+    if args.prefix_cache and not args.paged:
+        ap.error("--prefix-cache needs --paged (prefixes share pages)")
     t0 = time.perf_counter()
     model, params = build_model(args.arch, reduced=args.reduced,
                                 quant=args.quant,
                                 weight_resident=args.weight_resident,
-                                device=args.device)
+                                device=args.device, attn_impl="flash")
     cfg = model.cfg
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
           f"policy {cfg.mx}, built on {model.device} in "
@@ -114,13 +138,14 @@ def main(argv=None) -> None:
         _serve_static(args, model, params)
         return
     prompts = make_prompts(args.requests or 2 * args.batch, args.prompt_len,
-                           args.mixed, cfg.vocab)
+                           args.mixed, cfg.vocab, args.shared_prefix)
     max_len = max(len(p) for p in prompts) + args.new_tokens + 1
     eng = ContinuousBatchingEngine(
         model, params, max_slots=args.batch, page_size=args.page_size,
         max_len=max_len, sync_every=args.sync_every,
         prefill_bucket=args.prefill_bucket or None,
         gen=GenerationConfig(temperature=args.temperature, seed=args.seed),
+        prefix_cache=args.prefix_cache,
         health_checks=not args.no_health_checks)
     t0 = time.perf_counter()
     for p in prompts:
@@ -136,7 +161,16 @@ def main(argv=None) -> None:
           f"{' (MX-resident)' if args.weight_resident else ' (fp)'}, "
           f"kv pages {eng.kv_pool_nbytes / 2**20:.1f} MiB")
     print(f"[serve] phase wall: prefill {ph['prefill']:.2f}s, decode "
-          f"{ph['decode']:.2f}s, host-sync {ph['sync']:.2f}s")
+          f"{ph['decode']:.2f}s, host-sync {ph['sync']:.2f}s; "
+          f"{eng.prefill_tokens_computed} prefill tokens computed")
+    if args.prefix_cache:
+        px = eng.prefix
+        print(f"[serve] prefix cache: hit rate {eng.prefix_hit_rate:.2f} "
+              f"({px.hits}/{px.lookups} admissions), {px.tokens_matched} "
+              f"tokens reused, {eng.n_cow_forks} COW forks, peak shared "
+              f"pages {eng.peak_shared_pages}, effective pool "
+              f"{eng.kv_pool_bytes_effective / 2**20:.2f} MiB (allocated "
+              f"{eng.kv_pool_nbytes / 2**20:.2f} MiB)")
     first = min(out)
     print(f"[serve] sample tokens (request {first}): "
           f"{out[first][:16].tolist()}")

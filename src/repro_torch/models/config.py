@@ -33,6 +33,15 @@ class ModelConfig:
     tie_embeddings: bool = False
     mx: QuantPolicy = dataclasses.field(default_factory=QuantPolicy)
     dtype: str = "bfloat16"        # compute and stored-parameter dtype
+    # "dense" | "flash": "flash" sends MX decode attention (contiguous and
+    # paged) and the causal fp prefill through their kernels; "dense"
+    # attends in plain torch everywhere (the reference's default)
+    attn_impl: str = "dense"
+
+    def __post_init__(self):
+        if self.attn_impl not in ("dense", "flash"):
+            raise ValueError(f"attn_impl must be 'dense' or 'flash', got "
+                             f"{self.attn_impl!r}")
 
     @property
     def hd(self) -> int:

@@ -145,9 +145,14 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(lp, x, cfg: ModelConfig, *, positions=None, cache=None,
-           cache_pos: int = 0, paged=None):
+           cache_pos: int = 0, paged=None, paged_prefill=None):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if paged is not None:
+    if paged_prefill is not None:
+        block_tables, starts, prompt_lens = paged_prefill
+        a, cache = L.attention_paged_prefill(
+            lp["attn"], h, cfg, pool=cache, block_tables=block_tables,
+            starts=starts, prompt_lens=prompt_lens)
+    elif paged is not None:
         block_tables, lengths = paged
         a, cache = L.attention_paged_decode(
             lp["attn"], h, cfg, pool=cache, block_tables=block_tables,
@@ -238,6 +243,39 @@ def scatter_prefill(cfg: ModelConfig, pool, cache, page_ids):
     """Scatter a batched contiguous prefill cache into the page pools (in
     place), packing sub-byte codes on the way."""
     return L.paged_cache_scatter(pool, cache, page_ids, cfg)
+
+
+def copy_pool_pages(pool, src: torch.Tensor, dst: torch.Tensor):
+    """Copy page contents src[i] -> dst[i] in every layer-stacked pool leaf
+    (L, P, page, n_kv, X), in place (the copy-on-write fork under prefix
+    sharing).  The bytes copy verbatim whatever the layer's spec, so MX
+    and fp pools alike; the leaves stay the tensors a captured decode
+    step reads."""
+    src, dst = src.to(torch.int64), dst.to(torch.int64)
+    for leaf in pool.values():
+        leaf.index_copy_(1, dst, leaf.index_select(1, src))
+    return pool
+
+
+def paged_prefill_suffix(params, tokens: torch.Tensor, starts: torch.Tensor,
+                         prompt_lens: torch.Tensor, pool,
+                         block_tables: torch.Tensor, cfg: ModelConfig):
+    """Prefill only the *uncached suffix* of G prompts over the paged KV
+    cache (prefix sharing): request g's tokens cover prompt positions
+    [starts[g], prompt_lens[g]), padded on the right; earlier positions
+    are already in the slot's (shared, read-only) prefix pages.
+
+    tokens (G, S) int32; starts / prompt_lens (G,) int32; block_tables
+    (G, max_pages) int32, the slots' full rows with any copy-on-write
+    fork applied.  Returns (logits (G, S, Vp) f32, pool), the pool
+    written in place; logits row i of request g is prompt position
+    starts[g] + i (the engine samples at prompt_lens - starts - 1)."""
+    x = _embed(params, cfg, tokens)
+    paged_prefill = (block_tables, starts, prompt_lens)
+    for i, lp in enumerate(params["layers"]):
+        x, _ = _block(lp, x, cfg, cache=_layer_view(pool, i),
+                      paged_prefill=paged_prefill)
+    return _head(params, cfg, x), pool
 
 
 def paged_decode_step(params, token: torch.Tensor, pool, block_tables,

@@ -4,13 +4,18 @@ Every projection routes through ``dense()``: an ``MXWeight`` operand goes
 to the dequant x matmul kernel, an fp weight to ``torch.matmul``.  KV
 caches are quantized along the head dim per the ``kv_key``/``kv_value``
 policy roles and written, packed, in one launch of the fused KV-write
-kernel per layer; decode attention reads the quantized contiguous cache
-or pages through its kernels, and a prompt over fp k/v attends through
-the flash kernel.  Where a decode-attention kernel does not take the
-layout (the ``*_kernel_takes`` predicates: a head dim that is no
-multiple of 32, codes padded past it), attention is dense, as the
+kernel per layer (a prompt suffix over pages too).  Attention follows
+``cfg.attn_impl`` as the reference's does: at ``"flash"`` decode
+attention reads the quantized contiguous cache or pages through its
+kernels and a causal prompt over fp k/v attends through the flash
+kernel; at ``"dense"`` (the default) every attention is plain torch.
+Where a decode-attention kernel does not take the layout (the
+``*_kernel_takes`` predicates: a head dim that is no multiple of 32,
+codes padded past it), attention is dense at ``"flash"`` too, as the
 reference's dispatch goes dense there; the choice is made from the
-shapes before any launch.
+shapes before any launch.  A quantized prefill and the paged suffix
+prefill are dense at either value: prefix sharing promises identical
+tokens, and both attend the same dequantized bytes.
 
 Unlike the functional reference, cache and page-pool writes update the
 given tensors in place (the pools are the largest serving allocation;
@@ -34,8 +39,10 @@ from repro_torch.kernels.mx_decode_attn import (decode_kernel_takes,
                                                 mx_paged_decode_attention,
                                                 paged_decode_kernel_takes)
 from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
-                                             mx_paged_kv_write)
+                                             mx_paged_kv_write,
+                                             mx_paged_kv_write_tokens)
 from repro_torch.kernels.ops import mx_matmul_resident
+from repro_torch.kernels.ref import token_pages
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -184,28 +191,30 @@ def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, cache=None,
               cache_pos=0) -> Tuple[torch.Tensor, Any]:
-    """GQA self-attention over x (B, S, d), causal.  Without a cache, or
-    with an fp cache, the prompt attends its fresh k/v through the flash
-    kernel.  With a cache, k/v are first written at ``cache_pos`` (a host
-    int, or at decode a one-element int32 tensor on x's device).  Decode
-    (S == 1) attends the cache's positions <= cache_pos:
-    under an MX policy through the contiguous MX decode kernel, an fp
-    cache densely.  An MX prefill attends the *dequantized* cache view
-    densely, as the reference's quantized prefill does, so a later suffix
-    prefill over shared pages can be bit-identical to it."""
+    """GQA self-attention over x (B, S, d), causal.  With a cache, k/v
+    are first written at ``cache_pos`` (a host int, or at decode a
+    one-element int32 tensor on x's device).  Decode (S == 1) attends the
+    cache's positions <= cache_pos: at ``attn_impl="flash"`` under an MX
+    policy through the contiguous MX decode kernel, else densely.  An MX
+    prefill attends the *dequantized* cache view densely, as the
+    reference's quantized prefill does, so a later suffix prefill over
+    shared pages can be bit-identical to it.  A prompt over fresh fp k/v
+    (no cache, or an fp cache) attends through the flash kernel at
+    ``"flash"``, densely at ``"dense"``."""
     b, s, d = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     mx_kv = cfg.mx.kv_key is not None
+    flash = cfg.attn_impl == "flash"
     q = dense(x, p["wq"]).reshape(b, s, nh, hd)
     k = dense(x, p["wk"]).reshape(b, s, nkv, hd)
     v = dense(x, p["wv"]).reshape(b, s, nkv, hd)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
-    out = None
+    mask = None
     if cache is not None:
         cache = cache_write(cache, k, v, cache_pos, cfg)
-        if s == 1 and mx_kv and decode_kernel_takes(
+        if s == 1 and mx_kv and flash and decode_kernel_takes(
                 hd, cfg.mx.kv_key, cfg.mx.kv_value,
                 (cache["k_codes"].shape[-1], cache["v_codes"].shape[-1])):
             out = mx_decode_attention(
@@ -213,19 +222,23 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 cache["v_codes"], cache["v_scales"], cache_pos,
                 key_spec=cfg.mx.kv_key, value_spec=cfg.mx.kv_value,
                 rep=nh // nkv)
-        elif s == 1:
+            return dense(out.reshape(b, s, nh * hd), p["wo"]), cache
+        if s == 1:
             k, v = cache_read(cache, cfg, x.dtype, hd)
             if isinstance(cache_pos, torch.Tensor):
                 cache_pos = cache_pos.reshape(())
             mask = torch.arange(k.shape[1], device=x.device) <= cache_pos
-            out = _sdpa_gqa(q, k, v, mask)
         elif mx_kv:
             kq, vq = cache_read(cache, cfg, x.dtype, hd)
             k, v = kq[:, :s], vq[:, :s]
-            out = _sdpa_gqa(q, k, v, _causal_mask(s, s, x.device))
-    if out is None:
+            mask = _causal_mask(s, s, x.device)
+    if mask is None and flash and s > 1:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=True)
+    else:
+        if mask is None:
+            mask = _causal_mask(s, k.shape[1], x.device)
+        out = _sdpa_gqa(q, k, v, mask)
     out = dense(out.reshape(b, s, nh * hd), p["wo"])
     return out, cache
 
@@ -316,6 +329,33 @@ def paged_cache_write(pool, k: torch.Tensor, v: torch.Tensor,
     return pool
 
 
+def paged_cache_write_tokens(pool, k: torch.Tensor, v: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             starts: torch.Tensor, ends: torch.Tensor,
+                             cfg: ModelConfig):
+    """Scatter a multi-token span per row into one layer's page pool (in
+    place; the suffix prefill under prefix caching).  k/v (G, S, n_kv,
+    hd); token t of row g sits at position ``starts[g] + t`` and lands
+    through ``block_tables`` (G, P) when that position is below
+    ``ends[g]``, else on the trash page 0 at offset (starts[g] + t) %
+    page.
+    The reference's ``paged_cache_write_tokens`` is handed those pages
+    and offsets; here an MX pool's write is one launch of the fused
+    KV-write kernel, which finds them itself.  Live positions never
+    collide across rows: every page written is private to its slot
+    (shared pages were forked first)."""
+    kk, kv = cfg.mx.kv_key, cfg.mx.kv_value
+    if kk is not None:
+        return mx_paged_kv_write_tokens(
+            pool, k.contiguous(), v.contiguous(), block_tables, starts,
+            ends, kk, kv)
+    pages, offsets = token_pages(block_tables, starts, ends, k.shape[1],
+                                 paged_page_size(pool))
+    pool["k_pages"][pages, offsets] = k.to(pool["k_pages"].dtype)
+    pool["v_pages"][pages, offsets] = v.to(pool["v_pages"].dtype)
+    return pool
+
+
 def paged_cache_gather(pool, block_tables: torch.Tensor, cfg: ModelConfig,
                        dtype, hd: int):
     """Gather a slot-major contiguous (B, max_pages*page, n_kv, hd) K/V
@@ -347,9 +387,10 @@ def attention_paged_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """GQA decode over one layer's paged KV cache: x (B, 1, d); slot b's
     new token sits at position lengths[b] and attends positions <=
     lengths[b].  An MX pool is written by the fused KV-write kernel (it
-    finds each slot's page and offset itself) and read by the paged
-    attention kernel where that takes the layout; an fp pool, or a layout
-    the kernel does not take, is gathered and attended densely."""
+    finds each slot's page and offset itself) and, at
+    ``attn_impl="flash"``, read by the paged attention kernel where that
+    takes the layout; an fp pool, ``"dense"``, or a layout the kernel
+    does not take is gathered and attended densely."""
     b, s, d = x.shape                          # s == 1
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     q = dense(x, p["wq"]).reshape(b, s, nh, hd)
@@ -367,7 +408,8 @@ def attention_paged_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         pages = torch.gather(block_tables, 1,
                              (lengths // page)[:, None].to(torch.int64))[:, 0]
         pool = paged_cache_write(pool, k, v, pages, lengths % page, cfg)
-    if kk is not None and paged_decode_kernel_takes(
+    if kk is not None and cfg.attn_impl == "flash" \
+            and paged_decode_kernel_takes(
             hd, kk, kv, (pool["kc_pages"].shape[-1],
                          pool["vc_pages"].shape[-1]),
             pool["ks_pages"].shape[-1]):
@@ -382,6 +424,54 @@ def attention_paged_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             None, None, None, None, :] <= lengths[:, None, None, None, None]
         out = _sdpa_gqa(q, ka, va, mask)
     out = dense(out.reshape(b, s, nh * hd), p["wo"])
+    return out, pool
+
+
+def attention_paged_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                            *, pool, block_tables: torch.Tensor,
+                            starts: torch.Tensor, prompt_lens: torch.Tensor
+                            ) -> Tuple[torch.Tensor, Any]:
+    """GQA prefill of an uncached prompt *suffix* over one layer's paged
+    KV cache (prefix sharing): x (G, S, d) holds request g's prompt
+    tokens from position ``starts[g]``, padded past ``prompt_lens[g] -
+    starts[g]``; ``block_tables`` (G, P) are the slots' full rows, any
+    copy-on-write fork already applied.
+
+    The suffix k/v are written into the slot's private pages first (an
+    MX pool through the fused KV-write kernel's multi-token mode), then
+    every query attends the gathered *dequantized* page view: prefix
+    positions from the shared pages, suffix positions from the bytes just
+    written.  The contiguous MX prefill attends the same dequantized
+    values (``attention``), so prefix-on serving gives the tokens of
+    prefix-off.  Dense on purpose at either ``attn_impl``, as in the
+    reference: the flash kernel's online softmax is only allclose to
+    ``_sdpa_gqa``, and prefix caching promises identical tokens.
+
+    Padded positions write to the trash page and their outputs are
+    garbage the engine never reads.  Values past each row's prompt are
+    zeroed before attending: a real query weighs them exactly 0, and a
+    non-finite byte there (the trash page, or a padded neighbour's NaN)
+    cannot leak in as 0 * NaN."""
+    g, s, d = x.shape
+    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = dense(x, p["wq"]).reshape(g, s, nh, hd)
+    k = dense(x, p["wk"]).reshape(g, s, nkv, hd)
+    v = dense(x, p["wv"]).reshape(g, s, nkv, hd)
+    positions = starts[:, None] + torch.arange(s, device=x.device,
+                                               dtype=starts.dtype)[None, :]
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin, cfg.rope_frac)
+    k = apply_rope(k, cos, sin, cfg.rope_frac)
+    pool = paged_cache_write_tokens(pool, k, v, block_tables, starts,
+                                    prompt_lens, cfg)
+    ka, va = paged_cache_gather(pool, block_tables, cfg, x.dtype, hd)
+    kpos = torch.arange(ka.shape[1], device=x.device)
+    live = kpos[None, :] < prompt_lens.to(torch.int64)[:, None]
+    va = torch.where(live[:, :, None, None], va, 0)
+    mask = kpos[None, None, None, None, :] \
+        <= positions.to(torch.int64)[:, None, None, :, None]
+    out = _sdpa_gqa(q, ka, va, mask)
+    out = dense(out.reshape(g, s, nh * hd), p["wo"])
     return out, pool
 
 

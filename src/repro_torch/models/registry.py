@@ -72,6 +72,18 @@ class Model:
     def scatter_prefill(self, pool, cache, page_ids):
         return decoder.scatter_prefill(self.cfg, pool, cache, page_ids)
 
+    def paged_prefill_suffix(self, params, tokens, starts, prompt_lens,
+                             pool, block_tables):
+        """Prefill only the uncached suffix of G prompts over the paged
+        pool (prefix sharing; see decoder.paged_prefill_suffix)."""
+        return decoder.paged_prefill_suffix(
+            params, tokens, starts, prompt_lens, pool, block_tables,
+            self.cfg)
+
+    def copy_pool_pages(self, pool, src, dst):
+        """Copy page contents src[i] -> dst[i] in every pool leaf (COW)."""
+        return decoder.copy_pool_pages(pool, src, dst)
+
     def paged_decode_window_step(self, params, token, pool, block_tables,
                                  lengths, remaining, keys, **kw):
         return decoder.paged_decode_window_step(

@@ -1,22 +1,27 @@
 """Metrics registry for the serving stack (dependency-free).
 
-One :class:`MetricsRegistry` owns every counter a serving process
-maintains; the engine, scheduler and block manager register their series
-here instead of keeping ad-hoc ``self.n_*`` attributes, so
-``registry.reset()`` restarts every measurement window at once and
-``registry.snapshot()`` is the single structured view of them.
+One :class:`MetricsRegistry` owns every counter and gauge a serving
+process maintains; the engine, scheduler, block manager and prefix cache
+register their series here instead of keeping ad-hoc ``self.n_*``
+attributes, so ``registry.reset()`` restarts every measurement window
+at once and ``registry.snapshot()`` is the single structured view of
+them.
 
 The continuous engine's series: ``engine.steps``, ``engine.syncs``,
 ``engine.generated_tokens``, ``engine.prefill_batches``,
+``engine.prefill_tokens`` (prompt positions prefilled), ``engine.cow_forks``,
 ``engine.quarantined`` (requests the numeric-health guard parked) and
-``engine.phase_s`` (labeled by phase); the block manager's
-``pages.allocated`` and ``pages.released``.
+``engine.phase_s`` (labeled by phase), with the gauges
+``pages.peak_mapped`` and ``pages.peak_shared``; the block manager's
+``pages.allocated``, ``pages.shared_mapped``, ``pages.cow_forks`` and
+``pages.released``; the prefix cache's ``prefix.lookups``,
+``prefix.hits`` and ``prefix.tokens_matched``.
 
 A :class:`Counter` holds labeled series (a series is keyed by its sorted
 ``(label, value)`` pairs; the empty label set is a plain scalar) and only
 accumulates (``inc``); values may be float (phase wall-clock seconds
-accumulate here too).  Gauges and histograms come with the slices that
-need them.
+accumulate here too).  A :class:`Gauge` is a level (``set``), with
+``set_max`` for peaks.  Histograms come with the slice that needs them.
 """
 from __future__ import annotations
 
@@ -76,6 +81,25 @@ class Counter:
         return (f"<Counter {self.name!r} {len(self._series)} series>")
 
 
+class Gauge(Counter):
+    """Last-write-wins level; ``set_max`` tracks peaks."""
+
+    kind = "gauge"
+
+    def inc(self, amount: float = 1, **labels) -> None:
+        raise TypeError(f"gauge {self.name}: use set or set_max")
+
+    def set(self, value: float, **labels) -> None:
+        self._series[_label_key(labels)] = value
+
+    def set_max(self, value: float, **labels) -> None:
+        key = _label_key(labels)
+        self._series[key] = max(self._series.get(key, value), value)
+
+    def __repr__(self) -> str:
+        return f"<Gauge {self.name!r} {len(self._series)} series>"
+
+
 class MetricsRegistry:
     """Get-or-create home for every counter of one serving process:
     ``counter`` returns the existing counter when the name is already
@@ -85,11 +109,20 @@ class MetricsRegistry:
     def __init__(self):
         self._metrics: Dict[str, Counter] = {}
 
-    def counter(self, name: str, help: str = "") -> Counter:
+    def _get(self, cls, name: str, help: str):
         m = self._metrics.get(name)
         if m is None:
-            m = self._metrics[name] = Counter(name, help)
+            m = self._metrics[name] = cls(name, help)
+        if type(m) is not cls:
+            raise TypeError(f"metric {name} is a {m.kind}, not a "
+                            f"{cls.kind}")
         return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get(Gauge, name, help)
 
     def get(self, name: str) -> Optional[Counter]:
         return self._metrics.get(name)
@@ -103,7 +136,10 @@ class MetricsRegistry:
             m.reset()
 
     def snapshot(self) -> Dict[str, Dict[str, object]]:
-        """Nested plain-data view ``{"counters": {name: value-or-series}}``,
-        JSON-serializable."""
-        return {"counters": {name: self._metrics[name].snapshot()
-                             for name in sorted(self._metrics)}}
+        """Nested plain-data view ``{"counters": {name: value-or-series},
+        "gauges": {...}}``, JSON-serializable."""
+        out: Dict[str, Dict[str, object]] = {"counters": {}, "gauges": {}}
+        for name in sorted(self._metrics):
+            m = self._metrics[name]
+            out[m.kind + "s"][name] = m.snapshot()
+        return out

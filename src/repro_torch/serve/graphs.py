@@ -27,6 +27,7 @@ sampling), one per batch size and temperature.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -40,12 +41,13 @@ def kernel_wrappers() -> Tuple[Callable, ...]:
     from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
                                                     mx_paged_decode_attention)
     from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
-                                                 mx_paged_kv_write)
+                                                 mx_paged_kv_write,
+                                                 mx_paged_kv_write_tokens)
     from repro_torch.kernels.mx_matmul import mx_matmul_2d
     from repro_torch.kernels.mx_quant import mx_quantize_2d
-    return (mx_quantize_2d, mx_paged_kv_write, mx_cache_kv_write,
-            mx_matmul_2d, mx_paged_decode_attention, mx_decode_attention,
-            flash_attention)
+    return (mx_quantize_2d, mx_paged_kv_write, mx_paged_kv_write_tokens,
+            mx_cache_kv_write, mx_matmul_2d, mx_paged_decode_attention,
+            mx_decode_attention, flash_attention)
 
 
 class CapturedStep:
@@ -69,8 +71,19 @@ class CapturedStep:
         wrappers = kernel_wrappers()
         before = [w.launches for w in wrappers]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn()
+        # a captured step holds a reference cycle (its step closure and
+        # the buffers' owner), so a dropped engine's graph dies in the
+        # cyclic collector; destroying a graph while a capture is open
+        # invalidates the capture, so collect first and not during it
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                fn()
+        finally:
+            if gc_on:
+                gc.enable()
         for w, n in zip(wrappers, before):
             if w.launches != n:
                 self.launches[w] = w.launches - n

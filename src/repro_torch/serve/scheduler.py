@@ -7,11 +7,15 @@ a request is only admitted when the pool can hold its whole sequence
 (prompt + max_new_tokens), so an in-flight request can never stall on
 page exhaustion.
 
+With a :class:`~repro_torch.serve.prefix.PrefixCache` installed,
+admission maps the longest cached full-page prefix of each prompt
+read-only into the new slot and charges only the private remainder
+against the pool (:meth:`Scheduler.admit`).
+
 A request whose numeric-health guard trips is quarantined
 (:meth:`Scheduler.fail`): its slot and pages free as on eviction, and it
-is parked on ``failed`` with a diagnostic.  SLO classes, preempt-and-swap,
-retries and prefix-cache admission are left to the slices that port
-them.
+is parked on ``failed`` with a diagnostic.  SLO classes, preempt-and-swap
+and retries are left to the slices that port them.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 
 from repro_torch.models.decoder import mix32
 from repro_torch.serve.paging import BlockManager, pages_needed
+from repro_torch.serve.prefix import PrefixCache
 
 
 def request_seed(seed: int, rid: int) -> int:
@@ -52,11 +57,24 @@ class Request:
     state: RequestState = RequestState.WAITING
     slot: int = -1
     out: List[int] = dataclasses.field(default_factory=list)
+    # prefix-cache admission outcome (0 with sharing off or on a miss):
+    # tokens covered by pages mapped read-only from the prefix trie, and
+    # the copy-on-write forks the engine still owes before prefill (a
+    # fully cached prompt forks its last page to rewrite position L-1)
+    matched_tokens: int = 0
+    cow_pending: int = 0
     error: Optional[str] = None         # quarantine diagnostic (FAILED)
 
     @property
     def prompt_len(self) -> int:
         return int(self.prompt.shape[0])
+
+    @property
+    def prefill_start(self) -> int:
+        """First prompt position the engine must compute: the matched
+        prefix is skipped, but the last prompt position is always
+        recomputed — its logits seed the first generated token."""
+        return min(self.matched_tokens, self.prompt_len - 1)
 
     @property
     def total_len(self) -> int:
@@ -75,11 +93,13 @@ class Request:
 
 class Scheduler:
     """FIFO admission into ``max_slots`` decode slots backed by
-    ``blocks``."""
+    ``blocks``, sharing cached prefixes through ``prefix`` when given."""
 
-    def __init__(self, max_slots: int, blocks: BlockManager):
+    def __init__(self, max_slots: int, blocks: BlockManager,
+                 prefix: Optional[PrefixCache] = None):
         self.max_slots = max_slots
         self.blocks = blocks
+        self.prefix = prefix
         self.waiting: List[Request] = []        # arrival order
         self.running: Dict[int, Request] = {}   # slot -> request
         self.finished: List[Request] = []
@@ -107,34 +127,71 @@ class Scheduler:
         self.waiting.append(req)
 
     def _outstanding_pages(self) -> int:
-        """Pages the running set is still entitled to consume.  Admission
-        must leave these uncommitted or a running slot could stall on page
-        exhaustion mid-generation."""
+        """*Fresh* pages the running set is still entitled to consume.
+        Admission must leave these uncommitted or a running slot could
+        stall on page exhaustion mid-generation.  ``slot_pages`` includes
+        pages mapped read-only from the prefix cache, which cost the pool
+        nothing, so the difference is exactly the private growth — plus
+        any copy-on-write fork the engine still owes (a fork takes one
+        fresh page while the shared original lives on)."""
         return sum(
             pages_needed(r.total_len, self.blocks.page_size)
-            - self.blocks.slot_pages(r.slot)
+            - self.blocks.slot_pages(r.slot) + r.cow_pending
             for r in self.running.values())
 
     def admit(self) -> List[Request]:
         """Admit waiting requests in arrival order — no head-of-line
         bypass — while a slot is free and the pool can hold their full
         sequence on top of what the running set is already entitled to.
-        Each admitted slot is granted its prompt's pages."""
+
+        With a prefix cache, the longest cached full-page prefix of each
+        prompt is mapped read-only into the new slot (refcount++, no
+        fresh pages) and only the *private* remainder — uncached prompt
+        pages, decode growth, and the copy-on-write fork of a fully
+        cached prompt's last page — is charged against the free pool.
+        When pinned-but-unmapped trie pages are all that stand between a
+        request and admission, the trie reclaims them LRU-first; if the
+        request still does not fit, the tentative mapping is backed out
+        and it waits.  Each admitted slot is granted its prompt's private
+        pages."""
         admitted = []
+        ps = self.blocks.page_size
         while self.waiting and self._free_slots:
             req = self.waiting[0]
-            need = pages_needed(req.total_len, self.blocks.page_size)
-            if need > self.blocks.free_pages - self._outstanding_pages():
-                break
-            slot = self._free_slots.pop()
-            ok = self.blocks.allocate(
-                slot, pages_needed(req.prompt_len, self.blocks.page_size))
-            assert ok
+            pages: List[int] = []
+            matched = 0
+            if self.prefix is not None:
+                pages, matched = self.prefix.lookup(req.prompt)
+            cow = 1 if matched and matched >= req.prompt_len else 0
+            need_private = pages_needed(req.total_len, ps) - len(pages) \
+                + cow
+            # map the match before any reclaim: table refs keep the
+            # matched chain from being recycled by its own unpinning
+            slot = self._free_slots[-1]
+            if pages:
+                ok = self.blocks.map_shared(slot, pages)
+                assert ok, "submit() bounded the row; a full-page match " \
+                    "of the prompt always fits it"
+            avail = self.blocks.free_pages - self._outstanding_pages()
+            if need_private > avail and self.prefix is not None:
+                avail += self.prefix.reclaim(need_private - avail)
+            if need_private > avail:
+                self.blocks.release(slot)   # undo the tentative mapping
+                break                       # FIFO: wait
+            self._free_slots.pop()
+            priv = pages_needed(req.prompt_len, ps) - len(pages)
+            if priv > 0:
+                ok = self.blocks.allocate(slot, priv)
+                assert ok
             req.slot = slot
+            req.matched_tokens = matched
+            req.cow_pending = cow
             req.state = RequestState.RUNNING
             self.running[slot] = req
             self.waiting.pop(0)
             admitted.append(req)
+            if self.prefix is not None:
+                self.prefix.record(matched)
         return admitted
 
     # ------------------------------------------------- decode-window planning

@@ -19,7 +19,8 @@ from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
                                                 mx_paged_decode_attention)
 from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
-                                             mx_paged_kv_write)
+                                             mx_paged_kv_write,
+                                             mx_paged_kv_write_tokens)
 from repro_torch.kernels.mx_matmul import mx_matmul_2d
 from repro_torch.kernels.mx_quant import mx_quantize_2d, vectorized
 
@@ -201,6 +202,76 @@ def test_paged_kv_write_rejects_rows_past_their_table(dev, case):
                                                        lengths=lengths)],
         env=env, capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, (case, run.stdout, run.stderr[-2000:])
+
+
+_BAD_TOKENS_SCRIPT = """
+import sys, torch
+from repro_torch.core.spec import QuantSpec
+from repro_torch.kernels.mx_kv_write import mx_paged_kv_write_tokens
+kk = QuantSpec.parse("int8@32:ocp")
+pool = {n: torch.zeros(4, 8, 2, w, dtype=torch.uint8, device="cuda")
+        for n, w in (("kc_pages", 64), ("ks_pages", 2), ("vc_pages", 64),
+                     ("vs_pages", 2))}
+k = torch.ones(2, 4, 2, 64, device="cuda")
+bt = torch.tensor([[1, 2], [3, 1]], dtype=torch.int32, device="cuda")
+starts = torch.tensor([14, 0], dtype=torch.int32, device="cuda")
+ends = torch.tensor([18, 4], dtype=torch.int32, device="cuda")
+try:   # row 0's live position 16 lies past its 2-page table
+    mx_paged_kv_write_tokens(pool, k, k, bt, starts, ends, kk, kk)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("kv", ["int8@32:ocp/e2m1@32:ocp",
+                                "e3m2@32:paper/e3m2@32:paper",
+                                "e4m3@32:paper/e2m3@32:ocp+unpacked"])
+def test_paged_kv_write_tokens_matches_plain_and_traps(dev, kv):
+    """The multi-token paged write (the suffix prefill's): 8 rows of 64
+    tokens from starts off page boundaries, tails of bucket padding on
+    the trash page, bf16 (D 128, pages of 16) and f32 (D 48, pages of 8);
+    every page but the trash page bit for bit against the plain version.
+    A live position past its table traps (in a child process: a trap
+    leaves the CUDA context unusable), as the plain version raises."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    kk, vv = (QuantSpec.parse(x) for x in kv.split("/"))
+    rng = np.random.default_rng(16)
+    g, s = 8, 64
+    for page, hd, dt in ((16, 128, torch.bfloat16), (8, 48, torch.float32)):
+        npg = -(-(3 * s) // page)
+        dpool, cpool = _pool_pair(rng, kk, vv, 1 + g * npg, page, 2, hd,
+                                  dev)
+        bt = (1 + torch.randperm(g * npg, generator=torch.Generator()
+                                 .manual_seed(page))).reshape(g, npg) \
+            .to(torch.int32)
+        starts = torch.from_numpy(rng.integers(
+            0, 2 * s, size=g).astype(np.int32))
+        starts[0] = page - 3                      # off a page boundary
+        ends = starts + torch.from_numpy(rng.integers(
+            1, s + 1, size=g).astype(np.int32))
+        ends[1] = starts[1] + s                   # one row without padding
+        kd, kc, vd, vc = _kv_pair(rng, (g, s, 2, hd), dt, dev,
+                                  special="paper" in kv)
+        before = mx_paged_kv_write_tokens.launches
+        mx_paged_kv_write_tokens(dpool, kd, vd, bt.to(dev), starts.to(dev),
+                                 ends.to(dev), kk, vv)
+        assert mx_paged_kv_write_tokens.launches == before + 1
+        mx_paged_kv_write_tokens(cpool, kc, vc, bt, starts, ends, kk, vv)
+        torch.cuda.synchronize()
+        for n in cpool:
+            assert torch.equal(dpool[n].cpu()[1:], cpool[n][1:]), \
+                (kv, page, hd, n)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    run = subprocess.run([sys.executable, "-c", _BAD_TOKENS_SCRIPT],
+                         env=dict(os.environ, PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, (run.stdout, run.stderr[-2000:])
 
 
 @pytest.mark.parametrize("kv", ["int8@32:ocp/e2m1@32:ocp",
@@ -801,11 +872,12 @@ def test_capture_failure_raises(dev):
 
 
 def _full_width_2_layers(dev, policy=POLICY):
-    """Full-width chatglm3-6b cut to 2 layers, MX weights, on the card."""
+    """Full-width chatglm3-6b cut to 2 layers, MX weights, on the card,
+    attention through the kernels (``attn_impl="flash"``)."""
     from repro_torch.launch.serve import build_model
     return build_model("chatglm3_6b", reduced=False, quant=policy,
                        weight_resident=True, device=str(dev), seed=0,
-                       n_layers=2)
+                       n_layers=2, attn_impl="flash")
 
 
 def _prompts(vocab, n, lo, hi, seed=0):

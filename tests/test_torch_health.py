@@ -132,7 +132,8 @@ def test_decode_window_quarantine_scrubs_pages():
     scan flags it as well), its pages are zeroed before they can recycle,
     and its neighbour keeps the tokens it gets alone."""
     policy = "weights=e4m3@32:ocp,kv_key=int8@32:ocp,kv_value=e2m1@32:ocp"
-    cfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy))
+    cfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy),
+                         attn_impl="flash")
     tm = TModel(cfg, device="cpu")
     tp = tm.init(seed=0, quantize=True)
     rng = np.random.default_rng(1)

@@ -4,8 +4,11 @@ CPU tensors) against the JAX package's cache writes: bit for bit.
 ``mx_paged_kv_write`` finds each slot's page and offset from
 ``block_tables`` and ``lengths`` itself; the reference's
 ``paged_cache_write`` is handed them, computed as its
-``attention_paged_decode`` does.  ``mx_cache_kv_write`` against
-``cache_write``.  Identical k/v in must give identical pool and cache
+``attention_paged_decode`` does.  Likewise ``mx_paged_kv_write_tokens``
+(a span of tokens per row from ``starts``, live below ``ends``, bucket
+padding on the trash page) against ``paged_cache_write_tokens``, handed
+the pages and offsets its ``attention_paged_prefill`` computes.
+``mx_cache_kv_write`` against ``cache_write``.  Identical k/v in must give identical pool and cache
 bytes out: codes, packed codes, padding codes and E8M0 scales, the
 trash page's collided writes included.  The one known difference (C4 in
 ROADMAP.md): a NaN or Inf in a padded last block in paper mode gives the
@@ -22,7 +25,8 @@ from repro.models import load_reduced as j_load_reduced
 from repro.models.config import QuantPolicy as JPolicy
 from repro_torch.core.spec import QuantPolicy as TPolicy
 from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
-                                             mx_paged_kv_write)
+                                             mx_paged_kv_write,
+                                             mx_paged_kv_write_tokens)
 from repro_torch.models import layers as TL
 from repro_torch.models import load_reduced as t_load_reduced
 
@@ -95,6 +99,85 @@ def test_paged_kv_write_bit_identical(policy, hd, dtype):
     for name, a in jout.items():
         np.testing.assert_array_equal(tpool[name].numpy(), np.asarray(a),
                                       err_msg=name)
+
+
+# rows of a multi-token write (pages of 8, tables of 4 pages, S 6): a span
+# from a page's middle across a boundary, a span ending in bucket padding
+# (positions 14.. go to the trash page at offsets 6, 7, 0, 1), a span
+# that starts and ends mid-page, and a row of padding only
+TOKEN_ROWS = {"block_tables": [[1, 2, 3, 0], [4, 5, 0, 0], [6, 7, 8, 9],
+                               [10, 0, 0, 0]],
+              "starts": [5, 12, 17, 3], "ends": [11, 14, 23, 3]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 48])
+@pytest.mark.parametrize("policy", [POLICIES[0], POLICIES[1]])
+def test_paged_kv_write_tokens_bit_identical(policy, hd, dtype):
+    """INT8 keys with packed E2M1 values, and packed E3M2 (paper mode)
+    both ways: every page but the trash page bit for bit, and the trash
+    page at the offsets exactly one padded token writes (where tokens
+    collide there, either may win, in the reference as in the port)."""
+    jcfg, tcfg = _cfgs(policy, hd)
+    pool = _pool(jcfg)
+    bt = np.array(TOKEN_ROWS["block_tables"], np.int32)
+    starts = np.array(TOKEN_ROWS["starts"], np.int32)
+    ends = np.array(TOKEN_ROWS["ends"], np.int32)
+    s = 6
+    rng = np.random.default_rng(hd + 1)
+    (jk, tk), (jv, tv) = _kv(rng, (4, s, N_KV, hd), dtype,
+                             special="paper" in policy)
+    # the reference's attention_paged_prefill page math
+    pos = starts[:, None] + np.arange(s)[None, :]
+    live = pos < ends[:, None]
+    pages = np.where(live, np.take_along_axis(
+        bt, np.clip(pos // PAGE, 0, bt.shape[1] - 1), 1), 0)
+    assert (pages[~live] == 0).all() and (~live).any()
+    jout = jax.jit(lambda *a: JL.paged_cache_write_tokens(*a, jcfg))(
+        {n: jnp.asarray(a) for n, a in pool.items()}, jk, jv,
+        jnp.asarray(pages), jnp.asarray(pos % PAGE))
+    tpool = {n: torch.from_numpy(a.copy()) for n, a in pool.items()}
+    mx_paged_kv_write_tokens(tpool, tk, tv, torch.from_numpy(bt),
+                             torch.from_numpy(starts), torch.from_numpy(ends),
+                             tcfg.mx.kv_key, tcfg.mx.kv_value)
+    offs, counts = np.unique((pos % PAGE)[~live], return_counts=True)
+    once = offs[counts == 1]
+    assert once.size and (counts > 1).any()
+    for name, a in jout.items():
+        want, got = np.asarray(a), tpool[name].numpy()
+        np.testing.assert_array_equal(got[1:], want[1:], err_msg=name)
+        np.testing.assert_array_equal(got[0, once], want[0, once],
+                                      err_msg=name)
+    # nothing but the live positions and the trash page changed
+    touched = np.zeros(pool["kc_pages"].shape[:2], bool)
+    touched[pages, pos % PAGE] = True
+    for name, a in pool.items():
+        np.testing.assert_array_equal(tpool[name].numpy()[~touched],
+                                      a[~touched], err_msg=name)
+
+
+def test_paged_kv_write_tokens_rejects_rows_it_cannot_place():
+    """A live position past its table, or a table entry below 0, raises
+    (the kernel traps on both: tests/test_torch_cuda.py::
+    test_paged_kv_write_tokens_matches_plain_and_traps); positions past
+    ``ends`` never read the table."""
+    jcfg, tcfg = _cfgs(POLICIES[0], 32)
+    pool = {n: torch.from_numpy(a) for n, a in _pool(jcfg).items()}
+    k = torch.ones(2, 4, N_KV, 32)
+    kk, vv = tcfg.mx.kv_key, tcfg.mx.kv_value
+    bt = torch.tensor([[1, 2], [3, -1]], dtype=torch.int32)
+
+    def write(starts, ends):
+        return mx_paged_kv_write_tokens(
+            pool, k, k, bt, torch.tensor(starts, dtype=torch.int32),
+            torch.tensor(ends, dtype=torch.int32), kk, vv)
+
+    write([12, 0], [16, 4])                        # padding: never looked up
+    write([0, 4], [4, 6])                          # page -1 lies past ends
+    with pytest.raises(IndexError):
+        write([14, 0], [18, 4])                    # position 16: no entry
+    with pytest.raises(IndexError):
+        write([0, 6], [4, 10])                     # page -1 is live
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

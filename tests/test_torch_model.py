@@ -46,12 +46,14 @@ def einsum_matmul(monkeypatch):
 def _pair(policy=POLICY, attn_impl="dense", **overrides):
     """Reference config + params and their port twins (built once per
     policy; the tests only read them).  ``attn_impl="flash"`` sends the
-    reference through its Pallas attention kernels (interpret mode);
-    ``overrides`` (e.g. ``head_dim``) apply to both configs."""
+    reference through its Pallas attention kernels (interpret mode) and
+    the port through its kernels' wrappers (their plain versions on the
+    CPU); ``attn_impl`` and ``overrides`` (e.g. ``head_dim``) apply to
+    both configs."""
     jcfg = j_load_reduced("chatglm3_6b", mx=JPolicy.parse(policy),
                           attn_impl=attn_impl, **overrides)
     tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy),
-                          **overrides)
+                          attn_impl=attn_impl, **overrides)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     if jcfg.mx.weights is not None:
@@ -146,7 +148,10 @@ def test_paged_cache_write_bit_identical(policy):
 
 
 def test_attention_paged_decode_matches(einsum_matmul):
-    jcfg, tcfg, jp, tp = _pair()
+    """One layer's paged decode attention over an MX pool at
+    ``attn_impl="flash"``: the port's paged decode kernel (its plain
+    version here) against the reference's Pallas kernel."""
+    jcfg, tcfg, jp, tp = _pair(POLICY, "flash")
     pool = _random_pool(jcfg)
     bt, lengths = _tables()
     x = np.random.default_rng(4).normal(size=(SLOTS, 1, 128)).astype(
@@ -208,7 +213,9 @@ def test_fp_kv_paged_decode_matches(einsum_matmul):
 
 
 def test_paged_decode_step_logits_match(einsum_matmul):
-    jcfg, tcfg, jp, tp = _pair()
+    """A paged decode step over an MX pool at ``attn_impl="flash"`` (the
+    paged decode kernel on both sides)."""
+    jcfg, tcfg, jp, tp = _pair(POLICY, "flash")
     pool = _random_pool(jcfg)
     bt, lengths = _tables()
     tok = np.array([5, 77, 300, 0], np.int32)
@@ -225,7 +232,10 @@ def test_paged_decode_step_logits_match(einsum_matmul):
 
 
 def test_prefill_logits_match(einsum_matmul):
-    jcfg, tcfg, jp, tp = _pair()
+    """Prefill into an MX cache at ``attn_impl="flash"`` (the serving
+    setting; a quantized prefill attends its dequantized cache densely on
+    both sides)."""
+    jcfg, tcfg, jp, tp = _pair(POLICY, "flash")
     tokens = np.random.default_rng(5).integers(0, 512, size=(2, 16))
     tokens = tokens.astype(np.int32)
     jlog, jcache, _ = jdec.prefill(jp, jnp.asarray(tokens), jcfg, max_len=16)
@@ -443,3 +453,101 @@ def test_flash_predicate():
         == [32, 32, 32, 32, 64, 64, 64, 128, 128, 128]
     with pytest.raises(ValueError, match="past the largest"):
         kernel_head_dim(136)
+
+
+# =============================================================================
+# attn_impl, and the paged suffix prefill of prefix caching
+# =============================================================================
+@pytest.mark.parametrize("attn_impl", ["dense", "flash"])
+def test_attn_impl_routes_match_reference(einsum_matmul, attn_impl):
+    """Both values of ``attn_impl`` on the port match the reference at the
+    same value: the causal forward and a prefill over an fp cache (flash
+    kernel or dense), two decode steps over a contiguous MX cache (MX
+    decode kernel or dense) and a paged decode step over an MX pool
+    (paged kernel or dense).  Logits within 1e-4, this file's tolerance
+    for prefill and decode logits."""
+    jcfg, tcfg, jp, tp = _pair("weights=e4m3@32:ocp", attn_impl)
+    tokens = np.random.default_rng(12).integers(0, 512, size=(2, 20))
+    tokens = tokens.astype(np.int32)
+    jlog, _, _ = jax.jit(lambda p, t: jdec.prefill(p, t, jcfg,
+                                                   max_len=24))(
+        jp, jnp.asarray(tokens))
+    tlog, _, _ = tdec.prefill(tp, torch.from_numpy(tokens), tcfg,
+                              max_len=24)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(
+        tdec.forward(tp, torch.from_numpy(tokens), tcfg).numpy(),
+        np.asarray(jlog), atol=1e-4, rtol=0)
+    jcfg, tcfg, jp, tp = _pair(POLICY, attn_impl)
+    cache = _random_cache(jcfg)
+    jcache = {"layers": {n: jnp.asarray(a) for n, a in cache.items()}}
+    tcache = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
+    steps = np.random.default_rng(13).integers(0, 512, size=(2, 2))
+    steps = steps.astype(np.int32)
+    jstep = jax.jit(lambda *a: jdec.decode_step(*a, jcfg))
+    for pos in (12, 13):
+        jlog, jcache = jstep(jp, jnp.asarray(steps[:, pos - 12]), jcache,
+                             jnp.asarray(pos, jnp.int32))
+        tlog, tcache = tdec.decode_step(
+            tp, torch.from_numpy(steps[:, pos - 12]), tcache, pos, tcfg)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   atol=1e-4, rtol=0)
+    pool = _random_pool(jcfg)
+    bt, lengths = _tables()
+    tok = np.array([5, 77, 300, 0], np.int32)
+    jlog, _ = jax.jit(lambda *a: jdec.paged_decode_step(*a, jcfg))(
+        jp, jnp.asarray(tok), {"layers": {n: jnp.asarray(a)
+                                          for n, a in pool.items()}},
+        jnp.asarray(bt), jnp.asarray(lengths))
+    tlog, _ = tdec.paged_decode_step(
+        tp, torch.from_numpy(tok),
+        {n: torch.from_numpy(a.copy()) for n, a in pool.items()},
+        torch.from_numpy(bt), torch.from_numpy(lengths), tcfg)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("policy", [POLICY, "weights=e4m3@32:ocp"])
+def test_paged_prefill_suffix_logits_match(einsum_matmul, policy):
+    """The suffix prefill over a pool whose prefix pages are filled (MX
+    pages by the reference's converter, or fp pages): logits of every
+    live row within 1e-4 of the reference's ``paged_prefill_suffix`` (the
+    prefill-logits tolerance of this file); rows past a prompt are
+    padding the engine never reads (their keys differ: the port zeroes
+    values past the prompt).  Then the pages (the trash page left out):
+    an MX pool's bytes identical, an fp pool within 1e-5."""
+    jcfg, tcfg, jp, tp = _pair(policy)
+    if jcfg.mx.kv_key is not None:
+        pool = _random_pool(jcfg)
+    else:
+        rng = np.random.default_rng(14)
+        pool = {n: rng.normal(size=(jcfg.n_layers, NUM_PAGES, PAGE, 2, 32))
+                .astype(np.float32) for n in ("k_pages", "v_pages")}
+    # slot 0: 9 cached positions, suffix 9..19; slot 1: 16 cached, 16..21;
+    # slot 2: 3 cached, 3..6 — bucket S 11
+    bt = np.array([[1, 2, 3], [4, 5, 6], [7, 8, 0]], np.int32)
+    starts = np.array([9, 16, 3], np.int32)
+    lens = np.array([20, 22, 7], np.int32)
+    s = 11
+    tokens = np.random.default_rng(15).integers(0, 512, size=(3, s))
+    tokens = tokens.astype(np.int32)
+    jlog, jpool = jax.jit(lambda *a: jdec.paged_prefill_suffix(*a, jcfg))(
+        jp, jnp.asarray(tokens), jnp.asarray(starts), jnp.asarray(lens),
+        {"layers": {n: jnp.asarray(a) for n, a in pool.items()}},
+        jnp.asarray(bt))
+    tpool = {n: torch.from_numpy(a.copy()) for n, a in pool.items()}
+    tlog, _ = tdec.paged_prefill_suffix(
+        tp, torch.from_numpy(tokens), torch.from_numpy(starts),
+        torch.from_numpy(lens), tpool, torch.from_numpy(bt), tcfg)
+    jlog = np.asarray(jlog)
+    for g in range(3):
+        n = lens[g] - starts[g]
+        np.testing.assert_allclose(tlog.numpy()[g, :n], jlog[g, :n],
+                                   atol=1e-4, rtol=0)
+    for n, a in jpool["layers"].items():
+        want, got = np.asarray(a)[:, 1:], tpool[n].numpy()[:, 1:]
+        if jcfg.mx.kv_key is None:
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=n)

@@ -84,7 +84,8 @@ def test_frequencies_follow_softmax(temperature):
 
 
 def _model():
-    cfg = load_reduced("chatglm3_6b", mx=QuantPolicy.parse(POLICY))
+    cfg = load_reduced("chatglm3_6b", mx=QuantPolicy.parse(POLICY),
+                       attn_impl="flash")
     model = Model(cfg, device="cpu")
     return model, model.init(seed=0, quantize=True)
 

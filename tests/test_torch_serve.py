@@ -2,7 +2,10 @@
 
 Setup of tests/test_serve_continuous.py: mixed prompt lengths, more
 requests than slots (admission, eviction and slot reuse on the path),
-greedy decoding.  The reference's weights are carried across byte for
+greedy decoding.  Both engines run at ``attn_impl="flash"``, the serving
+setting: decode through the paged MX decode kernel (the reference's
+Pallas kernel in interpret mode, the port's plain version on the CPU).
+The reference's weights are carried across byte for
 byte (``from_numpy``), and its weight-resident matmul runs the
 dequant-einsum path (``REPRO_MX_MATMUL_IMPL=einsum``, bit-identical to its
 fused kernel at these widths).  Tokens must be identical; a flip would
@@ -50,10 +53,12 @@ def _serve(engine, prompts):
 
 
 def _port(policy):
-    jcfg = j_load_reduced("chatglm3_6b", mx=JPolicy.parse(policy))
+    jcfg = j_load_reduced("chatglm3_6b", mx=JPolicy.parse(policy),
+                          attn_impl="flash")
     jm = JModel(jcfg)
     jp = jax.jit(jm.quantize_weights)(jm.init(jax.random.PRNGKey(0)))
-    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy))
+    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy),
+                          attn_impl="flash")
     tm = TModel(tcfg, device="cpu")
     return jm, jp, tm, from_numpy(params_to_numpy(jp), tcfg, "cpu")
 
@@ -78,7 +83,8 @@ def test_engine_tokens_match_jax(monkeypatch, name):
 
 def test_sync_every_gives_identical_tokens():
     policy = POLICIES["e4m3-weights/mixed-kv"]
-    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy))
+    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy),
+                          attn_impl="flash")
     tm = TModel(tcfg, device="cpu")
     tp = tm.init(seed=0, quantize=True)
     prompts = _prompts(512, seed=1)

@@ -51,7 +51,8 @@ def test_static_engine_tokens_match_jax(monkeypatch, name):
                           attn_impl="flash")
     jm = JModel(jcfg)
     jp = jax.jit(jm.quantize_weights)(jm.init(jax.random.PRNGKey(0)))
-    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy))
+    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(policy),
+                          attn_impl="flash")
     tm = TModel(tcfg, device="cpu")
     tp = from_numpy(params_to_numpy(jp), tcfg, "cpu")
     tokens = np.random.default_rng(0).integers(0, tcfg.vocab, size=(B, S))
@@ -79,8 +80,10 @@ def test_static_engine_tokens_match_jax(monkeypatch, name):
 
 def test_continuous_matches_static_solo():
     """Every request served through the continuous engine gets the tokens
-    the static engine gives it served alone."""
-    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(MIXED))
+    the static engine gives it served alone (both at ``attn_impl="flash"``:
+    paged and contiguous MX decode kernels, their plain versions here)."""
+    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(MIXED),
+                          attn_impl="flash")
     tm = TModel(tcfg, device="cpu")
     tp = tm.init(seed=0, quantize=True)
     rng = np.random.default_rng(0)
@@ -103,8 +106,11 @@ def test_continuous_matches_static_solo():
 def test_decode_step_device_pos_matches_host_int(name):
     """The static decode step at a position held in a one-element int32
     tensor (what the captured step advances on the device) gives the
-    host int's logits and cache bytes bit for bit, step after step."""
-    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(POLICIES[name]))
+    host int's logits and cache bytes bit for bit, step after step (at
+    ``attn_impl="flash"``, so the contiguous MX decode kernel's wrapper
+    takes the device position)."""
+    tcfg = t_load_reduced("chatglm3_6b", mx=TPolicy.parse(POLICIES[name]),
+                          attn_impl="flash")
     tm = TModel(tcfg, device="cpu")
     tp = tm.init(seed=0, quantize=True)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
