@@ -43,7 +43,13 @@ failure (the script then exits non-zero and prints no result line):
    through the multi-token KV write, a copy-on-write fork, a prompt
    extending a finished conversation), and once more with the cache on
    over half the pool (admission reclaims trie pages and backs a
-   tentative mapping out; the same tokens); then serve a static
+   tentative mapping out; the same tokens); serve SLO classes (the
+   ``slo`` phase): batch-class requests preempted by interactive ones
+   over half the default pool, their packed pages swapped to pinned host
+   memory and restored byte-equal with the tokens of the full pool
+   (greedy and T 0.8), a snapshot restored mid-stream, and
+   ``AsyncServer`` reject / block / block + preempt under on/off
+   arrivals (TTFT per class, SLO attainment, swap GB/s); then serve a static
    batch through ``ServeEngine`` on the same weights (its decode step
    captured on a first call, replayed on the second), once with the MX
    KV cache (contiguous MX decode attention, pos on the device) and once
@@ -1224,6 +1230,7 @@ def serve_full_width(torch):
         check_graph_window(torch, model, params, short, temperature)
     check_quarantine(torch, model, params, short[:2])
     tokens_launches = serve_prefix(torch, model, params)
+    serve_slo(torch, model, params)
     static = serve_static(torch, model, params)
     del params, model
     torch.cuda.empty_cache()
@@ -1555,6 +1562,299 @@ def serve_prefix(torch, model, params):
     del eng
     torch.cuda.empty_cache()
     return tokens_launches
+
+
+# the slo phase's two-class mix: (priority, prompt lengths, new tokens)
+SLO_BATCH = (1, (384, 513), 128)
+SLO_INTERACTIVE = (0, (64, 257), 32)
+SLO_DEADLINE_S = 0.5   # the interactive class's TTFT target
+SLO_MAX_LEN = SLO_BATCH[1][1] - 1 + SLO_BATCH[2]
+SLO_REQUEST_PAGES = -(-SLO_MAX_LEN // 16)   # a slot's pages of 16
+
+
+def _slo_prompts(vocab, cls, n, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = cls[1]
+    return [rng.integers(1, vocab, size=int(m)).astype(np.int32)
+            for m in rng.integers(lo, hi, size=n)]
+
+
+def _slo_engine(torch, model, params, num_pages, temperature, saved):
+    """The slo phase's engine (8 slots, pages of 16, bucket 64, preempt on):
+    ``saved`` (a dict) makes it keep a clone of each swap-out's host copy
+    and hold every restored slot's pages, just after the restore, byte
+    for byte against it."""
+    from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
+
+    class Checked(ContinuousBatchingEngine):
+        def _swap_out(self, req):
+            super()._swap_out(req)
+            saved[req.rid] = {k: v.clone() for k, v in
+                              self.swap_store._entries[req.rid].pages.items()}
+
+        def _restore_swapped(self, reqs):
+            super()._restore_swapped(reqs)
+            for r in reqs:
+                ids = torch.tensor(self.blocks.slot_page_ids(r.slot),
+                                   device=self.device)
+                host = saved.pop(r.rid)
+                for k, leaf in self.pool.items():
+                    if not torch.equal(leaf.index_select(1, ids).cpu(),
+                                       host[k]):
+                        raise AssertionError(
+                            f"request {r.rid}: restored {k} pages differ "
+                            f"from the copy taken at swap-out")
+                saved["checked"] = saved.get("checked", 0) + 1
+
+    cls = Checked if saved is not None else ContinuousBatchingEngine
+    return cls(model, params, max_slots=8, page_size=16,
+               max_len=SLO_MAX_LEN, num_pages=num_pages, sync_every=8,
+               prefill_bucket=64,
+               preempt=True,
+               gen=GenerationConfig(temperature=temperature, seed=9))
+
+
+def _slo_script(eng, batch, interactive):
+    """Batch-class requests decode until each admitted one has 16 tokens;
+    then the interactive ones arrive.  Returns {rid: tokens}."""
+    pb, _, nb = SLO_BATCH
+    pi, _, ni = SLO_INTERACTIVE
+    rids = [eng.add_request(p, nb, priority=pb) for p in batch]
+    reqs = [r for r in eng.scheduler.waiting if r.rid in rids]
+    eng.step()
+    while min(len(r.out) for r in reqs if r.t_admitted is not None) < 16:
+        eng.step()
+    rids += [eng.add_request(p, ni, priority=pi, deadline_s=SLO_DEADLINE_S)
+             for p in interactive]
+    out = eng.run()
+    return {r: out[r].tolist() for r in rids}
+
+
+def _swap_row(eng):
+    sw = eng.swap_store
+    moved = sw.bytes_out + sw.bytes_in
+    swap_s = eng.phase["swap"]
+    return dict(preemptions=eng.n_preemptions, restores=eng.n_restores,
+                swap_bytes_out=sw.bytes_out, swap_bytes_in=sw.bytes_in,
+                swap_mb=moved / 1e6, swap_s=swap_s,
+                swap_gb_per_s=moved / swap_s / 1e9 if swap_s else None,
+                swap_bytes_per_preemption=(sw.bytes_out / eng.n_preemptions
+                                           if eng.n_preemptions else None),
+                peak_resident_bytes=sw.peak_resident_bytes)
+
+
+def _slo_launches_ok(path, eng, launches):
+    """The path's kernels launched as its steps and prefill batches imply
+    (restores prefill nothing), and no healthy request quarantined."""
+    n_l = eng.model.cfg.n_layers
+    steps, batches = eng.n_steps, eng.n_prefill_batches
+    _check_launches(path, launches, {
+        "mx_matmul_2d": 7 * n_l * (steps + batches),
+        "mx_kv_write": n_l * (steps + batches),
+        "mx_paged_decode_attention": n_l * steps})
+    if eng.n_quarantined:
+        raise AssertionError(f"{path}: a healthy request was quarantined")
+
+
+def _class_latency(fin):
+    from repro_torch.serve import latency_summary
+    out = {}
+    for name, prio in (("interactive", SLO_INTERACTIVE[0]),
+                       ("batch", SLO_BATCH[0])):
+        summ = latency_summary([r for r in fin if r.priority == prio])
+        out[name] = {k: summ.get(k) for k in (
+            "n_requests", "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+            "itl_p99_ms", "slo_attainment")}
+    return out
+
+
+def serve_slo(torch, model, params):
+    """SLO-class serving at full width (the model of phase 3, MX weights,
+    INT8 / E2M1 KV pages of 16, 8 slots, bucket 64, sync_every 8):
+
+    (a) 5 batch-class requests (priority 1, prompts of 384-512 tokens,
+        128 new) decode; 3 interactive ones (priority 0, prompts of
+        64-256, 32 new, TTFT target 0.5 s) arrive mid-generation.  Over
+        half the engine's default pool a batch request must be swapped
+        out (its packed pages to pinned host memory) and restored; over
+        the full pool none is.  Greedy and at T 0.8, each run a main path
+        of its own: the tokens must be identical per rid, preemptions >= 1
+        with as many restores, bytes in = bytes out, the swap store empty
+        at the end, and every restored slot's pages byte-equal to the copy
+        taken at swap-out.
+    (b) Snapshot at T 0.8, graphs on: capture mid-stream, run to the end,
+        restore, run again: the same tokens.
+    (c) ``AsyncServer`` (steps in an executor thread) under two on/off
+        streams of the two-class mix (``_slo_arrivals``) over three batch
+        requests' worth of pages: ``reject``, ``block`` and ``block`` +
+        preempt.  Reports served and rejected counts, TTFT p50/p99 per
+        class, SLO attainment, preemptions, swap MB, swap-phase seconds
+        and the GB/s they imply.
+    """
+    vocab = model.cfg.vocab
+    batch = _slo_prompts(vocab, SLO_BATCH, 5, 21)
+    interactive = _slo_prompts(vocab, SLO_INTERACTIVE, 3, 22)
+    full = 1 + 8 * SLO_REQUEST_PAGES    # the engine's default pool
+    half = (full + 1) // 2
+
+    for temperature in (0.0, 0.8):
+        runs = {}
+        for pages in (half, full):
+            saved = {}
+            eng = _slo_engine(torch, model, params, pages, temperature,
+                              saved)
+            toks, launches, wall = _drive(
+                torch, lambda: _slo_script(eng, batch, interactive))
+            path = f"slo script, T {temperature}, {pages} pages"
+            _slo_launches_ok(path, eng, launches)
+            sw = eng.swap_store
+            if pages == half and (
+                    eng.n_preemptions < 1
+                    or eng.n_restores != eng.n_preemptions
+                    or saved.get("checked", 0) != eng.n_restores):
+                raise AssertionError(f"{path}: {eng.n_preemptions} "
+                                     f"preemptions, {eng.n_restores} "
+                                     f"restores, {saved.get('checked', 0)} "
+                                     f"restores checked")
+            if pages == full and eng.n_preemptions:
+                raise AssertionError(f"{path}: preempted over the full "
+                                     f"pool")
+            if sw.bytes_in != sw.bytes_out or len(sw):
+                raise AssertionError(f"{path}: swap bytes in "
+                                     f"{sw.bytes_in} / out {sw.bytes_out}, "
+                                     f"{len(sw)} left in the store")
+            ph = eng.phase
+            emit("slo_script", temperature=temperature, num_pages=pages,
+                 requests=len(toks), wall_s=wall, prefill_s=ph["prefill"],
+                 decode_s=ph["decode"], host_sync_s=ph["sync"],
+                 decode_steps=eng.n_steps,
+                 prefill_batches=eng.n_prefill_batches,
+                 restores_byte_checked=saved.get("checked", 0),
+                 latency=_class_latency(eng.finished_in_window),
+                 launches=launches, **_swap_row(eng))
+            runs[pages] = toks
+            del eng
+        if runs[half] != runs[full]:
+            bad = [r for r in runs[full] if runs[half][r] != runs[full][r]]
+            raise AssertionError(f"slo script at T {temperature}: the "
+                                 f"tight pool changed the tokens of "
+                                 f"requests {bad}")
+        emit("slo_check", temperature=temperature, identical=True,
+             requests=len(runs[full]))
+        torch.cuda.empty_cache()
+    check_snapshot(torch, model, params, batch, interactive, half)
+    # three batch requests' worth of pages: the batch burst fills the pool
+    serve_async(torch, model, params, 1 + 3 * SLO_REQUEST_PAGES)
+
+
+def check_snapshot(torch, model, params, batch, interactive, num_pages):
+    """Capture mid-stream (a batch request swapped out, graphs on, T 0.8),
+    run to the end, restore, run again: the same tokens."""
+    from repro_torch.serve import capture, restore
+    eng = _slo_engine(torch, model, params, num_pages, 0.8, None)
+    pb, _, nb = SLO_BATCH
+    pi, _, ni = SLO_INTERACTIVE
+    for p in batch:
+        eng.add_request(p, nb, priority=pb)
+    for _ in range(3):
+        eng.step()
+    for p in interactive:
+        eng.add_request(p, ni, priority=pi)
+    eng.step()
+    swapped = len(eng.swap_store)
+    t0 = time.perf_counter()
+    snap = capture(eng)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    want = {r: v.tolist() for r, v in eng.run().items()}
+    t0 = time.perf_counter()
+    restore(eng, snap)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = {r: v.tolist() for r, v in eng.run().items()}
+    if got != want or not swapped:
+        raise AssertionError(f"snapshot restore: {swapped} swapped out at "
+                             f"capture; tokens identical {got == want}")
+    emit("slo_snapshot", temperature=0.8, requests=len(got),
+         swapped_at_capture=swapped, identical=True,
+         snapshot_mb=snap.nbytes / 1e6, capture_s=capture_s,
+         restore_s=restore_s)
+    del eng, snap
+    torch.cuda.empty_cache()
+
+
+SLO_ARRIVAL = ("batch onoff:32:0.25:2.0 x6, interactive onoff:16:0.5:1.0 "
+               "x16 from 0.5 s")
+
+
+def _slo_arrivals(vocab):
+    """The two-class mix as two on/off streams: a burst of 6 batch-class
+    requests (32/s for 0.25 s), and from 0.5 s on 16 interactive ones in
+    bursts of 0.5 s at 16/s, 1 s apart — bursts that land on a pool the
+    batch requests fill."""
+    from repro_torch.serve import TrafficClass, on_off_times, synthesize
+    batch = synthesize(
+        on_off_times(32.0, 6, on_s=0.25, off_s=2.0, seed=3),
+        [TrafficClass("batch", SLO_BATCH[1], (SLO_BATCH[2], SLO_BATCH[2] + 1),
+                      priority=SLO_BATCH[0])], vocab, seed=3)
+    interactive = synthesize(
+        [0.5 + t for t in on_off_times(16.0, 16, on_s=0.5, off_s=1.0,
+                                       seed=4)],
+        [TrafficClass("interactive", SLO_INTERACTIVE[1],
+                      (SLO_INTERACTIVE[2], SLO_INTERACTIVE[2] + 1),
+                      priority=SLO_INTERACTIVE[0],
+                      deadline_s=SLO_DEADLINE_S)], vocab, seed=4)
+    return sorted(batch + interactive, key=lambda a: a.t)
+
+
+def serve_async(torch, model, params, num_pages):
+    """``AsyncServer`` under on/off arrivals of the two-class mix, over
+    ``num_pages`` pages: reject-on-full, block, and block + preempt,
+    each a main path of its own.  Block must serve every arrival; every
+    run must serve at least one."""
+    import asyncio
+    from repro_torch.serve import (AsyncServer, ContinuousBatchingEngine,
+                                   latency_summary, replay)
+    arrivals = _slo_arrivals(model.cfg.vocab)
+    for admission, preempt in (("reject", False), ("block", False),
+                               ("block", True)):
+        eng = ContinuousBatchingEngine(
+            model, params, max_slots=8, page_size=16, max_len=SLO_MAX_LEN,
+            num_pages=num_pages, sync_every=8, prefill_bucket=64,
+            preempt=preempt)
+
+        async def run():
+            async with AsyncServer(eng, admission=admission,
+                                   use_executor=True) as srv:
+                return await replay(srv, arrivals, speedup=1.0)
+
+        (streams, rejected), launches, wall = _drive(
+            torch, lambda: asyncio.run(run()))
+        path = f"async {admission}{' + preempt' if preempt else ''}"
+        _slo_launches_ok(path, eng, launches)
+        fin = eng.finished_in_window
+        if len(fin) + len(rejected) != len(arrivals) or not fin \
+                or (admission == "block" and rejected):
+            raise AssertionError(f"{path}: {len(fin)} served, "
+                                 f"{len(rejected)} rejected of "
+                                 f"{len(arrivals)}")
+        for r in fin:
+            if len(r.out) != r.max_new_tokens or min(r.out) < 0 \
+                    or max(r.out) >= model.cfg.vocab:
+                raise AssertionError(f"{path}: bad output for request "
+                                     f"{r.rid}")
+        ph = eng.phase
+        emit("slo_async", admission=admission, preempt=preempt,
+             arrival=SLO_ARRIVAL, arrivals=len(arrivals),
+             num_pages=num_pages, served=len(fin), rejected=len(rejected),
+             wall_s=wall, prefill_s=ph["prefill"], decode_s=ph["decode"],
+             host_sync_s=ph["sync"], decode_steps=eng.n_steps,
+             all_classes=latency_summary(fin),
+             latency=_class_latency(fin), launches=launches,
+             **_swap_row(eng))
+        del eng
+        torch.cuda.empty_cache()
 
 
 def _static_eager(torch, model, params, tokens, new, max_len):

@@ -26,10 +26,28 @@ prefill attend by different routes, and the engine refuses it.
 Weights are random, made on the device from seed 0; with
 ``--weight-resident`` each layer is quantized to MX storage as soon as
 it is made.
+
+Requests that arrive over time serve through the asyncio front end
+(``serve.frontend.AsyncServer``): ``--arrival poisson:R`` (R req/s),
+``onoff:R:ON:OFF`` (bursts of R req/s for ON seconds, then OFF seconds
+of silence) or ``trace:PATH`` (a JSONL trace).  ``--slo S`` makes about
+two thirds of the synthetic requests an interactive class (priority 0,
+TTFT deadline S seconds) and the rest a batch class (priority 1, up to
+twice the new tokens); ``--preempt`` swaps a batch request's packed KV
+pages to host memory when an interactive one cannot be admitted, and
+``--admission reject`` drops what cannot start at once instead of
+queueing it.  It prints TTFT and ITL p50/p99, SLO attainment, the phase
+wall times and the preemption / swap traffic:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
+        --reduced --device cpu --paged --preempt \
+        --arrival onoff:60:0.15:2.0 --slo 0.35 --requests 8 \
+        --quant kv_key=int8@32:ocp,kv_value=e2m1@32:ocp
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import time
 from typing import List, Tuple
 
@@ -38,8 +56,10 @@ import numpy as np
 from repro_torch.core.spec import QuantPolicy
 from repro_torch.models import Model, load_config, load_reduced
 from repro_torch.obs.metrics import rate
-from repro_torch.serve import (ContinuousBatchingEngine, GenerationConfig,
-                               ServeEngine)
+from repro_torch.serve import (AsyncServer, ContinuousBatchingEngine,
+                               GenerationConfig, ServeEngine, TrafficClass,
+                               latency_summary, load_trace, on_off_times,
+                               poisson_times, replay, synthesize)
 
 
 def build_model(arch: str, *, reduced: bool, quant: str,
@@ -71,6 +91,33 @@ def make_prompts(n: int, prompt_len: int, mixed: bool, vocab: int,
     shared = rng.integers(0, vocab, size=shared_prefix).astype(np.int32)
     return [np.concatenate([shared, rng.integers(0, vocab, size=int(m))
                             .astype(np.int32)]) for m in lens]
+
+
+def parse_arrival(spec: str):
+    """Parse an ``--arrival`` spec into ``(kind, params)``:
+
+    ``batch``                       — every request queued at once
+    ``poisson:<rate>``              — Poisson arrivals at <rate> req/s
+    ``onoff:<rate>:<on_s>:<off_s>`` — bursty on/off modulated Poisson
+    ``trace:<path>``                — replay a JSONL trace
+    """
+    parts = spec.split(":")
+    kind = parts[0]
+    try:
+        if kind == "batch" and len(parts) == 1:
+            return "batch", ()
+        if kind == "poisson" and len(parts) == 2:
+            return "poisson", (float(parts[1]),)
+        if kind == "onoff" and len(parts) == 4:
+            return "onoff", (float(parts[1]), float(parts[2]),
+                             float(parts[3]))
+        if kind == "trace" and len(parts) >= 2:
+            return "trace", (spec.split(":", 1)[1],)
+    except ValueError:
+        pass
+    raise ValueError(
+        f"bad --arrival {spec!r}: expected batch, poisson:<rate>, "
+        f"onoff:<rate>:<on_s>:<off_s>, or trace:<path>")
 
 
 def main(argv=None) -> None:
@@ -119,7 +166,55 @@ def main(argv=None) -> None:
                          "(non-finite logits, MX poison markers)")
     ap.add_argument("--device", default="cuda",
                     help="cpu computes every kernel's plain version")
+    ap.add_argument("--preempt", action="store_true",
+                    help="paged mode: preempt-and-swap — under pool "
+                         "pressure a lower-priority request's packed KV "
+                         "pages swap to host memory and come back "
+                         "token-identically on re-admission")
+    ap.add_argument("--arrival", default="batch",
+                    help="paged mode request arrivals: 'batch' (queue "
+                         "everything), 'poisson:<rate>' req/s, "
+                         "'onoff:<rate>:<on_s>:<off_s>' bursty, or "
+                         "'trace:<path>' JSONL replay; other than batch "
+                         "serves through the asyncio front end")
+    ap.add_argument("--slo", type=float, default=0.0,
+                    help="async mode: make ~2/3 of the synthetic requests "
+                         "an interactive class (priority 0) with this TTFT "
+                         "deadline in seconds, the rest a batch class "
+                         "(priority 1, no deadline); 0 = one class")
+    ap.add_argument("--admission", choices=["block", "reject"],
+                    default="block",
+                    help="async mode: 'block' queues submissions, "
+                         "'reject' drops requests that cannot start at "
+                         "once")
+    ap.add_argument("--speedup", type=float, default=0.0,
+                    help="async mode: divide arrival times by this (0 = "
+                         "submit as fast as the loop allows)")
+    ap.add_argument("--retry", type=int, default=0,
+                    help="async mode: per-request retry budget for "
+                         "quarantined requests (jittered exponential "
+                         "backoff)")
+    ap.add_argument("--retry-backoff", type=float, default=0.05,
+                    help="async mode: base retry backoff in seconds")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="async mode: take an engine snapshot every N "
+                         "steps (0 = never)")
     args = ap.parse_args(argv)
+    try:
+        arrival = parse_arrival(args.arrival)
+    except ValueError as e:
+        ap.error(str(e))
+    if arrival[0] != "batch" and not args.paged:
+        ap.error("--arrival needs --paged (the async front end drives the "
+                 "continuous-batching engine)")
+    if args.preempt and not args.paged:
+        ap.error("--preempt needs --paged (it swaps pages)")
+    if arrival[0] == "batch" and (args.retry or args.snapshot_every
+                                  or args.slo or args.speedup
+                                  or args.admission != "block"):
+        ap.error("--slo/--admission/--speedup/--retry/--snapshot-every "
+                 "need a non-batch --arrival (they are front-end "
+                 "policies)")
     if args.no_health_checks and not args.paged:
         ap.error("--no-health-checks needs --paged (the guards live in "
                  "the paged engine)")
@@ -137,6 +232,9 @@ def main(argv=None) -> None:
     if not args.paged:
         _serve_static(args, model, params)
         return
+    if arrival[0] != "batch":
+        _serve_async(args, model, params, *arrival)
+        return
     prompts = make_prompts(args.requests or 2 * args.batch, args.prompt_len,
                            args.mixed, cfg.vocab, args.shared_prefix)
     max_len = max(len(p) for p in prompts) + args.new_tokens + 1
@@ -145,7 +243,7 @@ def main(argv=None) -> None:
         max_len=max_len, sync_every=args.sync_every,
         prefill_bucket=args.prefill_bucket or None,
         gen=GenerationConfig(temperature=args.temperature, seed=args.seed),
-        prefix_cache=args.prefix_cache,
+        prefix_cache=args.prefix_cache, preempt=args.preempt,
         health_checks=not args.no_health_checks)
     t0 = time.perf_counter()
     for p in prompts:
@@ -161,8 +259,9 @@ def main(argv=None) -> None:
           f"{' (MX-resident)' if args.weight_resident else ' (fp)'}, "
           f"kv pages {eng.kv_pool_nbytes / 2**20:.1f} MiB")
     print(f"[serve] phase wall: prefill {ph['prefill']:.2f}s, decode "
-          f"{ph['decode']:.2f}s, host-sync {ph['sync']:.2f}s; "
-          f"{eng.prefill_tokens_computed} prefill tokens computed")
+          f"{ph['decode']:.2f}s, host-sync {ph['sync']:.2f}s, swap "
+          f"{ph['swap']:.2f}s; {eng.prefill_tokens_computed} prefill "
+          f"tokens computed")
     if args.prefix_cache:
         px = eng.prefix
         print(f"[serve] prefix cache: hit rate {eng.prefix_hit_rate:.2f} "
@@ -174,6 +273,94 @@ def main(argv=None) -> None:
     first = min(out)
     print(f"[serve] sample tokens (request {first}): "
           f"{out[first][:16].tolist()}")
+
+
+def _serve_async(args, model: Model, params, kind: str, aparams) -> None:
+    """Serve a synthetic (or replayed) arrival process through
+    ``AsyncServer`` and report tail latency, SLO attainment and the
+    preemption / swap accounting."""
+    cfg = model.cfg
+    if kind == "trace":
+        arrivals = load_trace(aparams[0])
+    else:
+        n_req = args.requests or 2 * args.batch
+        if kind == "poisson":
+            times = poisson_times(aparams[0], n_req, seed=0)
+        else:
+            rate_, on_s, off_s = aparams
+            times = on_off_times(rate_, n_req, on_s=on_s, off_s=off_s,
+                                 seed=0)
+        lo = max(1, args.prompt_len // 4) if args.mixed else args.prompt_len
+        hi = max(lo + 1, 2 * args.prompt_len) if args.mixed \
+            else args.prompt_len + 1
+        new = args.new_tokens
+        if args.slo > 0:
+            classes = [
+                TrafficClass("interactive", (lo, hi), (new, new + 1),
+                             priority=0, deadline_s=args.slo, weight=2.0),
+                TrafficClass("batch", (lo, hi), (new, 2 * new + 1),
+                             priority=1, weight=1.0)]
+        else:
+            classes = [TrafficClass("default", (lo, hi), (new, new + 1))]
+        arrivals = synthesize(times, classes, cfg.vocab, seed=0)
+    max_len = max(a.prompt.shape[0] + a.max_new_tokens for a in arrivals) + 1
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=args.batch, page_size=args.page_size,
+        max_len=max_len, sync_every=args.sync_every,
+        prefill_bucket=args.prefill_bucket or None,
+        gen=GenerationConfig(temperature=args.temperature, seed=args.seed),
+        prefix_cache=args.prefix_cache, preempt=args.preempt,
+        health_checks=not args.no_health_checks)
+    speedup = args.speedup if args.speedup > 0 else float("inf")
+    servers = []
+
+    async def run():
+        async with AsyncServer(
+                eng, admission=args.admission, retries=args.retry,
+                retry_backoff_s=args.retry_backoff,
+                snapshot_every=args.snapshot_every or None) as srv:
+            servers.append(srv)
+            return await replay(srv, arrivals, speedup=speedup)
+
+    t0 = time.perf_counter()
+    _, rejected = asyncio.run(run())
+    dt = time.perf_counter() - t0
+    fin = eng.finished_in_window
+    summ = latency_summary(fin)
+    toks = sum(len(r.out) for r in fin)
+    print(f"[serve] {cfg.name} async quant={cfg.mx} arrival={args.arrival} "
+          f"admission={args.admission} "
+          f"preempt={'on' if args.preempt else 'off'}: {len(fin)} served / "
+          f"{len(rejected)} rejected of {len(arrivals)} arrivals, {toks} "
+          f"tokens in {dt:.2f}s — {rate(toks, dt):.1f} tok/s")
+    if "ttft_p50_ms" in summ:
+        print(f"[serve] TTFT p50 {summ['ttft_p50_ms']:.1f} ms / "
+              f"p99 {summ['ttft_p99_ms']:.1f} ms"
+              + (f", ITL p50 {summ['itl_p50_ms']:.2f} ms / "
+                 f"p99 {summ['itl_p99_ms']:.2f} ms"
+                 if "itl_p50_ms" in summ else ""))
+    if "slo_attainment" in summ:
+        print(f"[serve] SLO attainment (TTFT <= {args.slo:.3g}s): "
+              f"{summ['slo_attainment']:.1%}")
+    ph = eng.phase
+    print(f"[serve] phase wall: prefill {ph['prefill']:.2f}s, decode "
+          f"{ph['decode']:.2f}s, host-sync {ph['sync']:.2f}s, swap "
+          f"{ph['swap']:.2f}s")
+    if args.preempt:
+        sw = eng.swap_store
+        print(f"[serve] preempt-and-swap: {eng.n_preemptions} preemptions, "
+              f"{eng.n_restores} restores, swap traffic "
+              f"{sw.bytes_out / 1024:.1f} KiB out / "
+              f"{sw.bytes_in / 1024:.1f} KiB in (MX-packed), peak "
+              f"resident {sw.peak_resident_bytes / 1024:.1f} KiB")
+    if args.retry or eng.n_quarantined:
+        srv = servers[0]
+        print(f"[serve] quarantined {eng.n_quarantined}, retries "
+              f"{srv.n_retried}, permanent failures {srv.n_failed}")
+    if fin:
+        first = min(fin, key=lambda r: r.rid)
+        print(f"[serve] sample tokens (request {first.rid}): "
+              f"{first.out[:16]}")
 
 
 def _serve_static(args, model: Model, params) -> None:

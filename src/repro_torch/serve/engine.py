@@ -27,8 +27,15 @@ cached pages read-only, forks a shared page it must write
 (copy-on-write) and prefills only its uncached suffix through the paged
 pool (``decoder.paged_prefill_suffix``); the tokens are those of
 ``prefix_cache=False`` (MX pools, or fp pools at ``attn_impl="dense"``;
-an fp pool at ``"flash"`` is refused).  Left to later work:
-preempt/swap, fault injection, retries, tracing.
+an fp pool at ``"flash"`` is refused).  Requests carry an SLO class
+(``priority``, ``deadline_s``) and are admitted in (priority, deadline,
+arrival) order; with ``preempt`` a more urgent request that cannot be
+admitted swaps a less urgent one out: its packed pages go to pinned host
+memory (``serve.swap``) and come back page for page on re-admission,
+written into the pool the captured graph reads, with its sampling key,
+so its tokens are those of a run without the preemption.
+``serve.snapshot`` checkpoints and rewinds the whole engine.  Left to
+later work: fault injection and tracing.
 """
 from __future__ import annotations
 
@@ -46,9 +53,14 @@ from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve.faults import scrub_pool_pages
 from repro_torch.serve.graphs import PagedDecodeGraph, StaticDecodeGraph
-from repro_torch.serve.paging import TRASH_PAGE, BlockManager, pages_needed
+from repro_torch.serve.paging import (TRASH_PAGE, BlockManager,
+                                      PageGrantError, pages_needed)
 from repro_torch.serve.prefix import PrefixCache
-from repro_torch.serve.scheduler import Request, Scheduler, request_seed
+from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
+                                         request_seed)
+from repro_torch.serve.swap import (HostSwapStore, SwapData,
+                                    concat_snapshots, gather_pages,
+                                    scatter_pages, sync, to_host)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +68,13 @@ class GenerationConfig:
     max_new_tokens: int = 32
     temperature: float = 0.0        # 0 => greedy
     seed: int = 0
+
+
+def _series(attr: str) -> property:
+    """An int view of the registry series ``self.<attr>``; the setter
+    exists for snapshot restore, which rewinds the counters."""
+    return property(lambda self: int(getattr(self, attr).value()),
+                    lambda self, v: getattr(self, attr).set(int(v)))
 
 
 def _stream_keys(seed: int, ids, device) -> torch.Tensor:
@@ -171,16 +190,24 @@ class ContinuousBatchingEngine:
                          freed, and it is parked in ``scheduler.failed``
                          with a diagnostic; healthy slots stream on
                          token-identically.
+    ``preempt``        — preempt-and-swap: when the waiting head cannot be
+                         admitted and a strictly lower-priority request
+                         runs, the victim's KV pages (MX codes still
+                         packed) go to the host swap store, its slot is
+                         freed, and on re-admission the pages and its
+                         sampling key come back, so its tokens are those
+                         of a run without the preemption.
     """
 
-    _PHASES = ("prefill", "decode", "sync")
+    _PHASES = ("prefill", "decode", "sync", "swap")
 
     def __init__(self, model: Model, params, *, max_slots: int = 8,
                  page_size: int = 16, max_len: int = 256,
                  num_pages: Optional[int] = None,
                  gen: GenerationConfig = GenerationConfig(),
                  sync_every: int = 8, prefill_bucket: Optional[int] = None,
-                 prefix_cache: bool = False, health_checks: bool = True):
+                 prefix_cache: bool = False, preempt: bool = False,
+                 health_checks: bool = True):
         if not model.supports_paged():
             raise NotImplementedError(
                 f"{model.cfg.name}: continuous batching needs a GQA decoder")
@@ -215,7 +242,9 @@ class ContinuousBatchingEngine:
         self.prefix = PrefixCache(self.blocks, metrics=self.metrics) \
             if prefix_cache else None
         self.scheduler = Scheduler(max_slots, self.blocks,
-                                   prefix=self.prefix)
+                                   prefix=self.prefix, metrics=self.metrics)
+        self.preempt = bool(preempt)
+        self.swap_store = HostSwapStore(metrics=self.metrics)
         self.pool = model.init_paged_cache(num_pages, page_size)
         self.vocab = model.cfg.vocab
         self._next_rid = 0
@@ -223,7 +252,11 @@ class ContinuousBatchingEngine:
         self._lengths = np.zeros(max_slots, np.int32)
         self._remaining = np.zeros(max_slots, np.int32)
         self._bt_version = -1
-        self._step_progress = False     # a quarantine counts as progress
+        self._step_progress = False     # quarantine/swap counts as progress
+        self.quarantined_in_step: List[Request] = []
+        # requests finished before this index of scheduler.finished predate
+        # the last reset_metrics and are left out of finished_in_window
+        self._metrics_start = 0
         # the decode window's buffers and its captured step (on the card:
         # one CUDA graph, captured here on all-idle slots)
         self.window = PagedDecodeGraph(
@@ -250,6 +283,10 @@ class ContinuousBatchingEngine:
             "engine.cow_forks", "copy-on-write page forks")
         self._c_quar = m.counter(
             "engine.quarantined", "requests parked by the health guard")
+        self._c_preempt = m.counter(
+            "engine.preemptions", "requests swapped out to host")
+        self._c_restores = m.counter(
+            "engine.restores", "swapped requests restored to a slot")
         self._g_peak_mapped = m.gauge(
             "pages.peak_mapped", "peak distinct pages in slot tables")
         self._g_peak_shared = m.gauge(
@@ -258,55 +295,34 @@ class ContinuousBatchingEngine:
             "engine.phase_s", "wall seconds by engine phase")
         for k in self._PHASES:
             self._c_phase.inc(0.0, phase=k)
+        self._h_window = m.histogram(
+            "engine.window_steps", "decode steps per sync window")
 
     # ------------------------------------------------------------ counters
-    @property
-    def n_steps(self) -> int:
-        return int(self._c_steps.value())
-
-    @property
-    def n_syncs(self) -> int:
-        return int(self._c_syncs.value())
-
-    @property
-    def n_generated(self) -> int:
-        return int(self._c_generated.value())
-
-    @property
-    def n_prefill_batches(self) -> int:
-        return int(self._c_prefill_batches.value())
-
-    @property
-    def n_hit_batches(self) -> int:
-        return int(self._c_hit_batches.value())
-
-    @property
-    def n_quarantined(self) -> int:
-        return int(self._c_quar.value())
-
-    @property
-    def prefill_tokens_computed(self) -> int:
-        """Prompt positions prefilled (unpadded): a hit counts only its
-        suffix."""
-        return int(self._c_prefill_tokens.value())
-
-    @property
-    def n_cow_forks(self) -> int:
-        return int(self._c_cow.value())
-
-    @property
-    def peak_mapped_pages(self) -> int:
-        return int(self._g_peak_mapped.value())
-
-    @property
-    def peak_shared_pages(self) -> int:
-        return int(self._g_peak_shared.value())
+    n_steps = _series("_c_steps")
+    n_syncs = _series("_c_syncs")
+    n_generated = _series("_c_generated")
+    n_prefill_batches = _series("_c_prefill_batches")
+    n_hit_batches = _series("_c_hit_batches")
+    n_quarantined = _series("_c_quar")
+    # prompt positions prefilled (unpadded): a hit counts only its suffix
+    prefill_tokens_computed = _series("_c_prefill_tokens")
+    n_cow_forks = _series("_c_cow")
+    n_preemptions = _series("_c_preempt")
+    n_restores = _series("_c_restores")
+    peak_mapped_pages = _series("_g_peak_mapped")
+    peak_shared_pages = _series("_g_peak_shared")
 
     @property
     def phase(self) -> Dict[str, float]:
         """Per-phase wall clock (seconds; each phase ends in a host sync)."""
         return {k: float(self._c_phase.value(phase=k))
                 for k in self._PHASES}
+
+    @phase.setter
+    def phase(self, d: Dict[str, float]) -> None:
+        for k in self._PHASES:
+            self._c_phase.set(float(d.get(k, 0.0)), phase=k)
 
     def _phase_add(self, k: str, dt: float) -> None:
         self._c_phase.inc(max(0.0, dt), phase=k)
@@ -344,27 +360,86 @@ class ContinuousBatchingEngine:
         self._g_peak_mapped.set_max(self.blocks.mapped_pages)
         self._g_peak_shared.set_max(self.blocks.shared_pages)
 
+    @property
+    def finished_in_window(self) -> List[Request]:
+        """Requests finished since the last ``reset_metrics``: the
+        population latency summaries draw from, so a warm-up request's
+        samples cannot leak into a measurement window."""
+        return self.scheduler.finished[self._metrics_start:]
+
+    def reset_metrics(self) -> None:
+        """Start a measurement window: zero every series of the shared
+        registry (engine, scheduler, block manager, prefix cache, swap
+        store) and the latency window.  The trie, the pool, the swap
+        store's residents and the captured graph stay as they are."""
+        self.metrics.reset()
+        self._metrics_start = len(self.scheduler.finished)
+        self.swap_store.reset_counters()
+
     # ------------------------------------------------------------ requests
-    def add_request(self, prompt, max_new_tokens: int) -> int:
-        """Queue a prompt; returns the request id.  Raises ValueError when
-        the sequence can never fit a slot or the pool."""
+    def add_request(self, prompt, max_new_tokens: int, *,
+                    priority: int = 0, deadline_s: Optional[float] = None,
+                    arrival_t: Optional[float] = None) -> int:
+        """Queue a prompt; returns the request id.  Admission happens in a
+        later ``step()``, in (priority, deadline, arrival) order:
+        ``priority`` 0 is the most urgent class, ``deadline_s`` an
+        optional TTFT target (EDF order within the class, and SLO
+        attainment).  ``arrival_t`` (a ``time.perf_counter`` stamp)
+        defaults to now; the async front end passes the submission's
+        stamp so queueing counts against TTFT.  Raises ValueError when the
+        sequence can never fit a slot or the pool."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1 (prefill always "
                              "emits the first generated token)")
         req = Request(rid=self._next_rid, prompt=prompt,
-                      max_new_tokens=max_new_tokens)
+                      max_new_tokens=max_new_tokens, priority=priority,
+                      deadline_s=deadline_s,
+                      arrival_t=(time.perf_counter() if arrival_t is None
+                                 else arrival_t))
         self.scheduler.submit(req)
         self._next_rid += 1
         return req.rid
 
+    def retry_request(self, req: Request) -> None:
+        """Re-queue a quarantined request for another attempt (the engine
+        half of the front end's retry budget).  It keeps its rid, so its
+        sampling stream restarts and a healthy replay is token-identical
+        at any temperature."""
+        self.scheduler.requeue(req)
+
+    def resubmit(self, req: Request) -> None:
+        """Re-enter a request the engine no longer tracks (one submitted
+        after a snapshot that was restored): reset its generation state
+        and queue it as if new, keeping its rid."""
+        req.state = RequestState.WAITING
+        req.slot = -1
+        req.out = []
+        req.t_tokens = []
+        req.t_finished = None
+        req.error = None
+        req.matched_tokens = 0
+        req.cow_pending = 0
+        req.swap_pages = 0
+        self.scheduler.submit(req)
+
     def step(self) -> List[Tuple[int, int]]:
-        """One host sync cycle: admit what fits (bucket-batched prefill),
-        run one decode window of up to ``sync_every`` device steps; returns
-        the (request id, token) pairs emitted, in step order.  A slot whose
-        health guard trips is quarantined instead of emitting."""
+        """One host sync cycle: swap victims out (with ``preempt``), admit
+        what fits (restores, then bucket-batched prefill), run one decode
+        window of up to ``sync_every`` device steps; returns the (request
+        id, token) pairs emitted, in step order.  A slot whose health
+        guard trips is quarantined instead of emitting
+        (``quarantined_in_step`` lists this cycle's); a failed page grant
+        swaps the starved slot out, to resume later."""
         emitted: List[Tuple[int, int]] = []
+        self.quarantined_in_step = []
         self._step_progress = False
+        if self.preempt:
+            # one victim at a time until the waiting head fits or no
+            # strictly lower-priority runner remains; admit() below
+            # grants the freed slot and pages
+            while (victim := self.scheduler.pick_victim()) is not None:
+                self._swap_out(victim)
         t0 = time.perf_counter()
         admitted = self.scheduler.admit()
         self._phase_add("sync", time.perf_counter() - t0)
@@ -374,7 +449,16 @@ class ContinuousBatchingEngine:
         if not self.scheduler.running:
             self._phase_add("sync", time.perf_counter() - t0)
             return emitted
-        window = self.scheduler.plan_window(self._lengths, self.sync_every)
+        try:
+            window = self.scheduler.plan_window(self._lengths,
+                                                self.sync_every)
+        except PageGrantError as e:
+            # a grant failed although admission reserved the pages (an
+            # allocator fault): swap the starved slot out instead of
+            # failing the window; it resumes at its original rank
+            self._swap_out(self.scheduler.running[e.slot])
+            self._phase_add("sync", time.perf_counter() - t0)
+            return emitted
         self._note_page_stats()             # post-grant working set
         snapshot = sorted(self.scheduler.running.items())
         rem0 = {slot: req.remaining for slot, req in snapshot}
@@ -400,6 +484,7 @@ class ContinuousBatchingEngine:
             poison = np.zeros(slots, bool)
         self._c_steps.inc(window)
         self._c_syncs.inc()
+        self._h_window.observe(window)
         for t in range(window):
             for slot, req in snapshot:
                 if badl[slot] or poison[slot]:
@@ -407,6 +492,9 @@ class ContinuousBatchingEngine:
                 if t < rem0[slot]:
                     tok = int(toks[t, slot])
                     req.out.append(tok)
+                    # a window's tokens become visible together, at its
+                    # one host transfer
+                    req.t_tokens.append(t2)
                     emitted.append((req.rid, tok))
                     self._c_generated.inc()
         for slot, req in snapshot:
@@ -496,7 +584,16 @@ class ContinuousBatchingEngine:
         pages scatter in one pass.  Prefix-cache hits take the suffix
         path: the copy-on-write forks they owe run first (one batched
         page copy), then each bucket of same-padded *suffix* lengths
-        prefills only its uncached positions through the paged pool."""
+        prefills only its uncached positions through the paged pool.
+        Restored requests (preempted earlier) take no prefill: their pages
+        come back from the swap store."""
+        restored = [r for r in admitted if r.rid in self.swap_store]
+        if restored:
+            self._restore_swapped(restored)
+            rids = {r.rid for r in restored}
+            admitted = [r for r in admitted if r.rid not in rids]
+        if not admitted:
+            return
         t0 = time.perf_counter()
         cold = [r for r in admitted if r.matched_tokens == 0]
         hits = [r for r in admitted if r.matched_tokens > 0]
@@ -589,6 +686,12 @@ class ContinuousBatchingEngine:
     def _finish_prefill(self, reqs: List[Request], first: np.ndarray,
                         bad: np.ndarray,
                         emitted: List[Tuple[int, int]]) -> None:
+        """Admission epilogue (the keys are installed): emit each request's
+        first token, stamped now (after its host transfer: TTFT), account
+        its prefilled positions and grant the first decode write's page;
+        a flagged request is quarantined instead, and a failed grant swaps
+        the request out to resume later."""
+        now = time.perf_counter()
         for i, r in enumerate(reqs):
             self._c_prefill_tokens.inc(r.prompt_len - r.prefill_start)
             if bad.size and bad[i]:
@@ -608,15 +711,17 @@ class ContinuousBatchingEngine:
                 self.prefix.insert(
                     r.prompt, self.blocks.slot_page_ids(slot)[:n_full])
             r.out.append(tok)
+            r.t_tokens.append(now)
             self._c_generated.inc()
             emitted.append((r.rid, tok))
             if r.done:
                 self._release(r)
-            else:
+            elif not self.blocks.ensure(slot, r.prompt_len + 1):
                 # the first decode write may sit in a page past the
-                # prompt's allocation; admission reserved it
-                granted = self.blocks.ensure(slot, r.prompt_len + 1)
-                assert granted, "admission reserved the first decode page"
+                # prompt's allocation; admission reserved it, so only an
+                # allocator fault fails the grant: park the request in the
+                # swap store to resume later
+                self._swap_out(r)
 
     def _quarantine(self, req: Request, diag: str) -> None:
         """Park a guard-flagged request: free its slot and pages, record
@@ -634,7 +739,9 @@ class ContinuousBatchingEngine:
         # its other owners, whose own health scans judge it
         dead = [pg for pg in ids if self.blocks.page_refcount(pg) == 0]
         scrub_pool_pages(self.pool, dead)
+        req.t_finished = time.perf_counter()
         self._c_quar.inc()
+        self.quarantined_in_step.append(req)
         self._step_progress = True
         self._cur_tok[slot] = 0
         self._lengths[slot] = 0
@@ -652,6 +759,66 @@ class ContinuousBatchingEngine:
             n_full = len(seq) // self.page_size
             self.prefix.insert(seq, self.blocks.slot_page_ids(slot)[:n_full])
         self.scheduler.evict(req)
+        req.t_finished = time.perf_counter()
         self._cur_tok[slot] = 0
         self._lengths[slot] = 0
         self._remaining[slot] = 0
+
+    # ---------------------------------------------------- preempt-and-swap
+    def _swap_out(self, req: Request) -> None:
+        """Copy ``req``'s KV pages (MX codes still packed) and its sampling
+        key to the host swap store, one synchronize for the lot, and free
+        its slot: the device half of ``Scheduler.preempt``.  The key and
+        the request's own token history make the later restore
+        token-identical."""
+        t0 = time.perf_counter()
+        slot = req.slot
+        ids = self.blocks.slot_page_ids(slot)
+        key = to_host(self.window.keys[slot])
+        pages, nbytes = gather_pages(self.pool, ids)   # synchronizes
+        self.swap_store.put(req.rid, SwapData(
+            pages=pages, n_pages=len(ids), length=int(self._lengths[slot]),
+            key=key, nbytes=nbytes))
+        req.swap_pages = len(ids)
+        self.scheduler.preempt(req)
+        self._c_preempt.inc()
+        self._step_progress = True
+        self._cur_tok[slot] = 0
+        self._lengths[slot] = 0
+        self._remaining[slot] = 0
+        self._phase_add("swap", time.perf_counter() - t0)
+
+    def _restore_swapped(self, reqs: List[Request]) -> None:
+        """Re-admission of preempted requests: write their saved pages into
+        the freshly allocated private pages (one scatter per pool leaf for
+        all restores of this cycle, in place: the captured graph reads
+        these leaves) and rebuild each slot's state — current token, cache
+        length, budget and sampling key as saved.  No prefill runs and no
+        token is emitted (the first token streamed before the
+        preemption)."""
+        t0 = time.perf_counter()
+        ids: List[int] = []
+        datas = []
+        for r in reqs:
+            data = self.swap_store.pop(r.rid)
+            slot_ids = self.blocks.slot_page_ids(r.slot)
+            assert len(slot_ids) == data.n_pages, \
+                "restore admission allocated the swapped page count"
+            ids.extend(slot_ids)
+            datas.append(data)
+        scatter_pages(self.pool, ids,
+                      concat_snapshots([d.pages for d in datas]))
+        slots = torch.tensor([r.slot for r in reqs], device=self.device)
+        self.window.keys.index_copy_(0, slots, torch.stack(
+            [d.key for d in datas]).to(self.device, non_blocking=True))
+        for r, data in zip(reqs, datas):
+            # out[-1] is the last sampled token, not yet fed back; the
+            # cache holds prompt + out[:-1] = data.length positions
+            self._cur_tok[r.slot] = r.out[-1]
+            self._lengths[r.slot] = data.length
+            self._remaining[r.slot] = r.max_new_tokens - len(r.out)
+            r.swap_pages = 0
+            self._c_restores.inc()
+        self._note_page_stats()
+        sync(self.device)               # the swap phase ends on the host
+        self._phase_add("swap", time.perf_counter() - t0)

@@ -19,8 +19,10 @@ block-table entries mapping it plus its pins; it returns to the free
 list only when the refcount falls to zero.  Any write to a shared page
 goes through ``fork_page`` (copy-on-write): the writer gets a fresh
 private page and the shared original is decref'd, so no owner ever
-observes another request's writes.  Swap-out for preemption and the
-fault-injection hook come with the slices that port them.
+observes another request's writes.  Preemption releases a slot through
+``swap_out`` after the engine copied its pages to the host swap store
+(``serve.swap``).  The reference's fault-injection hook comes with its
+fault plan.
 """
 from __future__ import annotations
 
@@ -31,6 +33,19 @@ import numpy as np
 from repro_torch.obs.metrics import MetricsRegistry
 
 TRASH_PAGE = 0
+
+
+class PageGrantError(RuntimeError):
+    """A page grant failed for a slot whose capacity admission had
+    reserved.  Carries the slot so the engine can recover by swapping that
+    request out (it resumes token-identically on re-admission) instead of
+    tearing the whole window down."""
+
+    def __init__(self, slot: int, need: int):
+        super().__init__(
+            f"page grant failed for slot {slot} ({need} pages)")
+        self.slot = slot
+        self.need = need
 
 
 def pages_needed(tokens: int, page_size: int) -> int:
@@ -117,6 +132,9 @@ class BlockManager:
         """Distinct pages mapped by two or more block-table entries."""
         return int(np.count_nonzero(self._table_refs[1:] >= 2))
 
+    def can_allocate(self, n: int) -> bool:
+        return n <= len(self._free)
+
     def page_refcount(self, page: int) -> int:
         return int(self._table_refs[page] + self._pins[page])
 
@@ -167,7 +185,7 @@ class BlockManager:
         """Append ``n`` fresh private pages to ``slot``'s block-table row.
         Returns False (allocating nothing) if the pool or the row can't
         hold them."""
-        if n > len(self._free) \
+        if not self.can_allocate(n) \
                 or len(self._owned[slot]) + n > self.max_pages_per_slot:
             return False
         if n:
@@ -243,6 +261,19 @@ class BlockManager:
             raise ValueError(f"unpin: page {page} has no pins")
         self._pins[page] -= 1
         self._return_if_dead(page)
+
+    def swap_out(self, slot: int) -> List[Tuple[int, bool]]:
+        """Snapshot-and-release for preemption: returns ``slot``'s
+        ``(physical page, was_shared)`` entries in logical order, then
+        releases the row exactly like :meth:`release`.  The caller must
+        have copied the pages' contents to the swap store *before* this
+        call: afterwards the pages nobody else maps or pins are back on
+        the free list and may be rewritten at any time; pinned and shared
+        pages stay live."""
+        row = list(zip(self._owned[slot],
+                       (bool(x) for x in self._shared[slot])))
+        self.release(slot)
+        return row
 
     def release(self, slot: int) -> None:
         """Decref all of ``slot``'s pages and re-point its row at trash.

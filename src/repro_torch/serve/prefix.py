@@ -75,18 +75,30 @@ class PrefixCache:
         self._c_tokens = self.metrics.counter(
             "prefix.tokens_matched", "prompt tokens served from cache")
 
-    # registry-backed stat views
+    # registry-backed stat views (setters: snapshot restore rewinds them)
     @property
     def lookups(self) -> int:
         return int(self._c_lookups.value())
+
+    @lookups.setter
+    def lookups(self, v: int) -> None:
+        self._c_lookups.set(int(v))
 
     @property
     def hits(self) -> int:
         return int(self._c_hits.value())
 
+    @hits.setter
+    def hits(self, v: int) -> None:
+        self._c_hits.set(int(v))
+
     @property
     def tokens_matched(self) -> int:
         return int(self._c_tokens.value())
+
+    @tokens_matched.setter
+    def tokens_matched(self, v: int) -> None:
+        self._c_tokens.set(int(v))
 
     # ------------------------------------------------------------- queries
     @property

@@ -1033,3 +1033,173 @@ def test_attribute_calls_are_accepted_during_capture(dev):
     assert torch.equal(out["attn"], mx_decode_attention(q, *cache, 300,
                                                         **kw))
     assert torch.equal(out["flash"], flash_attention(x, x, x, causal=True))
+
+
+# =============================================================================
+# preempt-and-swap and snapshots on the card
+# =============================================================================
+def test_swap_round_trip_on_card(dev):
+    """Pages of a CUDA pool gather into pinned host tensors (byte-equal to
+    the pool's pages) and scatter back, in place, onto other pages; a
+    concatenation of pinned copies stays pinned."""
+    from repro_torch.serve.swap import (concat_snapshots, gather_pages,
+                                        scatter_pages)
+    g = torch.Generator(device=dev).manual_seed(0)
+    pool = {"kc": torch.randint(0, 256, (3, 9, 16, 2, 128), generator=g,
+                                dtype=torch.uint8, device=dev),
+            "vs": torch.randn((3, 9, 16, 2, 4), generator=g, device=dev)
+            .to(torch.bfloat16)}
+    a, na = gather_pages(pool, [2, 7])
+    b, nb = gather_pages(pool, [4])
+    for k, leaf in pool.items():
+        assert a[k].device.type == "cpu" and a[k].is_pinned()
+        assert torch.equal(a[k], leaf[:, [2, 7]].cpu())
+    assert na == 2 * nb == sum(t.numel() * t.element_size()
+                               for t in a.values())
+    both = concat_snapshots([a, b])
+    assert all(t.is_pinned() for t in both.values())
+    leaves = {k: v for k, v in pool.items()}
+    ptrs = {k: v.data_ptr() for k, v in pool.items()}
+    scatter_pages(pool, [1, 3, 5], both)
+    torch.cuda.synchronize()
+    for k, leaf in pool.items():
+        assert leaf is leaves[k] and leaf.data_ptr() == ptrs[k]
+        assert torch.equal(leaf[:, [1, 3, 5]].cpu(),
+                           torch.cat([a[k], b[k]], dim=1))
+
+
+def _slo_script(eng, vocab, temperature=0.0):
+    """A batch-class request decodes; an interactive one arrives that a
+    tight pool cannot hold beside it.  Returns {rid: tokens}."""
+    rng = np.random.default_rng(3)
+    pb = rng.integers(1, vocab, size=40).astype(np.int32)
+    pa = rng.integers(1, vocab, size=50).astype(np.int32)
+    rb = eng.add_request(pb, 60, priority=1)
+    req = eng.scheduler.waiting[0]
+    while len(req.out) < 9:
+        eng.step()
+    ra = eng.add_request(pa, 8, priority=0)
+    out = eng.run()
+    return {r: out[r].tolist() for r in (rb, ra)}
+
+
+def _arm_eager_check(eng, model, params, temperature, seen):
+    """Make the engine's next decode window also run eagerly
+    (``paged_decode_multi_step`` on clones of the same state) before its
+    replays, and hold the two equal: tokens, state, keys, flags, and the
+    pool but for the trash page."""
+    from repro_torch.serve.paging import TRASH_PAGE
+    w = eng.window
+    run = w.run
+
+    def checked(n):
+        w.run = run
+        state = w.state.clone()
+        pool = {k: v.clone() for k, v in eng.pool.items()}
+        toks, pool, lengths, remaining, keys, bad = \
+            model.paged_decode_multi_step(
+                params, state[0], pool, w.block_tables.clone(), state[1],
+                state[2], w.keys.clone(), n_steps=n,
+                temperature=temperature, trash_page=TRASH_PAGE, health=True)
+        run(n)
+        assert torch.equal(w.tokens[:n], toks)
+        assert torch.equal(w.state[1], lengths)
+        assert torch.equal(w.state[2], remaining)
+        assert torch.equal(w.keys, keys) and torch.equal(w.bad, bad)
+        for k in pool:
+            assert torch.equal(eng.pool[k][:, 1:], pool[k][:, 1:]), k
+        seen.append(n)
+
+    w.run = checked
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("widths", ["reduced", "full-width-2-layers"])
+def test_preempt_identity_with_graph_replay(dev, widths, temperature):
+    """The reduced config (f32, head dim 32) and two full-width layers:
+    over a tight pool the batch request is swapped to pinned host memory
+    and restored into the pool the captured graph reads; the window after
+    the restore, replayed, equals the eager loop from the same state, and
+    the tokens equal a large pool's."""
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
+    if widths == "reduced":
+        model, params = build_model("chatglm3_6b", reduced=True,
+                                    quant=POLICY, weight_resident=True,
+                                    device=str(dev), seed=0,
+                                    attn_impl="flash")
+    else:
+        model, params = _full_width_2_layers(dev)
+
+    def engine(num_pages):
+        return ContinuousBatchingEngine(
+            model, params, max_slots=2, page_size=16, max_len=112,
+            num_pages=num_pages, sync_every=8, prefill_bucket=32,
+            preempt=True, gen=GenerationConfig(temperature=temperature))
+
+    tight, seen = engine(10), []
+    restore = tight._restore_swapped
+
+    def restored(reqs):
+        restore(reqs)
+        _arm_eager_check(tight, model, params, temperature, seen)
+
+    tight._restore_swapped = restored
+    got = _slo_script(tight, model.cfg.vocab)
+    assert tight.n_preemptions == tight.n_restores == 1 and seen
+    assert tight.swap_store.bytes_in == tight.swap_store.bytes_out > 0
+    large = engine(32)
+    assert _slo_script(large, model.cfg.vocab) == got
+    assert large.n_preemptions == 0
+
+
+def test_snapshot_restore_then_replay_matches_eager(dev):
+    """Capture mid-stream, run on, restore: the pool and keys go back into
+    the tensors the captured graph reads, the next replayed window equals
+    the eager loop, and the tokens are those of the first continuation."""
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   GenerationConfig, capture, restore)
+    model, params = _full_width_2_layers(dev)
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=4, page_size=16, max_len=100,
+        sync_every=8, prefill_bucket=32,
+        gen=GenerationConfig(temperature=0.8))
+    rids = [eng.add_request(p, 24)
+            for p in _prompts(model.cfg.vocab, 4, 20, 70, seed=6)]
+    eng.step()
+    pool = {k: v.data_ptr() for k, v in eng.pool.items()}
+    snap = capture(eng)
+    want = eng.run()
+    restore(eng, snap)
+    assert {k: v.data_ptr() for k, v in eng.pool.items()} == pool
+    seen = []
+    _arm_eager_check(eng, model, params, 0.8, seen)
+    got = eng.run()
+    assert seen and all(np.array_equal(got[r], want[r]) for r in rids)
+
+
+@pytest.mark.parametrize("use_executor", [False, True])
+def test_async_server_on_card(dev, use_executor):
+    """Streams through AsyncServer (the step on the loop, or in an
+    executor thread, which enters the engine's device) equal the
+    synchronous engine's tokens on the card."""
+    import asyncio
+    from repro_torch.serve import AsyncServer, ContinuousBatchingEngine
+    model, params = _full_width_2_layers(dev)
+    prompts = _prompts(model.cfg.vocab, 5, 10, 60, seed=8)
+
+    def engine():
+        return ContinuousBatchingEngine(model, params, max_slots=2,
+                                        page_size=16, max_len=80,
+                                        sync_every=4, prefill_bucket=32,
+                                        preempt=True)
+
+    want = _serve_all(engine(), prompts, 10)
+
+    async def go():
+        async with AsyncServer(engine(), use_executor=use_executor) as srv:
+            streams = [await srv.submit(p, 10, priority=i % 2)
+                       for i, p in enumerate(prompts)]
+            return [(await s.tokens()).tolist() for s in streams]
+
+    assert asyncio.run(asyncio.wait_for(go(), 300)) == want
