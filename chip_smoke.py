@@ -24,8 +24,8 @@ failure (the script then exits non-zero and prints no result line):
    kernel and that call also replayed from a CUDA graph (device time
    without the host's per-call work); the contiguous KV write and decode
    attention also with pos in device memory (bit-identical to the host
-   int); the LM head's bf16 -> f32 product, timed beside the f32 copy it
-   replaced;
+   int), and bf16 q at head dim 96 (routed to the CUDA-core kernels); the
+   LM head's bf16 -> f32 product, timed beside the f32 copy it replaced;
 3. load full-width chatglm3-6b (28 layers, random weights from a seed,
    quantized to MX by the converter as each layer is made) and serve it
    through ``ContinuousBatchingEngine`` with 8-bit MX weights, INT8 key
@@ -49,7 +49,18 @@ failure (the script then exits non-zero and prints no result line):
    memory and restored byte-equal with the tokens of the full pool
    (greedy and T 0.8), a snapshot restored mid-stream, and
    ``AsyncServer`` reject / block / block + preempt under on/off
-   arrivals (TTFT per class, SLO attainment, swap GB/s); then serve a static
+   arrivals (TTFT per class, SLO attainment, swap GB/s); serve under a
+   seeded fault plan (the ``serve_faults`` phase): prefill_nan,
+   page_corrupt, swap_corrupt and alloc_fail each aimed at its own request
+   over a pool tight enough to preempt — exactly the targets quarantined
+   with their pages scrubbed, every other request (the alloc_fail victim,
+   swapped out and restored, among them) with the clean run's tokens, the
+   same firings on a second run — then the same plan through
+   ``AsyncServer(retries=1)`` (every request recovers its clean tokens), a
+   120 s stall cut by the stalled-step watchdog and undone from a snapshot,
+   and tracing, a metrics registry and a health sample per window on
+   against off (identical tokens, nested spans, trace files written, the
+   exact ``mx.scale_bytes``, no poison marker); then serve a static
    batch through ``ServeEngine`` on the same weights (its decode step
    captured on a first call, replayed on the second), once with the MX
    KV cache (contiguous MX decode attention, pos on the device) and once
@@ -688,10 +699,10 @@ def check_batch_invariance(torch, gen):
          compared=n_checked, criterion="torch.equal")
 
 
-def _paged_case(torch, kspec, vspec, gen):
+def _paged_case(torch, kspec, vspec, gen, d=128):
     from repro_torch.core.pack import pack_codes
     from repro_torch.kernels.mx_quant import mx_quantize_2d
-    b, hq, hkv, d, page, npg = 8, 32, 2, 128, 16, 36
+    b, hq, hkv, page, npg = 8, 32, 2, 16, 36
     n_pool = 1 + b * npg
     lengths = torch.randint(1, 575, (b,), generator=gen, device="cuda")
     lengths[0], lengths[1] = 575, 0                 # full 576 tokens; idle
@@ -790,6 +801,56 @@ def check_paged_attention(torch, flush):
                    f"defaults")
     return dict(row, max_abs_err_f32=worst[torch.float32]), \
         worst[torch.bfloat16]
+
+
+def check_head_dim_96(torch):
+    """bf16 q at head dim 96, a multiple of 32 the tensor-core kernels are
+    not built for: both decode-attention wrappers route it by its shape
+    to their CUDA-core kernel on an f32 copy of q (one launch each) and
+    cast back; held to torch's bf16 defaults against the plain version,
+    at the serving shapes otherwise (8 slots / rows, Hq 32, Hkv 2, INT8 K
+    and E2M1 V)."""
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
+                                                    mx_paged_decode_attention)
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    kspec, vspec = (QuantSpec.parse(s) for s in ("int8@32:ocp",
+                                                 "e2m1@32:ocp"))
+    kw = dict(key_spec=kspec, value_spec=vspec, rep=16)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    q32, kc, ks, vc, vs, bt, lengths = _paged_case(torch, kspec, vspec, gen,
+                                                   d=96)
+    args = (q32.to(torch.bfloat16), kc, ks, vc, vs, bt, lengths)
+    before = mx_paged_decode_attention.launches
+    got = mx_paged_decode_attention(*args, **kw)
+    if mx_paged_decode_attention.launches != before + 1 \
+            or got.dtype != torch.bfloat16:
+        raise AssertionError("paged decode attention at D 96: not one "
+                             "launch with a bf16 output")
+    _attn_check(torch, got, ref.mx_paged_decode_attention_ref(*args, **kw),
+                worst)
+    b, s, hkv, d = 8, 640, 2, 96
+    cache = []
+    for spec in (kspec, vspec):
+        x = torch.randn(b * s * hkv, d, generator=gen, device="cuda")
+        c, sc = mx_quantize_2d(x, spec)
+        cache += [c.reshape(b, s, hkv, d), sc.reshape(b, s, hkv, d // 32)]
+    q = torch.randn(b, 1, 32, d, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for pos in (0, 63, 575, 639):
+        before = mx_decode_attention.launches
+        got = mx_decode_attention(q, *cache, pos, **kw)
+        if mx_decode_attention.launches != before + 1:
+            raise AssertionError("decode attention at D 96: not one launch")
+        _attn_check(torch, got, ref.mx_decode_attention_ref(
+            q, *cache, torch.full((b,), pos, dtype=torch.int32,
+                                  device="cuda"), **kw), worst)
+    emit("check", kernel="mx_paged_decode_attention / mx_decode_attention",
+         what="bf16 q at head dim 96 (CUDA-core kernels on an f32 copy)",
+         compared=5, max_abs_err_bf16=worst[torch.bfloat16],
+         criterion="torch's bf16 defaults; one launch per call")
 
 
 def _gathered(torch, ref, kc, ks, vc, vs, bt, kspec, vspec):
@@ -1231,9 +1292,13 @@ def serve_full_width(torch):
     check_quarantine(torch, model, params, short[:2])
     tokens_launches = serve_prefix(torch, model, params)
     serve_slo(torch, model, params)
+    drill = serve_faults(torch, model, params)
     static = serve_static(torch, model, params)
     del params, model
     torch.cuda.empty_cache()
+    # the kernels line counts the continuous run's and the fault drill's
+    # launches (each a main path of its own, driven from 0)
+    launches = {k: n + drill.get(k, 0) for k, n in launches.items()}
     return {**launches, **static,
             "mx_quantize_2d": load["mx_quantize_2d"],
             "mx_kv_write_tokens": tokens_launches}
@@ -1857,6 +1922,366 @@ def serve_async(torch, model, params, num_pages):
         torch.cuda.empty_cache()
 
 
+# =============================================================================
+# the serve_faults phase: fault drill, retries, watchdog, observability
+# =============================================================================
+# (priority, prompt lengths, new tokens) of the drill's two classes
+FAULT_BATCH = (1, (256, 385), 64)
+FAULT_INTERACTIVE = (0, (64, 193), 16)
+FAULT_MAX_LEN = FAULT_BATCH[1][1] - 1 + FAULT_BATCH[2]
+FAULT_PAGES = 113       # a tight pool: the interactive arrivals preempt
+# one fault per site, each at its own request (rids 0-4 batch, 5-7
+# interactive), chosen by a CPU rehearsal with the reduced model: the host
+# schedule depends only on prompt lengths and pages.  page_corrupt writes
+# one live scale position of rid 1 at the 3rd step; the interactive
+# arrivals preempt rid 3, and swap_corrupt poisons its host copy (caught
+# after its restore); prefill_nan poisons rid 6's prompt pages at
+# admission; alloc_fail fails the 5th mid-decode page grant, whose slot
+# (rid 2) swaps out and resumes.
+FAULT_PLAN = ("prefill_nan:rid=6,page_corrupt:nth=2:rid=1,"
+              "swap_corrupt:rid=3,alloc_fail:nth=4")
+FAULT_TARGETS = {6, 1, 3}
+FAULT_SEED = 17
+FAULT_STALL = "stall:nth=2:stall_s=120"
+
+
+def _sync(torch, model):
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _fault_prompts(vocab):
+    import numpy as np
+    out = []
+    for cls, n, seed in ((FAULT_BATCH, 5, 31), (FAULT_INTERACTIVE, 3, 32)):
+        rng = np.random.default_rng(seed)
+        lo, hi = cls[1]
+        out += [(cls[0], rng.integers(1, vocab, size=int(m)).astype(np.int32),
+                 cls[2]) for m in rng.integers(lo, hi, size=n)]
+    return out
+
+
+def _fault_engine(model, params, plan=None, **kw):
+    """The drill's engine (chip_smoke's configuration, preempt on, over
+    ``FAULT_PAGES``), recording each swap-out's rid beside the plan's
+    firings at that moment and checking, as each quarantined request's
+    pages return to the free list, that they were scrubbed to zeros."""
+    from repro_torch.serve import ContinuousBatchingEngine
+
+    class Drill(ContinuousBatchingEngine):
+        def _swap_out(self, req):
+            n = len(self.faults.fired) if self.faults is not None else 0
+            self.swaps.append((req.rid, n))
+            super()._swap_out(req)
+
+        def _quarantine(self, req, diag):
+            ids = self.blocks.slot_page_ids(req.slot)
+            super()._quarantine(req, diag)
+            dead = [i for i in ids if self.blocks.page_refcount(i) == 0]
+            self.scrubbed.append((req.rid, len(dead), all(
+                not bool(leaf[:, dead].any()) for leaf in self.pool.values())))
+
+    kw.setdefault("num_pages", FAULT_PAGES)
+    eng = Drill(model, params, max_slots=8, page_size=16,
+                max_len=FAULT_MAX_LEN, sync_every=8, prefill_bucket=64,
+                preempt=True, faults=plan, **kw)
+    eng.swaps, eng.scrubbed = [], []
+    return eng
+
+
+def _fault_script(eng, prompts):
+    """Batch-class requests decode until each running one has 8 tokens;
+    then the interactive ones arrive.  Returns {rid: tokens}."""
+    rids = [eng.add_request(p, n, priority=pr)
+            for pr, p, n in prompts if pr == FAULT_BATCH[0]]
+    for _ in range(64):
+        eng.step()
+        if all(len(r.out) >= 8 for r in eng.scheduler.running.values()):
+            break
+    rids += [eng.add_request(p, n, priority=pr)
+             for pr, p, n in prompts if pr != FAULT_BATCH[0]]
+    out = eng.run()
+    return {r: out[r].tolist() for r in rids if r in out}
+
+
+def _alloc_victim(eng):
+    """The rid the alloc_fail firing swapped out: the first swap-out made
+    right after that firing was recorded."""
+    plan = eng.faults
+    idx = next(i for i, f in enumerate(plan.fired) if f[0] == "alloc_fail")
+    return next(rid for rid, n in eng.swaps if n == idx + 1)
+
+
+def _fault_drill(torch, model, params, clean):
+    """(a): the plan over the tight pool, twice; returns the first run's
+    engine, tokens and launches."""
+    from repro_torch.serve import FaultPlan
+    prompts = _fault_prompts(model.cfg.vocab)
+    runs = []
+    for i in range(2):
+        plan = FaultPlan.parse(FAULT_PLAN, seed=FAULT_SEED)
+        eng = _fault_engine(model, params, plan)
+        if i == 0:
+            toks, launches, wall = _drive(
+                torch, lambda: _fault_script(eng, prompts))
+        else:
+            toks, wall = _fault_script(eng, prompts), None
+        runs.append((eng, toks, launches, wall))
+    eng, toks, launches, wall = runs[0]
+    plan = eng.faults
+    failed = {r.rid: r.error for r in eng.scheduler.failed}
+    sites = {s for s, _, _ in plan.fired}
+    if sites != {"prefill_nan", "page_corrupt", "swap_corrupt",
+                 "alloc_fail"} or set(failed) != FAULT_TARGETS:
+        raise AssertionError(f"fault drill: fired {plan.fired}, "
+                             f"quarantined {sorted(failed)}, expected "
+                             f"{sorted(FAULT_TARGETS)}")
+    victim = _alloc_victim(eng)
+    healthy = set(clean) - FAULT_TARGETS
+    if set(toks) != healthy or any(toks[r] != clean[r] for r in healthy):
+        raise AssertionError("fault drill: a healthy request's tokens "
+                             "differ from the clean run's")
+    if victim not in healthy or eng.n_restores != eng.n_preemptions \
+            or len(eng.swap_store):
+        raise AssertionError(f"fault drill: alloc_fail victim {victim}, "
+                             f"{eng.n_preemptions} swap-outs, "
+                             f"{eng.n_restores} restores")
+    if not eng.scrubbed or not all(ok and n for _, n, ok in eng.scrubbed):
+        raise AssertionError(f"fault drill: scrub {eng.scrubbed}")
+    again = runs[1][0]
+    if again.faults.fired != plan.fired or runs[1][1] != toks:
+        raise AssertionError("fault drill: a second run of the same plan "
+                             "fired or served differently")
+    if eng.model.device.type == "cuda":
+        n_l = eng.model.cfg.n_layers
+        steps, batches = eng.n_steps, eng.n_prefill_batches
+        _check_launches("fault drill", launches, {
+            "mx_matmul_2d": 7 * n_l * (steps + batches),
+            "mx_kv_write": n_l * (steps + batches),
+            "mx_paged_decode_attention": n_l * steps})
+    ph = eng.phase
+    emit("faults_drill", plan=FAULT_PLAN, seed=FAULT_SEED,
+         num_pages=FAULT_PAGES, requests=len(clean), fired=plan.fired,
+         quarantined=failed, alloc_fail_victim=victim,
+         swap_outs=eng.swaps, restores=eng.n_restores,
+         scrubbed_pages=sum(n for _, n, _ in eng.scrubbed),
+         healthy_identical=True, replay_fired_identical=True, wall_s=wall,
+         prefill_s=ph["prefill"], decode_s=ph["decode"],
+         swap_s=ph["swap"], decode_steps=eng.n_steps,
+         prefill_batches=eng.n_prefill_batches, launches=launches)
+    return launches
+
+
+def _fault_async(model, params, prompts, engine_kw, **server_kw):
+    """Every prompt through ``AsyncServer`` at once (in rid order);
+    returns (server, {rid: tokens}, seconds)."""
+    import asyncio
+    from repro_torch.serve import AsyncServer
+    eng = _fault_engine(model, params, **engine_kw)
+
+    async def run():
+        async with AsyncServer(eng, **server_kw) as srv:
+            streams = [await srv.submit(p, n, priority=pr)
+                       for pr, p, n in prompts]
+            toks = [await s.tokens() for s in streams]
+            return srv, {s.rid: [int(t) for t in tk]
+                         for s, tk in zip(streams, toks)}
+
+    t0 = time.perf_counter()
+    srv, toks = asyncio.run(asyncio.wait_for(run(), 600))
+    return eng, srv, toks, time.perf_counter() - t0
+
+
+def _fault_retry(torch, model, params, clean):
+    """(b): the plan through ``AsyncServer(retries=1)``: every request,
+    the quarantined ones too, ends with the clean run's tokens."""
+    from repro_torch.serve import FaultPlan
+    prompts = _fault_prompts(model.cfg.vocab)
+    plan = FaultPlan.parse(FAULT_PLAN, seed=FAULT_SEED)
+    eng, srv, toks, wall = _fault_async(
+        model, params, prompts, dict(plan=plan), retries=1,
+        retry_backoff_s=0.01)
+    if toks != clean or not srv.n_retried or srv.n_failed:
+        raise AssertionError(f"fault retry: {srv.n_retried} retries, "
+                             f"{srv.n_failed} failures, tokens identical "
+                             f"{toks == clean}")
+    emit("faults_retry", plan=FAULT_PLAN, requests=len(toks),
+         fired=plan.fired, quarantined=eng.n_quarantined,
+         retried=srv.n_retried, failed=srv.n_failed, identical=True,
+         wall_s=wall)
+
+
+def _fault_watchdog(torch, model, params, clean):
+    """(c): a 120 s stall at the third step, cut by the watchdog, the
+    engine restored from its last snapshot in place.  The watchdog is
+    set well above both the engine's graph capture (measured here) and
+    a healthy first step (prefill of 8 prompts and a window)."""
+    from repro_torch.serve import FaultPlan
+    prompts = _fault_prompts(model.cfg.vocab)
+    t0 = time.perf_counter()
+    probe = _fault_engine(model, params, num_pages=None)   # captures
+    _sync(torch, model)
+    capture_s = time.perf_counter() - t0
+    for pr, p, n in prompts:
+        probe.add_request(p, n, priority=pr)
+    t0 = time.perf_counter()
+    probe.step()
+    _sync(torch, model)
+    first_step_s = time.perf_counter() - t0
+    del probe
+    watchdog_s = max(10.0, 4 * max(capture_s, first_step_s))
+    plan = FaultPlan.parse(FAULT_STALL, seed=FAULT_SEED)
+    eng, srv, toks, wall = _fault_async(
+        model, params, prompts, dict(plan=plan, num_pages=None),
+        use_executor=True, watchdog_s=watchdog_s, snapshot_every=1)
+    if toks != clean or srv.n_recoveries < 1 or wall > 60:
+        raise AssertionError(f"watchdog: {srv.n_recoveries} recoveries in "
+                             f"{wall:.1f} s, tokens identical "
+                             f"{toks == clean}")
+    emit("faults_watchdog", plan=FAULT_STALL, watchdog_s=watchdog_s,
+         graph_capture_s=capture_s, first_step_s=first_step_s,
+         recoveries=srv.n_recoveries, fired=plan.fired, identical=True,
+         wall_s=wall)
+
+
+def _obs_run(torch, model, params, prompts, temperature, on):
+    """The drill's prompts, all at once, without faults, observability
+    off or fully on; returns (engine, tokens, per-sample record).  A
+    health sample runs after a window's decode phase ends (its time is
+    in the sync phase), so beside decode tokens/s the wall of the run is
+    kept (``eng.wall_s``)."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serve import GenerationConfig
+    kw = dict(num_pages=None, gen=GenerationConfig(temperature=temperature,
+                                                   seed=5))
+    if on:
+        kw.update(tracer=Tracer(meta={"phase": "serve_faults"}),
+                  metrics=MetricsRegistry(), obs_interval=1)
+    eng = _fault_engine(model, params, **kw)
+    samples = []
+    if on:
+        sample = eng._sample_mx_health
+
+        def timed():
+            lengths = eng._lengths.copy()
+            t0 = time.perf_counter()
+            sample()        # ends in its host transfer
+            samples.append((time.perf_counter() - t0, lengths))
+
+        eng._sample_mx_health = timed
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, n, priority=pr) for pr, p, n in prompts]
+    out = eng.run()
+    _sync(torch, model)
+    eng.wall_s = time.perf_counter() - t0
+    return eng, {r: out[r].tolist() for r in rids}, samples
+
+
+def _fault_obs(torch, model, params, out_dir):
+    """(d): tracer, registry and a health sample per window against all
+    off, greedy and T 0.8: identical tokens, well-nested spans, the
+    trace/v1 JSONL and Chrome files written, no poison marker, and
+    ``mx.scale_bytes`` per role equal to the exact count at the last
+    sample: its lengths x 2 KV heads x 4 scale bytes x 28 layers."""
+    import json
+    from repro_torch.obs import validate_nesting
+    cfg = model.cfg
+    prompts = _fault_prompts(cfg.vocab)
+    per_pos = cfg.n_kv_heads * (cfg.hd // 32) * cfg.n_layers
+    for temperature in (0.0, 0.8):
+        off, want, _ = _obs_run(torch, model, params, prompts, temperature,
+                                False)
+        on, got, samples = _obs_run(torch, model, params, prompts,
+                                    temperature, True)
+        if got != want:
+            raise AssertionError(f"observability on changed the tokens at "
+                                 f"T {temperature}")
+        on.finalize_trace()
+        roots = validate_nesting(on.tracer.events)
+        if any(roots.get(r) != ["request"] for r in got):
+            raise AssertionError("observability: a request track is "
+                                 "malformed")
+        tag = f"t{temperature:g}"
+        paths = (out_dir / f"trace_{tag}.jsonl",
+                 out_dir / f"trace_{tag}.chrome.json")
+        on.tracer.write_jsonl(paths[0])
+        on.tracer.write_chrome(paths[1])
+        header = json.loads(paths[0].read_text().splitlines()[0])
+        if header["schema"] != "trace/v1" \
+                or not json.loads(paths[1].read_text())["traceEvents"]:
+            raise AssertionError("observability: trace files not written")
+        g = on.metrics.snapshot()["gauges"]
+        exact = int(samples[-1][1].sum()) * per_pos
+        want_bytes = {"role=kv_key": exact, "role=kv_value": exact}
+        if g["mx.poison_markers"] != {"role=kv_key": 0, "role=kv_value": 0} \
+                or g["mx.scale_bytes"] != want_bytes:
+            raise AssertionError(f"observability: gauges {g}, expected "
+                                 f"scale bytes {want_bytes}")
+        ms = sorted(1e3 * s for s, _ in samples)
+        dec = {n: (e.n_generated - len(prompts)) / e.phase["decode"]
+               for n, e in (("off", off), ("on", on))}
+        emit("faults_obs", temperature=temperature, identical=True,
+             events=len(on.tracer.events),
+             trace_bytes=paths[0].stat().st_size,
+             chrome_bytes=paths[1].stat().st_size, samples=len(samples),
+             last_sample_positions=int(samples[-1][1].sum()),
+             scale_bytes=g["mx.scale_bytes"], exact_scale_bytes=exact,
+             poison_markers=g["mx.poison_markers"],
+             saturation_rate=g["mx.saturation_rate"],
+             underflow_rate=g["mx.underflow_rate"],
+             health_sample_ms_median=ms[len(ms) // 2],
+             health_sample_ms_max=ms[-1],
+             decode_tokens_per_s_off=dec["off"],
+             decode_tokens_per_s_on=dec["on"],
+             decode_s_off=off.phase["decode"],
+             decode_s_on=on.phase["decode"],
+             host_sync_s_off=off.phase["sync"],
+             host_sync_s_on=on.phase["sync"],
+             wall_s_off=off.wall_s, wall_s_on=on.wall_s)
+        del off, on
+
+
+def serve_faults(torch, model, params):
+    """The ``serve_faults`` phase (chip_smoke's configuration: e4m3
+    weights, INT8 K / E2M1 V in pages of 16, 8 slots, sync_every 8, health
+    checks on, graph replay; preempt on).  5 batch-class requests (prompts
+    of 256-384 tokens, 64 new) decode; 3 interactive ones (64-192 tokens,
+    16 new) arrive.
+
+    (a) Fault drill over ``FAULT_PAGES`` pages, twice, under
+        ``FAULT_PLAN``: the quarantine set is the plan's targets, every
+        other request's tokens (the alloc_fail victim's among them) equal
+        the clean run's, every quarantined request's pages are zeros as
+        they return to the free list, and the two runs fire identically.
+    (b) The plan through ``AsyncServer(retries=1)``: every request ends
+        with the clean run's tokens.
+    (c) ``AsyncServer(use_executor=True, watchdog_s=W, snapshot_every=1)``
+        under a 120 s stall: a recovery, the clean run's tokens, well
+        under 120 s.
+    (d) Observability on against off, greedy and T 0.8.
+    Returns the drill's launches (its first run is a main path)."""
+    import tempfile
+    prompts = _fault_prompts(model.cfg.vocab)
+    eng = _fault_engine(model, params)
+    clean = _fault_script(eng, prompts)
+    if eng.n_preemptions < 1 or eng.n_quarantined:
+        raise AssertionError(f"fault drill, clean run: "
+                             f"{eng.n_preemptions} preemptions, "
+                             f"{eng.n_quarantined} quarantined")
+    emit("faults_clean", requests=len(clean), num_pages=FAULT_PAGES,
+         preemptions=eng.n_preemptions, swaps=eng.swaps,
+         decode_steps=eng.n_steps)
+    del eng
+    launches = _fault_drill(torch, model, params, clean)
+    _fault_retry(torch, model, params, clean)
+    _fault_watchdog(torch, model, params, clean)
+    with tempfile.TemporaryDirectory() as d:
+        _fault_obs(torch, model, params, Path(d))
+    if model.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _static_eager(torch, model, params, tokens, new, max_len):
     """The static decode loop, eagerly: prefill, then ``decode_step`` at
     host positions with greedy sampling."""
@@ -2152,6 +2577,7 @@ def main() -> int:
     m_row, m_err = check_matmul(torch, flush)
     a_row, a_err = check_paged_attention(torch, flush)
     d_row, d_err = check_decode_attention(torch, flush)
+    check_head_dim_96(torch)
     f_row, f_err = check_flash(torch, flush)
     check_lm_head(torch, flush)
     del flush

@@ -3,10 +3,14 @@ page pool.
 
 Ports of src/repro/kernels/mx_decode_attn.py::mx_decode_attention and
 ::mx_paged_decode_attention.  bf16 q (the serving path) runs the
-tensor-core kernels of csrc/mx_decode_attn_tc.cu; f32 q runs the
-CUDA-core kernels of csrc/mx_decode_attn.cu and
-csrc/mx_paged_decode_attn.cu.  On CUDA tensors each wrapper launches its
-kernel (or raises); on CPU tensors it computes the plain version,
+tensor-core kernels of csrc/mx_decode_attn_tc.cu, which are built for
+head dims 32, 64 and 128; f32 q runs the CUDA-core kernels of
+csrc/mx_decode_attn.cu and csrc/mx_paged_decode_attn.cu, which take any
+multiple of 32.  bf16 q at another multiple of 32 (96, 160, ...) is
+routed by its shape to the CUDA-core kernel on an f32 copy of q, and the
+output cast back to bf16 (the plain version computes in f32 too).  On
+CUDA tensors each wrapper launches its kernel (or raises); on CPU
+tensors it computes the plain version,
 ``ref.mx_decode_attention_ref`` / ``ref.mx_paged_decode_attention_ref``.
 """
 from __future__ import annotations
@@ -154,6 +158,11 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
             q, k_codes, k_scales, v_codes, v_scales,
             torch.full((b,), host_pos, dtype=torch.int32), key_spec=key_spec,
             value_spec=value_spec, rep=rep)
+    if q.dtype == torch.bfloat16 and d not in TC_HEAD_DIMS:
+        return mx_decode_attention(
+            q.float(), k_codes, k_scales, v_codes, v_scales, pos,
+            key_spec=key_spec, value_spec=value_spec,
+            rep=rep).to(torch.bfloat16)
     operands = (k_codes, k_scales, v_codes, v_scales)
     _check_cuda_operands("mx_decode_attention", q, operands)
     if k_codes.data_ptr() % 4 or v_codes.data_ptr() % 4:
@@ -227,6 +236,11 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
         return ref.mx_paged_decode_attention_ref(
             q, kc_pool, ks_pool, vc_pool, vs_pool, block_tables, lengths,
             key_spec=key_spec, value_spec=value_spec, rep=rep)
+    if q.dtype == torch.bfloat16 and d not in TC_HEAD_DIMS:
+        return mx_paged_decode_attention(
+            q.float(), kc_pool, ks_pool, vc_pool, vs_pool, block_tables,
+            lengths, key_spec=key_spec, value_spec=value_spec,
+            rep=rep).to(torch.bfloat16)
     _check_cuda_operands("mx_paged_decode_attention", q, operands[1:5],
                          operands[5:])
     kkind, vkind = tables.pack_kind(key_spec), tables.pack_kind(value_spec)

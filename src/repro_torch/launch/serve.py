@@ -43,11 +43,26 @@ wall times and the preemption / swap traffic:
         --reduced --device cpu --paged --preempt \
         --arrival onoff:60:0.15:2.0 --slo 0.35 --requests 8 \
         --quant kv_key=int8@32:ocp,kv_value=e2m1@32:ocp
+
+Paged mode also takes a seeded fault plan (``--faults``, ``--fault-seed``;
+``serve.faults``; ``kernel_fail`` is refused, the port has no degraded
+path), the front end's stalled-step watchdog (``--watchdog``), and the
+observability layer: ``--trace-out`` (trace/v1 JSONL), ``--chrome-trace``,
+``--metrics-json`` (the engine's registry with the front end's series
+merged in) and ``--obs-interval`` (the ``mx.*`` health gauges):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
+        --reduced --device cpu --paged --batch 2 --requests 6 \
+        --new-tokens 16 --faults prefill_nan:rid=1,page_corrupt:nth=2 \
+        --obs-interval 1 \
+        --trace-out trace.jsonl --metrics-json metrics.json \
+        --quant kv_key=int8@32:ocp,kv_value=e2m1@32:ocp
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import time
 from typing import List, Tuple
 
@@ -55,11 +70,13 @@ import numpy as np
 
 from repro_torch.core.spec import QuantPolicy
 from repro_torch.models import Model, load_config, load_reduced
-from repro_torch.obs.metrics import rate
+from repro_torch.obs import MetricsRegistry, Tracer, rate
 from repro_torch.serve import (AsyncServer, ContinuousBatchingEngine,
-                               GenerationConfig, ServeEngine, TrafficClass,
-                               latency_summary, load_trace, on_off_times,
-                               poisson_times, replay, synthesize)
+                               FaultPlan, GenerationConfig, ServeEngine,
+                               TrafficClass, latency_summary, load_trace,
+                               on_off_times, poisson_times, replay,
+                               synthesize)
+from repro_torch.serve.engine import KERNEL_FAIL_REFUSED
 
 
 def build_model(arch: str, *, reduced: bool, quant: str,
@@ -91,6 +108,62 @@ def make_prompts(n: int, prompt_len: int, mixed: bool, vocab: int,
     shared = rng.integers(0, vocab, size=shared_prefix).astype(np.int32)
     return [np.concatenate([shared, rng.integers(0, vocab, size=int(m))
                             .astype(np.int32)]) for m in lens]
+
+
+def make_tracer(args, cfg):
+    """The launcher's Tracer when ``--trace-out`` / ``--chrome-trace`` ask
+    for one (None otherwise); the run's identifying knobs ride the trace
+    header's ``meta``."""
+    if not (args.trace_out or args.chrome_trace):
+        return None
+    return Tracer(meta={"arch": args.arch, "quant": str(cfg.mx),
+                        "arrival": args.arrival,
+                        "preempt": bool(args.preempt),
+                        "faults": args.faults or "",
+                        "retry": args.retry,
+                        "sync_every": args.sync_every})
+
+
+def write_obs(args, eng, srv=None) -> None:
+    """Export the run's observability files: close every open trace track
+    (``finalize_trace``), then write the trace/v1 JSONL, the Chrome trace
+    and the metrics snapshot (the front end's series merged into the
+    engine's registry, and the latency summary in async mode)."""
+    if eng.tracer is not None:
+        eng.finalize_trace()
+        if args.trace_out:
+            eng.tracer.write_jsonl(args.trace_out)
+            print(f"[serve] wrote trace/v1 JSONL -> {args.trace_out} "
+                  f"({len(eng.tracer.events)} events)")
+        if args.chrome_trace:
+            eng.tracer.write_chrome(args.chrome_trace)
+            print(f"[serve] wrote Chrome trace -> {args.chrome_trace}")
+    if args.metrics_json:
+        reg = MetricsRegistry()
+        reg.merge(eng.metrics)
+        snap = {}
+        if srv is not None:
+            reg.merge(srv.metrics)
+            snap["latency"] = latency_summary(eng.finished_in_window)
+        snap["metrics"] = reg.snapshot()
+        with open(args.metrics_json, "w") as f:
+            json.dump(snap, f, indent=1, sort_keys=True)
+        print(f"[serve] wrote metrics snapshot -> {args.metrics_json}")
+
+
+def report_faults(eng, faults, srv=None) -> None:
+    """The fault-tolerance lines: quarantines, the front end's retries,
+    failures and watchdog recoveries, the sites that fired, and each
+    quarantined request's diagnostic."""
+    line = f"[serve] fault tolerance: {eng.n_quarantined} quarantined"
+    if srv is not None:
+        line += (f", {srv.n_retried} retries, {srv.n_failed} permanent "
+                 f"failures, {srv.n_recoveries} watchdog recoveries")
+    if faults is not None and faults.fired:
+        line += f", fired sites {sorted({s for s, _, _ in faults.fired})}"
+    print(line)
+    for r in eng.scheduler.failed:
+        print(f"[serve]   rid {r.rid} quarantined: {r.error}")
 
 
 def parse_arrival(spec: str):
@@ -198,7 +271,44 @@ def main(argv=None) -> None:
                     help="async mode: base retry backoff in seconds")
     ap.add_argument("--snapshot-every", type=int, default=0,
                     help="async mode: take an engine snapshot every N "
-                         "steps (0 = never)")
+                         "steps (0 = only when --watchdog needs one)")
+    ap.add_argument("--faults", default=None,
+                    help="paged mode: seeded fault-injection plan, e.g. "
+                         "'prefill_nan:rid=1:always,page_corrupt:nth=1,"
+                         "stall:nth=2:stall_s=30' (sites: page_corrupt, "
+                         "swap_corrupt, prefill_nan, alloc_fail, stall — "
+                         "see repro_torch.serve.faults; kernel_fail is "
+                         "refused: the port has no degraded path)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the --faults plan's randomness "
+                         "(which slot/page/position each firing corrupts)")
+    ap.add_argument("--watchdog", type=float, default=0.0,
+                    help="async mode: stalled-step watchdog timeout in "
+                         "seconds; a hung step is aborted and the engine "
+                         "restored from the last snapshot (0 = off). Must "
+                         "comfortably exceed the slowest healthy step or "
+                         "slow steps trip spurious recoveries")
+    ap.add_argument("--trace-out", default=None,
+                    help="paged mode: write per-request trace spans "
+                         "(queued / prefill / decode windows / preempt / "
+                         "restore / quarantine / retry) as trace/v1 JSONL "
+                         "to this path — no extra host syncs; "
+                         "token-identical on/off")
+    ap.add_argument("--chrome-trace", default=None,
+                    help="paged mode: also export the trace as a Chrome "
+                         "trace_event JSON (load in Perfetto / "
+                         "chrome://tracing)")
+    ap.add_argument("--metrics-json", default=None,
+                    help="paged mode: write the metrics-registry snapshot "
+                         "(engine + scheduler + paging + prefix + swap + "
+                         "mx.* gauges, with the server's series merged in "
+                         "and the latency summary in async mode) as JSON")
+    ap.add_argument("--obs-interval", type=int, default=0,
+                    help="paged mode: sample the MX-health gauges "
+                         "(shared-scale saturation/clip and underflow "
+                         "rates, poison markers, per KV role) every N "
+                         "sync windows (0 = never; each sample is one "
+                         "device reduction and one host transfer)")
     args = ap.parse_args(argv)
     try:
         arrival = parse_arrival(args.arrival)
@@ -211,13 +321,28 @@ def main(argv=None) -> None:
         ap.error("--preempt needs --paged (it swaps pages)")
     if arrival[0] == "batch" and (args.retry or args.snapshot_every
                                   or args.slo or args.speedup
+                                  or args.watchdog > 0
                                   or args.admission != "block"):
-        ap.error("--slo/--admission/--speedup/--retry/--snapshot-every "
-                 "need a non-batch --arrival (they are front-end "
-                 "policies)")
-    if args.no_health_checks and not args.paged:
-        ap.error("--no-health-checks needs --paged (the guards live in "
-                 "the paged engine)")
+        ap.error("--slo/--admission/--speedup/--retry/--watchdog/"
+                 "--snapshot-every need a non-batch --arrival (they are "
+                 "front-end policies)")
+    if not args.paged and (args.faults or args.no_health_checks):
+        ap.error("--faults/--no-health-checks need --paged (the guards "
+                 "and injection sites live in the paged engine)")
+    if not args.paged and (args.trace_out or args.chrome_trace
+                           or args.metrics_json or args.obs_interval):
+        ap.error("--trace-out/--chrome-trace/--metrics-json/"
+                 "--obs-interval need --paged (the observability layer "
+                 "instruments the continuous-batching engine)")
+    faults = None
+    if args.faults:
+        try:
+            faults = FaultPlan.parse(args.faults, seed=args.fault_seed)
+        except ValueError as e:
+            ap.error(f"--faults: {e}")
+        if any(f.site == "kernel_fail" for f in faults.faults):
+            ap.error(KERNEL_FAIL_REFUSED)
+        print(f"[serve] fault plan (seed {args.fault_seed}): {faults}")
     if args.prefix_cache and not args.paged:
         ap.error("--prefix-cache needs --paged (prefixes share pages)")
     t0 = time.perf_counter()
@@ -233,7 +358,7 @@ def main(argv=None) -> None:
         _serve_static(args, model, params)
         return
     if arrival[0] != "batch":
-        _serve_async(args, model, params, *arrival)
+        _serve_async(args, model, params, *arrival, faults=faults)
         return
     prompts = make_prompts(args.requests or 2 * args.batch, args.prompt_len,
                            args.mixed, cfg.vocab, args.shared_prefix)
@@ -244,7 +369,8 @@ def main(argv=None) -> None:
         prefill_bucket=args.prefill_bucket or None,
         gen=GenerationConfig(temperature=args.temperature, seed=args.seed),
         prefix_cache=args.prefix_cache, preempt=args.preempt,
-        health_checks=not args.no_health_checks)
+        health_checks=not args.no_health_checks, faults=faults,
+        tracer=make_tracer(args, cfg), obs_interval=args.obs_interval)
     t0 = time.perf_counter()
     for p in prompts:
         eng.add_request(p, args.new_tokens)
@@ -270,12 +396,17 @@ def main(argv=None) -> None:
               f"pages {eng.peak_shared_pages}, effective pool "
               f"{eng.kv_pool_bytes_effective / 2**20:.2f} MiB (allocated "
               f"{eng.kv_pool_nbytes / 2**20:.2f} MiB)")
-    first = min(out)
-    print(f"[serve] sample tokens (request {first}): "
-          f"{out[first][:16].tolist()}")
+    if faults is not None or eng.n_quarantined:
+        report_faults(eng, faults)
+    if out:
+        first = min(out)
+        print(f"[serve] sample tokens (request {first}): "
+              f"{out[first][:16].tolist()}")
+    write_obs(args, eng)
 
 
-def _serve_async(args, model: Model, params, kind: str, aparams) -> None:
+def _serve_async(args, model: Model, params, kind: str, aparams,
+                 faults=None) -> None:
     """Serve a synthetic (or replayed) arrival process through
     ``AsyncServer`` and report tail latency, SLO attainment and the
     preemption / swap accounting."""
@@ -310,15 +441,19 @@ def _serve_async(args, model: Model, params, kind: str, aparams) -> None:
         prefill_bucket=args.prefill_bucket or None,
         gen=GenerationConfig(temperature=args.temperature, seed=args.seed),
         prefix_cache=args.prefix_cache, preempt=args.preempt,
-        health_checks=not args.no_health_checks)
+        health_checks=not args.no_health_checks, faults=faults,
+        tracer=make_tracer(args, cfg), obs_interval=args.obs_interval)
     speedup = args.speedup if args.speedup > 0 else float("inf")
+    srv_kw = dict(admission=args.admission, retries=args.retry,
+                  retry_backoff_s=args.retry_backoff,
+                  snapshot_every=args.snapshot_every or None)
+    if args.watchdog > 0:
+        srv_kw.update(use_executor=True, watchdog_s=args.watchdog,
+                      snapshot_every=args.snapshot_every or 1)
     servers = []
 
     async def run():
-        async with AsyncServer(
-                eng, admission=args.admission, retries=args.retry,
-                retry_backoff_s=args.retry_backoff,
-                snapshot_every=args.snapshot_every or None) as srv:
+        async with AsyncServer(eng, **srv_kw) as srv:
             servers.append(srv)
             return await replay(srv, arrivals, speedup=speedup)
 
@@ -353,14 +488,15 @@ def _serve_async(args, model: Model, params, kind: str, aparams) -> None:
               f"{sw.bytes_out / 1024:.1f} KiB out / "
               f"{sw.bytes_in / 1024:.1f} KiB in (MX-packed), peak "
               f"resident {sw.peak_resident_bytes / 1024:.1f} KiB")
-    if args.retry or eng.n_quarantined:
-        srv = servers[0]
-        print(f"[serve] quarantined {eng.n_quarantined}, retries "
-              f"{srv.n_retried}, permanent failures {srv.n_failed}")
+    srv = servers[0]
+    if faults is not None or args.retry or args.watchdog > 0 \
+            or eng.n_quarantined:
+        report_faults(eng, faults, srv)
     if fin:
         first = min(fin, key=lambda r: r.rid)
         print(f"[serve] sample tokens (request {first.rid}): "
               f"{first.out[:16]}")
+    write_obs(args, eng, srv)
 
 
 def _serve_static(args, model: Model, params) -> None:

@@ -19,9 +19,13 @@ The continuous engine's series: ``engine.steps``, ``engine.syncs``,
 ``engine.preemptions`` / ``engine.restores``, ``sched.preemptions`` /
 ``sched.restores`` and the swap store's ``swap.bytes_out`` /
 ``swap.bytes_in`` with the gauge ``swap.peak_resident_bytes``; and the
-histogram ``engine.window_steps`` (decode steps per window).  The async
-front end keeps its own registry (``server.accepted``,
-``server.rejected``, ``server.retried``, ``server.failed``).
+histogram ``engine.window_steps`` (decode steps per window); with
+``obs_interval`` the MX-health gauges ``mx.scale_bytes``,
+``mx.poison_markers``, ``mx.saturation_rate``, ``mx.clip_rate`` and
+``mx.underflow_rate`` (labeled by KV role).  The async front end keeps
+its own registry (``server.accepted``, ``server.rejected``,
+``server.retried``, ``server.failed``, ``server.recoveries``);
+``MetricsRegistry.merge`` folds one registry into another.
 
 A :class:`Counter` holds labeled series (a series is keyed by its sorted
 ``(label, value)`` pairs; the empty label set is a plain scalar) and
@@ -104,6 +108,11 @@ class Counter:
             return self._series[()]
         return {_key_str(k): v for k, v in sorted(self._series.items())}
 
+    def merge(self, other: "Counter") -> None:
+        """Add ``other``'s series into this one's."""
+        for k, v in other._series.items():
+            self._series[k] = self._series.get(k, 0) + v
+
     def __repr__(self) -> str:
         return (f"<Counter {self.name!r} {len(self._series)} series>")
 
@@ -119,6 +128,10 @@ class Gauge(Counter):
     def set_max(self, value: float, **labels) -> None:
         key = _label_key(labels)
         self._series[key] = max(self._series.get(key, value), value)
+
+    def merge(self, other: "Gauge") -> None:
+        """Take ``other``'s levels (last write wins)."""
+        self._series.update(other._series)
 
     def __repr__(self) -> str:
         return f"<Gauge {self.name!r} {len(self._series)} series>"
@@ -163,6 +176,11 @@ class Histogram:
         return {_key_str(k): self._stats(v)
                 for k, v in sorted(self._series.items())}
 
+    def merge(self, other: "Histogram") -> None:
+        """Append ``other``'s samples to this one's."""
+        for k, v in other._series.items():
+            self._series.setdefault(k, []).extend(v)
+
     def __repr__(self) -> str:
         return f"<Histogram {self.name!r} {len(self._series)} series>"
 
@@ -204,6 +222,14 @@ class MetricsRegistry:
         """Zero every registered series (the counters stay registered)."""
         for m in self._metrics.values():
             m.reset()
+
+    def merge(self, other: "MetricsRegistry") -> None:
+        """Fold ``other`` into this registry: counters add, gauges take
+        the other's value, histograms extend their samples (the
+        launcher's ``--metrics-json`` folds the front end's series into
+        the engine's)."""
+        for name, m in other._metrics.items():
+            self._get(type(m), name, m.help).merge(m)
 
     def snapshot(self) -> Dict[str, Dict[str, object]]:
         """Nested plain-data view ``{"counters": {name: value-or-series},

@@ -1,12 +1,15 @@
 """Static-batch and continuous-batching serving over MX KV caches, with
-SLO-class admission, preempt-and-swap, engine snapshots and an asyncio
-front end."""
+SLO-class admission, preempt-and-swap, engine snapshots, seeded fault
+injection and an asyncio front end with retries and a stalled-step
+watchdog."""
 from repro_torch.serve.engine import (ContinuousBatchingEngine,  # noqa: F401
                                       GenerationConfig, ServeEngine)
+from repro_torch.serve.faults import (Fault, FaultError,  # noqa: F401
+                                      FaultPlan)
 from repro_torch.serve.frontend import (AsyncServer,  # noqa: F401
                                         QuarantinedError, RejectedError,
                                         RequestStream, RetriesExhausted,
-                                        latency_summary)
+                                        latency_summary, percentile)
 from repro_torch.serve.paging import (TRASH_PAGE, BlockManager,  # noqa: F401
                                       PageGrantError, pages_needed)
 from repro_torch.serve.prefix import PrefixCache  # noqa: F401

@@ -34,12 +34,27 @@ admitted swaps a less urgent one out: its packed pages go to pinned host
 memory (``serve.swap``) and come back page for page on re-admission,
 written into the pool the captured graph reads, with its sampling key,
 so its tokens are those of a run without the preemption.
-``serve.snapshot`` checkpoints and rewinds the whole engine.  Left to
-later work: fault injection and tracing.
+``serve.snapshot`` checkpoints and rewinds the whole engine.
+
+Recovery is provable through a seeded fault plan (``serve.faults``):
+the engine consults it at the reference's sites (``stall`` and
+``page_corrupt`` once per step, ``prefill_nan`` per admission,
+``alloc_fail`` through the block manager, ``swap_corrupt`` through the
+swap store), writes poison into the live pool in place and quarantines
+what the health guards catch; the front end's watchdog
+(``AsyncServer(watchdog_s=...)``) aborts a stalled step and restores the
+last snapshot.  The reference's ``kernel_fail`` site degrades a failed
+kernel to a dense path, which the port does not have: a plan holding it
+is refused.  A ``tracer`` (``obs.trace``) records per-request and engine
+spans from the ``time.perf_counter`` stamps the engine already takes (no
+extra synchronize, no extra host transfer), and ``obs_interval`` samples
+the ``mx.*`` health gauges (``obs.mxhealth``) every N windows, after the
+window's host transfer and outside the captured graph.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -50,8 +65,10 @@ from repro_torch.core.mx_weight import params_nbytes
 from repro_torch.models.decoder import request_keys, sample_tokens
 from repro_torch.models.health import slot_scale_poison
 from repro_torch.models.registry import Model
-from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.serve.faults import scrub_pool_pages
+from repro_torch.obs.metrics import MetricsRegistry, rate
+from repro_torch.obs.mxhealth import sample_mx_health
+from repro_torch.obs.trace import Tracer
+from repro_torch.serve import faults as F
 from repro_torch.serve.graphs import PagedDecodeGraph, StaticDecodeGraph
 from repro_torch.serve.paging import (TRASH_PAGE, BlockManager,
                                       PageGrantError, pages_needed)
@@ -61,6 +78,12 @@ from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
 from repro_torch.serve.swap import (HostSwapStore, SwapData,
                                     concat_snapshots, gather_pages,
                                     scatter_pages, sync, to_host)
+
+
+KERNEL_FAIL_REFUSED = (
+    "fault site 'kernel_fail': the reference degrades a failed kernel to "
+    "its dense path; the port has no degraded path (a kernel launch that "
+    "fails raises), so there is no recovery to inject this fault into")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +220,28 @@ class ContinuousBatchingEngine:
                          freed, and on re-admission the pages and its
                          sampling key come back, so its tokens are those
                          of a run without the preemption.
+    ``faults``         — optional ``serve.faults.FaultPlan`` consulted at
+                         its named sites (page_corrupt / swap_corrupt /
+                         prefill_nan / alloc_fail / stall) for
+                         deterministic fault-injection tests and recovery
+                         drills; None adds no per-step work.  A plan that
+                         holds ``kernel_fail`` raises ValueError: the port
+                         has no degraded path to recover through.
+    ``metrics``        — a shared :class:`~repro_torch.obs.metrics
+                         .MetricsRegistry`; None creates a private one.
+                         Every serving series (engine, scheduler, block
+                         manager, prefix cache, swap store) lives in it.
+    ``tracer``         — optional :class:`~repro_torch.obs.trace.Tracer`:
+                         per-request spans (queued / prefill / decode
+                         windows / preempt / restore / quarantine /
+                         retry) and engine phase spans, recorded from the
+                         stamps the engine already takes; the tokens are
+                         those of a run without it.
+    ``obs_interval``   — sample the MX-health gauges (``mx.*``: scale
+                         poison markers, saturation / clip and underflow
+                         rates per KV role) every N sync windows; 0
+                         never samples.  Each sample is one device
+                         reduction and one host transfer.
     """
 
     _PHASES = ("prefill", "decode", "sync", "swap")
@@ -207,12 +252,18 @@ class ContinuousBatchingEngine:
                  gen: GenerationConfig = GenerationConfig(),
                  sync_every: int = 8, prefill_bucket: Optional[int] = None,
                  prefix_cache: bool = False, preempt: bool = False,
-                 health_checks: bool = True):
+                 health_checks: bool = True,
+                 faults: Optional[F.FaultPlan] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 tracer: Optional[Tracer] = None, obs_interval: int = 0):
         if not model.supports_paged():
             raise NotImplementedError(
                 f"{model.cfg.name}: continuous batching needs a GQA decoder")
         if sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+        if faults is not None and any(f.site == "kernel_fail"
+                                      for f in faults.faults):
+            raise ValueError(KERNEL_FAIL_REFUSED)
         if prefix_cache and model.cfg.mx.kv_key is None \
                 and model.cfg.attn_impl == "flash":
             raise ValueError(
@@ -235,7 +286,9 @@ class ContinuousBatchingEngine:
         if num_pages is None:
             # full occupancy: every slot can hold max_len, plus trash
             num_pages = 1 + max_slots * self.max_pages_per_slot
-        self.metrics = MetricsRegistry()
+        self.metrics = MetricsRegistry() if metrics is None else metrics
+        self.tracer = tracer
+        self.obs_interval = int(obs_interval)
         self.blocks = BlockManager(num_pages, page_size, max_slots,
                                    self.max_pages_per_slot,
                                    metrics=self.metrics)
@@ -244,7 +297,15 @@ class ContinuousBatchingEngine:
         self.scheduler = Scheduler(max_slots, self.blocks,
                                    prefix=self.prefix, metrics=self.metrics)
         self.preempt = bool(preempt)
+        self.faults = faults
         self.swap_store = HostSwapStore(metrics=self.metrics)
+        if faults is not None:
+            # alloc_fail fires through the block manager's grant hook (only
+            # non-trivial ensure() grants consult it: admission's reserved
+            # allocations stay exact), swap_corrupt through the store's put
+            self.blocks.fault_hook = (
+                lambda n: faults.should_fire("alloc_fail") is not None)
+            self.swap_store.faults = faults
         self.pool = model.init_paged_cache(num_pages, page_size)
         self.vocab = model.cfg.vocab
         self._next_rid = 0
@@ -254,6 +315,8 @@ class ContinuousBatchingEngine:
         self._bt_version = -1
         self._step_progress = False     # quarantine/swap counts as progress
         self.quarantined_in_step: List[Request] = []
+        self._stall_abort = threading.Event()
+        self.stall_aborted = False      # the watchdog cut a stalled step
         # requests finished before this index of scheduler.finished predate
         # the last reset_metrics and are left out of finished_in_window
         self._metrics_start = 0
@@ -399,7 +462,23 @@ class ContinuousBatchingEngine:
                                  else arrival_t))
         self.scheduler.submit(req)
         self._next_rid += 1
+        if self.tracer is not None:
+            self.tracer.begin("request", cat="request", rid=req.rid,
+                              ts=req.arrival_t,
+                              prompt_len=int(req.prompt_len),
+                              max_new_tokens=int(max_new_tokens),
+                              priority=int(priority))
+            self.tracer.begin("queued", cat="request", rid=req.rid,
+                              ts=req.arrival_t)
         return req.rid
+
+    def _reopen_track(self, req: Request) -> None:
+        """Open the per-request root span again on a track a snapshot
+        restore's reconciliation closed."""
+        self.tracer.begin("request", cat="request", rid=req.rid,
+                          prompt_len=int(req.prompt_len),
+                          max_new_tokens=int(req.max_new_tokens),
+                          priority=int(req.priority))
 
     def retry_request(self, req: Request) -> None:
         """Re-queue a quarantined request for another attempt (the engine
@@ -407,6 +486,12 @@ class ContinuousBatchingEngine:
         sampling stream restarts and a healthy replay is token-identical
         at any temperature."""
         self.scheduler.requeue(req)
+        if self.tracer is not None:
+            if not self.tracer.open_spans(req.rid):
+                self._reopen_track(req)
+            self.tracer.instant("retry", cat="request", rid=req.rid,
+                                attempt=int(req.n_retries))
+            self.tracer.begin("queued", cat="request", rid=req.rid)
 
     def resubmit(self, req: Request) -> None:
         """Re-enter a request the engine no longer tracks (one submitted
@@ -422,6 +507,18 @@ class ContinuousBatchingEngine:
         req.cow_pending = 0
         req.swap_pages = 0
         self.scheduler.submit(req)
+        if self.tracer is not None:
+            if not self.tracer.open_spans(req.rid):
+                self._reopen_track(req)
+            else:
+                self.tracer.unwind(req.rid, keep=1)
+            self.tracer.instant("resubmit", cat="request", rid=req.rid)
+            self.tracer.begin("queued", cat="request", rid=req.rid)
+
+    def abort_stall(self) -> None:
+        """Cut a faulted ``stall`` wait short (safe from the watchdog's
+        thread)."""
+        self._stall_abort.set()
 
     def step(self) -> List[Tuple[int, int]]:
         """One host sync cycle: swap victims out (with ``preempt``), admit
@@ -434,6 +531,10 @@ class ContinuousBatchingEngine:
         emitted: List[Tuple[int, int]] = []
         self.quarantined_in_step = []
         self._step_progress = False
+        if self.faults is not None:
+            self._consult_step_faults()
+            if self.stall_aborted:
+                return emitted          # the watchdog cut the stall short
         if self.preempt:
             # one victim at a time until the waiting head fits or no
             # strictly lower-priority runner remains; admit() below
@@ -442,7 +543,19 @@ class ContinuousBatchingEngine:
                 self._swap_out(victim)
         t0 = time.perf_counter()
         admitted = self.scheduler.admit()
-        self._phase_add("sync", time.perf_counter() - t0)
+        t_adm = time.perf_counter()
+        self._phase_add("sync", t_adm - t0)
+        if self.tracer is not None:
+            for r in admitted:
+                # re-admissions (restore, retry) opened "queued" again; a
+                # track without it was reconciled by a snapshot restore
+                if self.tracer.top(r.rid) == "queued":
+                    self.tracer.end("queued", cat="request", rid=r.rid,
+                                    ts=t_adm)
+                self.tracer.instant(
+                    "admitted", cat="request", rid=r.rid, ts=t_adm,
+                    slot=int(r.slot), matched_tokens=int(r.matched_tokens),
+                    restored=r.rid in self.swap_store)
         if admitted:
             self._batched_prefill(admitted, emitted)
         t0 = time.perf_counter()
@@ -485,6 +598,17 @@ class ContinuousBatchingEngine:
         self._c_steps.inc(window)
         self._c_syncs.inc()
         self._h_window.observe(window)
+        if self.tracer is not None:
+            # both spans reuse the window's two stamps: the tracer adds no
+            # synchronize and no transfer of its own
+            self.tracer.span("decode_window", t0=t1, t1=t2,
+                             steps=int(window), live=len(snapshot))
+            for slot, req in snapshot:
+                self.tracer.span(
+                    "decode", cat="request", rid=req.rid, t0=t1, t1=t2,
+                    steps=int(min(window, rem0[slot])), slot=int(slot))
+        if self.obs_interval and self.n_syncs % self.obs_interval == 0:
+            self._sample_mx_health()
         for t in range(window):
             for slot, req in snapshot:
                 if badl[slot] or poison[slot]:
@@ -529,6 +653,46 @@ class ContinuousBatchingEngine:
         return {r.rid: np.asarray(r.out, np.int32)
                 for r in self.scheduler.finished[start:]}
 
+    def _consult_step_faults(self) -> None:
+        """Step-scoped fault sites, in the reference's order: ``stall``
+        waits (cooperatively: ``abort_stall`` cuts it short, as the front
+        end's watchdog does before it restores a snapshot);
+        ``page_corrupt`` writes SCALE_NAN markers into one live KV
+        position's scale bytes in every layer (NaN into an fp pool) —
+        what a faulty converter or DMA would leave behind — in place, in
+        the pool the captured graph reads."""
+        plan = self.faults
+        self.stall_aborted = False
+        f = plan.should_fire("stall")
+        if f is not None:
+            if self.tracer is not None:
+                self.tracer.instant("fault:stall", stall_s=f.stall_s)
+            deadline = time.monotonic() + f.stall_s
+            while time.monotonic() < deadline:
+                if self._stall_abort.is_set():
+                    self._stall_abort.clear()
+                    self.stall_aborted = True
+                    return
+                time.sleep(0.002)
+        f = plan.should_fire("page_corrupt")
+        if f is not None and self.scheduler.running:
+            cands = sorted(self.scheduler.running.items())
+            if f.rid is not None:
+                cands = [(s, r) for s, r in cands if r.rid == f.rid]
+            if cands:
+                rng = plan.rng("page_corrupt")
+                slot, _ = cands[int(rng.integers(len(cands)))]
+                length = int(self._lengths[slot])
+                if length > 0:
+                    pos = int(rng.integers(length))
+                    pid = self.blocks.slot_page_ids(slot)[
+                        pos // self.page_size]
+                    F.poison_pool_pages(self.pool, [pid],
+                                        offset=pos % self.page_size)
+                    if self.tracer is not None:
+                        self.tracer.instant("fault:page_corrupt",
+                                            page=int(pid), pos=pos)
+
     # ------------------------------------------------------------ internals
     def _upload_tables(self) -> None:
         """Copy the host block table into the captured step's buffer, only
@@ -558,7 +722,8 @@ class ContinuousBatchingEngine:
                                          self.model.cfg)
             out.append(bad.to(torch.int32))
         host = torch.cat(out).cpu().numpy()
-        return host[:g], keys, host[g:] != 0
+        bad = host[g:] != 0 if self.health_checks else np.zeros(g, bool)
+        return host[:g], keys, bad
 
     def _prefill_scatter(self, tokens: np.ndarray, lens: np.ndarray,
                          rids: List[int], page_ids: np.ndarray):
@@ -597,6 +762,12 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         cold = [r for r in admitted if r.matched_tokens == 0]
         hits = [r for r in admitted if r.matched_tokens > 0]
+        if self.tracer is not None:
+            # an open pair, not a span from two stamps: a first-decode
+            # page grant can swap a request out inside _finish_prefill,
+            # and that swap_out span must nest inside this one
+            self.tracer.begin("prefill_batch", ts=t0, cold=len(cold),
+                              hits=len(hits))
         for lp, reqs in self._buckets(cold, lambda r: r.prompt_len):
             toks = np.zeros((len(reqs), lp), np.int32)
             lens = np.zeros(len(reqs), np.int32)
@@ -607,16 +778,20 @@ class ContinuousBatchingEngine:
             # rows are trash-padded past each request's allocation, so a
             # bucket-padded prompt's excess pages scatter harmlessly
             page_ids = self.blocks.tables[slots, :lp // self.page_size]
+            tb = time.perf_counter()
             first, keys, bad = self._prefill_scatter(
                 toks, lens, [r.rid for r in reqs], page_ids)
             self.window.keys[torch.from_numpy(slots).to(self.device)] = keys
             self._c_prefill_batches.inc()
-            self._finish_prefill(reqs, first, bad, emitted)
+            self._finish_prefill(reqs, first, bad, emitted, tb)
         if hits:
             self._cow_forks(hits)
             self._hit_prefill(hits, emitted)
         self._note_page_stats()
-        self._phase_add("prefill", time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self._phase_add("prefill", t1 - t0)
+        if self.tracer is not None:
+            self.tracer.end("prefill_batch", ts=t1)
 
     def _buckets(self, reqs: List[Request], tokens):
         """(padded length, requests) groups, shortest first: ``tokens(r)``
@@ -668,6 +843,7 @@ class ContinuousBatchingEngine:
                 starts[i] = s0
                 lens[i] = r.prompt_len
             bt = self.window.block_tables[slots]
+            tb = time.perf_counter()
             starts_d = torch.from_numpy(starts).to(dev)
             lens_d = torch.from_numpy(lens).to(dev)
             logits, _ = self.model.paged_prefill_suffix(
@@ -681,20 +857,38 @@ class ContinuousBatchingEngine:
             self.window.keys[slots] = keys
             self._c_prefill_batches.inc()
             self._c_hit_batches.inc()
-            self._finish_prefill(reqs, first, bad, emitted)
+            self._finish_prefill(reqs, first, bad, emitted, tb)
 
     def _finish_prefill(self, reqs: List[Request], first: np.ndarray,
-                        bad: np.ndarray,
-                        emitted: List[Tuple[int, int]]) -> None:
+                        bad: np.ndarray, emitted: List[Tuple[int, int]],
+                        t0: float) -> None:
         """Admission epilogue (the keys are installed): emit each request's
         first token, stamped now (after its host transfer: TTFT), account
         its prefilled positions and grant the first decode write's page;
-        a flagged request is quarantined instead, and a failed grant swaps
-        the request out to resume later."""
+        a flagged request — or one whose ``prefill_nan`` fault fires here
+        — is quarantined instead, and a failed grant (``alloc_fail``)
+        swaps the request out to resume later.  ``t0`` is the bucket's
+        stamp before its prefill: a tracer records each request's
+        "prefill" span from it to now."""
         now = time.perf_counter()
+        if self.tracer is not None:
+            for r in reqs:
+                self.tracer.span(
+                    "prefill", cat="request", rid=r.rid, t0=t0, t1=now,
+                    tokens=int(r.prompt_len - r.prefill_start),
+                    suffix=bool(r.prefill_start))
         for i, r in enumerate(reqs):
             self._c_prefill_tokens.inc(r.prompt_len - r.prefill_start)
-            if bad.size and bad[i]:
+            if self.faults is not None and self.faults.should_fire(
+                    "prefill_nan", rid=r.rid) is not None:
+                # poison exactly the pages holding the prompt's KV: the
+                # padded tail of the row may alias the trash page, which
+                # every slot reads
+                n_live = pages_needed(r.prompt_len, self.page_size)
+                F.poison_pool_pages(
+                    self.pool, self.blocks.slot_page_ids(r.slot)[:n_live])
+                bad[i] = True
+            if bad[i]:
                 self._quarantine(
                     r, "numeric-health guard: non-finite logits or MX "
                        "poison marker at prefill")
@@ -738,9 +932,16 @@ class ContinuousBatchingEngine:
         # (still mapped by another slot or pinned by the trie) is read by
         # its other owners, whose own health scans judge it
         dead = [pg for pg in ids if self.blocks.page_refcount(pg) == 0]
-        scrub_pool_pages(self.pool, dead)
+        F.scrub_pool_pages(self.pool, dead)
         req.t_finished = time.perf_counter()
         self._c_quar.inc()
+        if self.tracer is not None:
+            # leave only the per-request root open: the front end either
+            # retries (opening "queued" again) or closes the track with a
+            # terminal status once the retry budget is spent
+            self.tracer.unwind(req.rid, ts=req.t_finished, keep=1)
+            self.tracer.instant("quarantine", cat="request", rid=req.rid,
+                                ts=req.t_finished, error=diag)
         self.quarantined_in_step.append(req)
         self._step_progress = True
         self._cur_tok[slot] = 0
@@ -760,6 +961,10 @@ class ContinuousBatchingEngine:
             self.prefix.insert(seq, self.blocks.slot_page_ids(slot)[:n_full])
         self.scheduler.evict(req)
         req.t_finished = time.perf_counter()
+        if self.tracer is not None:
+            self.tracer.unwind(req.rid, ts=req.t_finished, keep=1)
+            self.tracer.close_track(req.rid, ts=req.t_finished,
+                                    status="finished", tokens=len(req.out))
         self._cur_tok[slot] = 0
         self._lengths[slot] = 0
         self._remaining[slot] = 0
@@ -786,7 +991,14 @@ class ContinuousBatchingEngine:
         self._cur_tok[slot] = 0
         self._lengths[slot] = 0
         self._remaining[slot] = 0
-        self._phase_add("swap", time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self._phase_add("swap", t1 - t0)
+        if self.tracer is not None:
+            self.tracer.span("swap_out", t0=t0, t1=t1, pages=len(ids),
+                             nbytes=nbytes)
+            self.tracer.instant("preempt", cat="request", rid=req.rid,
+                                ts=t1, pages=len(ids))
+            self.tracer.begin("queued", cat="request", rid=req.rid, ts=t1)
 
     def _restore_swapped(self, reqs: List[Request]) -> None:
         """Re-admission of preempted requests: write their saved pages into
@@ -821,4 +1033,60 @@ class ContinuousBatchingEngine:
             self._c_restores.inc()
         self._note_page_stats()
         sync(self.device)               # the swap phase ends on the host
-        self._phase_add("swap", time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self._phase_add("swap", t1 - t0)
+        if self.tracer is not None:
+            self.tracer.span("swap_restore", t0=t0, t1=t1,
+                             requests=len(reqs), pages=len(ids))
+            for r, data in zip(reqs, datas):
+                self.tracer.span("restore", cat="request", rid=r.rid,
+                                 t0=t0, t1=t1, pages=data.n_pages,
+                                 slot=int(r.slot))
+
+    # ---------------------------------------------------- MX-health gauges
+    def _sample_mx_health(self) -> None:
+        """One device reduction over the live KV pages, read back in one
+        host transfer, published as the ``mx.*`` gauges per KV role:
+        scale bytes scanned, poison markers, and the shared-scale
+        saturation (== block clip under a shared scale) and underflow
+        rates.  Runs after the window's host transfer, on the same
+        stream, outside the captured graph; the lengths are those the
+        window started from, as in the reference."""
+        stats = sample_mx_health(
+            self.pool, self.window.block_tables,
+            torch.from_numpy(self._lengths), self.model.cfg)
+        m = self.metrics
+        for role, st in stats.items():
+            nb = st["scale_bytes"]
+            m.gauge("mx.scale_bytes",
+                    "E8M0 scale bytes in live KV pages").set(nb, role=role)
+            m.gauge("mx.poison_markers",
+                    "scale bytes at/above the mode's poison threshold"
+                    ).set(st["poison"], role=role)
+            m.gauge("mx.saturation_rate",
+                    "fraction of blocks at the max legal shared scale"
+                    ).set(rate(st["saturated"], nb), role=role)
+            m.gauge("mx.clip_rate",
+                    "fraction of blocks clipping elements (== the "
+                    "saturation rate: a shared scale at top-of-range is "
+                    "exactly the block-clip indicator)"
+                    ).set(rate(st["saturated"], nb), role=role)
+            m.gauge("mx.underflow_rate",
+                    "fraction of blocks with a zero shared scale"
+                    ).set(rate(st["underflow"], nb), role=role)
+
+    def finalize_trace(self) -> None:
+        """Close every request track still open (queued, swapped-out, or
+        failed-without-retry requests at shutdown) so the exported trace
+        validates: failed requests close with status "failed", the rest
+        "aborted".  Idempotent; the launcher calls it before writing the
+        trace files."""
+        if self.tracer is None:
+            return
+        failed = {r.rid for r in self.scheduler.failed}
+        for rid in self.tracer.open_tracks():
+            if rid is None:
+                continue
+            self.tracer.close_track(
+                rid, status="failed" if rid in failed else "aborted")
+        self.tracer.close_track(None)

@@ -160,13 +160,22 @@ class AsyncServer:
                          attempts the stream raises
                          :class:`RetriesExhausted` (``retries=0`` raises
                          :class:`QuarantinedError` at once).
+    ``watchdog_s``     — stalled-step watchdog (needs
+                         ``use_executor=True``): when one engine step
+                         runs longer than this, the server aborts the
+                         stall cooperatively (``engine.abort_stall``),
+                         waits for the aborted step to return, and only
+                         then restores the last snapshot in place; streams
+                         resume token-identically (tokens already
+                         delivered are skipped on replay).
+                         ``server.recoveries`` counts the restores.  It
+                         must comfortably exceed the slowest healthy step,
+                         or a slow step trips a (sound, token-identical,
+                         wasteful) recovery.
     ``snapshot_every`` — take an engine snapshot (``serve.snapshot``)
-                         every N completed steps, one at start;
+                         every N completed steps; one is taken at start
+                         when this or ``watchdog_s`` is set.
                          ``last_snapshot`` holds the latest.
-    ``watchdog_s``     — the reference's stalled-step watchdog, which only
-                         its fault plan's ``stall`` site triggers; both
-                         come with that port (ROADMAP A6), and a value
-                         other than None raises NotImplementedError.
 
     Use as an async context manager (starts and stops the step loop), or
     call :meth:`start` / :meth:`stop`.
@@ -185,11 +194,11 @@ class AsyncServer:
             raise ValueError(f"max_queued must be >= 1, got {max_queued}")
         if retries < 0:
             raise ValueError(f"retries must be >= 0, got {retries}")
-        if watchdog_s is not None:
-            raise NotImplementedError(
-                "watchdog_s: the stalled-step watchdog and the fault plan "
-                "whose 'stall' site triggers it are not ported yet "
-                "(ROADMAP A6)")
+        if watchdog_s is not None and not use_executor:
+            raise ValueError(
+                "watchdog_s requires use_executor=True: without the "
+                "executor the step blocks the event loop and a stalled "
+                "step could never be timed out")
         if snapshot_every is not None and snapshot_every < 1:
             raise ValueError(
                 f"snapshot_every must be >= 1, got {snapshot_every}")
@@ -200,7 +209,10 @@ class AsyncServer:
         self.retries = int(retries)
         self.retry_backoff_s = float(retry_backoff_s)
         self.snapshot_every = snapshot_every
+        self.watchdog_s = watchdog_s
         self.last_snapshot = None           # snapshot.EngineSnapshot
+        # tokens each stream had received when last_snapshot was taken
+        self._snap_pushed: Dict[int, int] = {}
         self._pending: collections.deque = collections.deque()
         self._requeue: collections.deque = collections.deque()
         self._streams: Dict[int, RequestStream] = {}
@@ -221,6 +233,8 @@ class AsyncServer:
             "server.retried", "retry attempts dispatched")
         self._c_failed = self.metrics.counter(
             "server.failed", "terminal quarantines")
+        self._c_recoveries = self.metrics.counter(
+            "server.recoveries", "watchdog snapshot restores")
 
     @property
     def n_accepted(self) -> int:
@@ -237,6 +251,19 @@ class AsyncServer:
     @property
     def n_failed(self) -> int:
         return int(self._c_failed.value())
+
+    @property
+    def n_recoveries(self) -> int:
+        return int(self._c_recoveries.value())
+
+    def obs_snapshot(self) -> Dict[str, object]:
+        """One structured view of the serving process: the server's own
+        series, the engine registry (engine, scheduler, paging, prefix,
+        swap and ``mx.*`` series) and the latency summary over the
+        current measurement window; JSON-serializable."""
+        return {"server": self.metrics.snapshot(),
+                "engine": self.engine.metrics.snapshot(),
+                "latency": latency_summary(self.engine.finished_in_window)}
 
     # ------------------------------------------------------------ lifecycle
     async def __aenter__(self) -> "AsyncServer":
@@ -350,23 +377,40 @@ class AsyncServer:
 
     async def _loop(self) -> None:
         loop = asyncio.get_running_loop()
-        if self.snapshot_every is not None:
+        if self.watchdog_s is not None or self.snapshot_every is not None:
             self._take_snapshot()
         while True:
             self._apply_pending()
             if self.engine.scheduler.has_work():
+                recovered = False
                 if self.use_executor:
-                    emitted = await loop.run_in_executor(
-                        None, self._step_in_worker)
+                    step = loop.run_in_executor(None, self._step_in_worker)
+                    if self.watchdog_s is None:
+                        emitted = await step
+                    else:
+                        try:
+                            emitted = await asyncio.wait_for(
+                                asyncio.shield(step), self.watchdog_s)
+                        except asyncio.TimeoutError:
+                            # a stalled step: cut it short, wait until it
+                            # has returned (nothing may race the restore),
+                            # then roll the engine back to the snapshot;
+                            # its work is discarded and replayed
+                            self.engine.abort_stall()
+                            await step
+                            self._recover_from_snapshot()
+                            recovered = True
                 else:
                     emitted = self.engine.step()
                     await asyncio.sleep(0)  # let submitters interleave
-                self._publish(emitted)
-                self._handle_quarantines(loop)
-                self._steps_since_snap += 1
-                if self.snapshot_every is not None \
-                        and self._steps_since_snap >= self.snapshot_every:
-                    self._take_snapshot()
+                if not recovered:
+                    self._publish(emitted)
+                    self._handle_quarantines(loop)
+                    self._steps_since_snap += 1
+                    if self.snapshot_every is not None \
+                            and self._steps_since_snap \
+                            >= self.snapshot_every:
+                        self._take_snapshot()
             async with self._space:
                 self._space.notify_all()
             if not self.engine.scheduler.has_work() \
@@ -418,6 +462,11 @@ class AsyncServer:
                                 self._requeue_later, req)
                 continue
             self._c_failed.inc()
+            tr = self.engine.tracer
+            if tr is not None and tr.open_spans(req.rid):
+                # the engine unwound the track to its root at quarantine;
+                # a spent retry budget is the terminal close
+                tr.close_track(req.rid, status="failed")
             stream = self._streams.pop(req.rid, None)
             self._skip.pop(req.rid, None)
             if stream is None:
@@ -439,4 +488,44 @@ class AsyncServer:
 
     def _take_snapshot(self) -> None:
         self.last_snapshot = snapshot_mod.capture(self.engine)
+        self._snap_pushed = {rid: st.n_pushed
+                             for rid, st in self._streams.items()}
         self._steps_since_snap = 0
+
+    def _recover_from_snapshot(self) -> None:
+        """Roll the engine back to the last snapshot (in place: the
+        captured decode graph reads the pool and keys it writes) and
+        reconcile the live streams: tokens delivered since the snapshot
+        will be emitted again identically, so each stream skips exactly
+        that many; requests the snapshot never saw are resubmitted
+        whole."""
+        snap = self.last_snapshot
+        snapshot_mod.restore(self.engine, snap)
+        self.engine._stall_abort.clear()    # no stale abort latch
+        tr = self.engine.tracer
+        if tr is not None:
+            # reconcile the rolled-back tracks before the replay: spans
+            # opened since the snapshot no longer happened — unwind each
+            # live track to its root, and open "queued" again for
+            # requests the restore put back in the queues
+            tr.instant("snapshot_restore",
+                       recoveries=self.n_recoveries + 1)
+            for req, _ in snap.requests:
+                if not tr.open_spans(req.rid):
+                    continue
+                tr.unwind(req.rid, keep=1)
+                if req.state in (RequestState.WAITING,
+                                 RequestState.SWAPPED):
+                    tr.begin("queued", cat="request", rid=req.rid)
+        known = {r.rid for r, _ in snap.requests}
+        for rid, stream in list(self._streams.items()):
+            if rid in known:
+                self._skip[rid] = \
+                    stream.n_pushed - self._snap_pushed.get(rid, 0)
+            else:
+                # submitted after the snapshot: the restore dropped it
+                # from the queues; enter it again whole and skip all the
+                # stream already got
+                self.engine.resubmit(stream.request)
+                self._skip[rid] = stream.n_pushed
+        self._c_recoveries.inc()

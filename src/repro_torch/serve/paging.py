@@ -21,8 +21,8 @@ goes through ``fork_page`` (copy-on-write): the writer gets a fresh
 private page and the shared original is decref'd, so no owner ever
 observes another request's writes.  Preemption releases a slot through
 ``swap_out`` after the engine copied its pages to the host swap store
-(``serve.swap``).  The reference's fault-injection hook comes with its
-fault plan.
+(``serve.swap``).  ``fault_hook`` (the fault plan's ``alloc_fail``
+site) may fail a page grant of ``ensure``.
 """
 from __future__ import annotations
 
@@ -110,6 +110,9 @@ class BlockManager:
         self._shared: List[List[bool]] = [[] for _ in range(max_slots)]
         self._table_refs = np.zeros(num_pages, np.int32)
         self._pins = np.zeros(num_pages, np.int32)
+        # fault-injection hook (serve.faults): called with the page count
+        # of every non-trivial ensure(); returning True fails that grant
+        self.fault_hook = None
 
     # ------------------------------------------------------------- queries
     @property
@@ -243,7 +246,11 @@ class BlockManager:
     def ensure(self, slot: int, tokens: int) -> bool:
         """Grow ``slot``'s allocation to cover ``tokens`` positions."""
         need = pages_needed(tokens, self.page_size) - self.slot_pages(slot)
-        return need <= 0 or self.allocate(slot, need)
+        if need <= 0:
+            return True
+        if self.fault_hook is not None and self.fault_hook(need):
+            return False
+        return self.allocate(slot, need)
 
     def pin(self, page: int) -> None:
         """External (prefix-cache) reference: the page survives ``release``

@@ -204,3 +204,4 @@ def restore(engine, snap: EngineSnapshot) -> None:
     sync(engine.device)
     engine._bt_version = -1         # upload the block table again
     engine.quarantined_in_step = []
+    engine.stall_aborted = False

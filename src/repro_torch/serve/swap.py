@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.serve.faults import corrupt_swap_payload
 
 Pages = Dict[str, torch.Tensor]     # pool leaf name -> host page contents
 
@@ -117,7 +118,9 @@ class HostSwapStore:
     registry-backed views, writable because snapshot restore rewinds
     them.  ``reset_counters`` zeroes the traffic counters for a
     measurement window and keeps the stored entries: a request swapped
-    out before the window must still restore after it."""
+    out before the window must still restore after it.  ``faults`` (a
+    ``serve.faults.FaultPlan``) is consulted at its ``swap_corrupt`` site
+    once per ``put``."""
 
     def __init__(self, metrics: Optional[MetricsRegistry] = None):
         self._entries: Dict[int, SwapData] = {}
@@ -128,6 +131,7 @@ class HostSwapStore:
             "swap.bytes_in", "host -> device restore traffic")
         self._g_peak = self.metrics.gauge(
             "swap.peak_resident_bytes", "peak host-resident swap bytes")
+        self.faults = None          # serve.faults.FaultPlan (swap_corrupt)
 
     @property
     def bytes_out(self) -> int:
@@ -166,6 +170,13 @@ class HostSwapStore:
     def put(self, rid: int, data: SwapData) -> None:
         if rid in self._entries:
             raise ValueError(f"swap store: request {rid} already resident")
+        if self.faults is not None and \
+                self.faults.should_fire("swap_corrupt",
+                                        rid=rid) is not None:
+            # poison the host payload in place: the restore writes it
+            # back and the next decode window's health guard quarantines
+            # exactly this request
+            corrupt_swap_payload(data.pages)
         self._entries[rid] = data
         self._c_out.inc(data.nbytes)
         self._g_peak.set_max(self.resident_bytes)

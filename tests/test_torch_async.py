@@ -182,8 +182,10 @@ def test_server_validates_args_and_state(setup):
         AsyncServer(eng, max_queued=0)
     with pytest.raises(ValueError, match="snapshot_every"):
         AsyncServer(eng, snapshot_every=0)
-    with pytest.raises(NotImplementedError, match="A6"):
-        AsyncServer(eng, use_executor=True, watchdog_s=5.0)
+    with pytest.raises(ValueError, match="use_executor"):
+        AsyncServer(eng, watchdog_s=5.0)
+    assert AsyncServer(eng, use_executor=True, watchdog_s=5.0).watchdog_s \
+        == 5.0
 
     async def go():
         with pytest.raises(RuntimeError, match="not running"):

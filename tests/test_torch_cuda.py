@@ -1203,3 +1203,106 @@ def test_async_server_on_card(dev, use_executor):
             return [(await s.tokens()).tolist() for s in streams]
 
     assert asyncio.run(asyncio.wait_for(go(), 300)) == want
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_bf16_head_dim_96(dev, paged):
+    """bf16 q at head dim 96 (a multiple of 32 the tensor-core kernels are
+    not built for) runs the CUDA-core kernel on an f32 copy of q: one
+    launch, a bf16 output within torch's bf16 defaults of the plain
+    version."""
+    kspec, vspec = (QuantSpec.parse(s) for s in ("int8@32:ocp",
+                                                 "e2m1@32:ocp"))
+    rng = np.random.default_rng(96)
+    if paged:
+        args, kw = _bf16_paged(rng, kspec, vspec, rep=16, hkv=2, d=96)
+        fn = mx_paged_decode_attention
+        calls = [args]
+    else:
+        args, kw = _bf16_contiguous(rng, 16, 2, 96)
+        fn = mx_decode_attention
+        calls = [args + [pos] for pos in (0, 63, 64, 575, 639)]
+    for call in calls:
+        want = fn(*call, **kw)
+        before = fn.launches
+        got = fn(*(t.to(dev) if torch.is_tensor(t) else t for t in call),
+                 **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.cpu(), want)
+
+
+def test_poison_written_in_place_is_seen_by_the_next_replay(dev):
+    """A ``page_corrupt`` fault writes SCALE_NAN into the live pool the
+    captured decode graph reads: the next replayed window flags exactly
+    the target, which is quarantined with its pages scrubbed, and the
+    other requests keep the tokens of a clean run."""
+    from repro_torch.serve import ContinuousBatchingEngine, FaultPlan
+    model, params = _full_width_2_layers(dev)
+    prompts = _prompts(model.cfg.vocab, 3, 20, 60, seed=6)
+
+    def engine(plan=None):
+        return ContinuousBatchingEngine(model, params, max_slots=4,
+                                        page_size=16, max_len=100,
+                                        sync_every=4, prefill_bucket=32,
+                                        faults=plan)
+
+    clean = engine()
+    want = dict(zip(range(3), _serve_all(clean, prompts, 16)))
+    plan = FaultPlan.parse("page_corrupt:nth=1:rid=1", seed=2)
+    eng = engine(plan)
+    scrubbed = []
+    quarantine = eng._quarantine
+
+    def watched(req, diag):
+        ids = eng.blocks.slot_page_ids(req.slot)
+        quarantine(req, diag)
+        dead = [i for i in ids if eng.blocks.page_refcount(i) == 0]
+        # zeros as they return to the free list (a later grant reuses them)
+        scrubbed.append(all(not leaf[:, dead].any()
+                            for leaf in eng.pool.values()) and bool(dead))
+
+    eng._quarantine = watched
+    rids = [eng.add_request(p, 16) for p in prompts]
+    out = eng.run()
+    assert plan.fired == [("page_corrupt", None, 1)]
+    assert [r.rid for r in eng.scheduler.failed] == [1]
+    assert scrubbed == [True]
+    for r in rids:
+        if r != 1:
+            assert out[r].tolist() == want[r], r
+
+
+def test_watchdog_recovers_a_stalled_step_on_card(dev):
+    """``AsyncServer(use_executor=True, watchdog_s=5)`` cuts a 60 s
+    injected stall, restores the last snapshot into the pool the graph
+    reads, and every stream ends with the clean run's tokens."""
+    import asyncio
+    import time
+    from repro_torch.serve import (AsyncServer, ContinuousBatchingEngine,
+                                   FaultPlan)
+    model, params = _full_width_2_layers(dev)
+    prompts = _prompts(model.cfg.vocab, 3, 20, 60, seed=7)
+
+    def engine(plan=None):
+        return ContinuousBatchingEngine(model, params, max_slots=4,
+                                        page_size=16, max_len=100,
+                                        sync_every=4, prefill_bucket=32,
+                                        faults=plan)
+
+    want = _serve_all(engine(), prompts, 16)
+    plan = FaultPlan.parse("stall:nth=2:stall_s=60", seed=13)
+    eng = engine(plan)
+
+    async def go():
+        async with AsyncServer(eng, use_executor=True, watchdog_s=5.0,
+                               snapshot_every=1) as srv:
+            streams = [await srv.submit(p, 16) for p in prompts]
+            return srv, [(await s.tokens()).tolist() for s in streams]
+
+    t0 = time.perf_counter()
+    srv, got = asyncio.run(asyncio.wait_for(go(), 120))
+    assert time.perf_counter() - t0 < 40
+    assert srv.n_recoveries >= 1 and ("stall", None, 2) in plan.fired
+    assert got == want
