@@ -26,6 +26,16 @@ failure (the script then exits non-zero and prints no result line):
    attention also with pos in device memory (bit-identical to the host
    int), and bf16 q at head dim 96 (routed to the CUDA-core kernels); the
    LM head's bf16 -> f32 product, timed beside the f32 copy it replaced;
+   then the kernels at the shapes of the rest of the GQA family: the MX
+   matmul at moonshot-v1-16b-a3b's expert shapes (K 2048 x N 1408 and
+   1408 x 2048) through ``MXWeight.take`` views of a 64-expert stack at M
+   1 and M 480 (rows bit-identical across the two), one MoE layer's 64
+   expert launches against their plain version, replayed from a graph
+   beside their byte bound and one batched torch.matmul, and
+   yi-34b's w1 (7168 x 20480) at M 8; both decode attentions at GQA
+   groups 1 (16 heads over 16) and 7 (56 over 8); the fused KV write at 16
+   and 8 KV heads; flash attention at head dim 192 (the head-dim-256
+   build, which may not spill registers) in f32 and bf16;
 3. load full-width chatglm3-6b (28 layers, random weights from a seed,
    quantized to MX by the converter as each layer is made) and serve it
    through ``ContinuousBatchingEngine`` with 8-bit MX weights, INT8 key
@@ -36,7 +46,8 @@ failure (the script then exits non-zero and prints no result line):
    greedy and at temperature 0.8; hold one replayed window against the
    eager loop of the same step (identical tokens, keys and flags,
    byte-identical pools), greedy and sampled, and confirm one replay's
-   launches with the profiler; quarantine a prompt with a NaN embedding
+   launches in the captured graph's kernel nodes and with the profiler;
+   quarantine a prompt with a NaN embedding
    row while its neighbour keeps its solo tokens; serve requests sharing
    a 256-token system prompt with the prefix cache off and on (greedy
    and at temperature 0.8: identical tokens, the hits' suffix prefill
@@ -72,7 +83,21 @@ failure (the script then exits non-zero and prints no result line):
 4. the continuous engine at full width but 2 layers in f32, once on the
    card and once on the CPU (the kernels' plain versions): first-prefill
    logits and greedy tokens must agree; likewise ``ServeEngine`` over an
-   fp cache (flash prefill) on 2 full-width f32 layers.
+   fp cache (flash prefill) on 2 full-width f32 layers;
+5. the rest of the GQA family at full width (run right after phase 2, so
+   that the MoE step's profile of ~24k kernels is the process's first;
+   the MoE card-vs-CPU check last), each model freed before the next
+   loads and its peak device memory printed: moonshot-v1-16b-a3b
+   (48 layers, 64 experts of d_ff 1408, top-6, 2 shared; about 30 GB of
+   MX weights) through the continuous engine (prefill buckets of 256,
+   greedy and T 0.8; every expert's three matmuls launched per step, the
+   predicted 9,360 per step counted and confirmed by the profiler on one
+   replay; a replayed window against the eager loop) and through
+   ``ServeEngine`` over the MX KV cache (launches counted and confirmed
+   on one replay, graph against eager); yi-34b (60
+   layers, d 7168, about 36 GB) through the continuous engine (a window
+   against the eager loop); then moonshot at full width but 2 layers (the
+   dense one and one MoE layer) in f32, card against CPU as in phase 4.
 
 Every model here runs at ``attn_impl="flash"`` (attention through the
 kernels), as the reference's serving cells do.  The line before the last
@@ -699,10 +724,10 @@ def check_batch_invariance(torch, gen):
          compared=n_checked, criterion="torch.equal")
 
 
-def _paged_case(torch, kspec, vspec, gen, d=128):
+def _paged_case(torch, kspec, vspec, gen, d=128, hq=32, hkv=2):
     from repro_torch.core.pack import pack_codes
     from repro_torch.kernels.mx_quant import mx_quantize_2d
-    b, hq, hkv, page, npg = 8, 32, 2, 16, 36
+    b, page, npg = 8, 16, 36
     n_pool = 1 + b * npg
     lengths = torch.randint(1, 575, (b,), generator=gen, device="cuda")
     lengths[0], lengths[1] = 575, 0                 # full 576 tokens; idle
@@ -762,38 +787,9 @@ def check_paged_attention(torch, flush):
         if vspec.fmt != "e2m1":
             continue
         # timing at the serving path's types: bf16 q, INT8 K / E2M1 V
-        q = q32.to(torch.bfloat16)
-        args = (q, kc, ks, vc, vs, bt, lengths)
-        kw = dict(key_spec=kspec, value_spec=vspec, rep=16)
-        b, _, hq, d = q.shape
-        page, hkv = kc.shape[1], kc.shape[2]
-        tokens = int((lengths.to(torch.int64) + 1).sum())
-        per_tok = hkv * (kc.shape[-1] + vc.shape[-1] + 2 * (d // 32))
-        nbytes = tokens * per_tok + 2 * q.numel() * 2 + bt.numel() * 4
-        tb, by = bound(nbytes, 4.0 * hq * tokens * d, BF16_FLOPS)
-        # the library yardstick: SDPA over the dequantized, gathered cache
-        s_max = bt.shape[1] * page
-        kd, vd = _gathered(torch, ref, kc, ks, vc, vs, bt, kspec, vspec)
-        mask = (torch.arange(s_max, device="cuda")[None, :]
-                <= lengths[:, None].to(torch.int64))[:, None, None, :]
-        qt = q.transpose(1, 2)
-        sdpa, best, sdpa_graph = sdpa_ms(torch, flush, qt, kd, vd,
-                                         attn_mask=mask, enable_gqa=True)
-        row = dict(kernel="mx_paged_decode_attention",
-                   shape="8 slots, lengths <= 576, page 16, Hq 32, Hkv 2, "
-                         "D 128", spec=kv,
-                   ms=time_ms(torch, lambda: mx_paged_decode_attention(
-                       *args, **kw), flush=flush),
-                   graph_ms=graph_ms(torch, lambda: mx_paged_decode_attention(
-                       *args, **kw), flush=flush),
-                   library_graph_ms=sdpa_graph,
-                   plain_ms=time_ms(torch, lambda: ref
-                                    .mx_paged_decode_attention_ref(
-                                        *args, **kw), flush=flush),
-                   library_ms=sdpa[best], library_backend=best,
-                   sdpa_ms=sdpa, bound_ms=tb, bound_by=by,
-                   live_tokens=tokens)
-        emit("time", **row)
+        row = _time_paged_attention(
+            torch, flush, (q32.to(torch.bfloat16), kc, ks, vc, vs, bt,
+                           lengths), kspec, vspec, kv)
     emit("check", kernel="mx_paged_decode_attention", compared=n_checked,
          max_abs_err_bf16=worst[torch.bfloat16],
          max_abs_err_f32=worst[torch.float32],
@@ -801,6 +797,46 @@ def check_paged_attention(torch, flush):
                    f"defaults")
     return dict(row, max_abs_err_f32=worst[torch.float32]), \
         worst[torch.bfloat16]
+
+
+def _time_paged_attention(torch, flush, args, kspec, vspec, kv):
+    """One timed row of the paged decode attention: the kernel by CUDA
+    events and replayed from a graph, its plain version, SDPA over the
+    dequantized gathered cache (the fastest backend), and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_decode_attn import mx_paged_decode_attention
+    q, kc, ks, vc, vs, bt, lengths = args
+    b, _, hq, d = q.shape
+    page, hkv = kc.shape[1], kc.shape[2]
+    kw = dict(key_spec=kspec, value_spec=vspec, rep=hq // hkv)
+    tokens = int((lengths.to(torch.int64) + 1).sum())
+    per_tok = hkv * (kc.shape[-1] + vc.shape[-1] + 2 * (d // 32))
+    nbytes = tokens * per_tok + 2 * q.numel() * 2 + bt.numel() * 4
+    tb, by = bound(nbytes, 4.0 * hq * tokens * d, BF16_FLOPS)
+    # the library yardstick: SDPA over the dequantized, gathered cache
+    s_max = bt.shape[1] * page
+    kd, vd = _gathered(torch, ref, kc, ks, vc, vs, bt, kspec, vspec)
+    mask = (torch.arange(s_max, device="cuda")[None, :]
+            <= lengths[:, None].to(torch.int64))[:, None, None, :]
+    qt = q.transpose(1, 2)
+    sdpa, best, sdpa_graph = sdpa_ms(torch, flush, qt, kd, vd,
+                                     attn_mask=mask, enable_gqa=True)
+    row = dict(kernel="mx_paged_decode_attention",
+               shape=f"{b} slots, lengths <= {int(lengths.max()) + 1}, "
+                     f"page {page}, Hq {hq}, Hkv {hkv}, D {d}", spec=kv,
+               ms=time_ms(torch, lambda: mx_paged_decode_attention(
+                   *args, **kw), flush=flush),
+               graph_ms=graph_ms(torch, lambda: mx_paged_decode_attention(
+                   *args, **kw), flush=flush),
+               library_graph_ms=sdpa_graph,
+               plain_ms=time_ms(torch, lambda: ref
+                                .mx_paged_decode_attention_ref(
+                                    *args, **kw), flush=flush),
+               library_ms=sdpa[best], library_backend=best,
+               sdpa_ms=sdpa, bound_ms=tb, bound_by=by,
+               live_tokens=tokens)
+    emit("time", **row)
+    return row
 
 
 def check_head_dim_96(torch):
@@ -948,7 +984,8 @@ def _time_decode_attention(torch, flush, q, cache, kw, kv, pos, s,
     sdpa, best, sdpa_graph = sdpa_ms(torch, flush, qt, kd, vd,
                                      attn_mask=mask, enable_gqa=True)
     row = dict(kernel="mx_decode_attention",
-               shape=f"8 rows, pos {pos} of S {s}, Hq 32, Hkv 2, D 128",
+               shape=f"{b} rows, pos {pos} of S {s}, Hq {hq}, Hkv {hkv}, "
+                     f"D {d}",
                spec=kv,
                ms=time_ms(torch, lambda: mx_decode_attention(
                    q, *cache, pos, **kw), flush=flush),
@@ -1083,6 +1120,325 @@ def check_lm_head(torch, flush):
 
 
 # =============================================================================
+# phase 2, continued: the shapes of the rest of the GQA family
+# =============================================================================
+# K x N of moonshot-v1-16b-a3b's expert matmuls and of yi-34b's w1/w3
+EXPERT_KN = {"expert w1/w3": (2048, 1408), "expert w2": (1408, 2048)}
+YI_W1 = (7168, 20480)
+# an expert's rows in a prefill of 8 x 512 tokens: 16 groups of 256, each
+# expert's capacity int(256 * 6 / 64 * 1.25) = 30 per group
+MOE_PREFILL_M = 16 * 30
+N_EXPERTS = 64
+
+
+def check_family_matmul(torch, flush):
+    """B2 at moonshot's expert shapes through ``MXWeight.take`` views of a
+    64-expert stack (bf16 activations, e4m3): M 1 (a decode step's
+    capacity of one row) and M 480 (a prefill's), rows bit-identical
+    across the two; one MoE layer's 64 w1 launches at M 1 replayed from a
+    graph beside their byte bound (the launch cost of the expert loop);
+    yi-34b's w1 (K 7168, N 20480) at M 8.  Each against its plain version
+    and torch.matmul on the dequantized bf16 weight."""
+    from repro_torch.core.mx_weight import MXWeight
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_matmul import mx_matmul_2d
+    from repro_torch.kernels.ops import mx_matmul_resident
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    spec = QuantSpec.parse("e4m3@32:ocp")
+    rows, worst = [], 0.0
+    for pname, (k, n) in EXPERT_KN.items():
+        w = (torch.randn(N_EXPERTS, k, n, generator=gen, device="cuda")
+             / math.sqrt(k)).to(torch.bfloat16)
+        stack = MXWeight.quantize(w, spec)
+        del w
+        a = torch.randn(MOE_PREFILL_M, k, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        wi = stack.take(N_EXPERTS - 1)      # the last expert's views
+        if wi.codes.data_ptr() != stack.codes.data_ptr() \
+                + (N_EXPERTS - 1) * wi.codes.numel():
+            raise AssertionError("MXWeight.take copied the expert")
+        full = mx_matmul_2d(a, wi.codes, wi.scales, wi.spec)
+        for lo, hi in ((0, 1), (29, 30), (30, 60), (479, 480)):
+            part = mx_matmul_2d(a[lo:hi].contiguous(), wi.codes, wi.scales,
+                                wi.spec)
+            if not torch.equal(part, full[lo:hi]):
+                raise AssertionError(f"mx_matmul {pname}: rows {lo}:{hi} "
+                                     f"differ from the M=480 call")
+        for m in (1, MOE_PREFILL_M):
+            row = _matmul_row(torch, ref, mx_matmul_2d, a[:m].contiguous(),
+                              wi, wi.codes, spec, pname, flush)
+            rows.append(row)
+            worst = max(worst, row["max_abs_err"])
+        if pname == "expert w1/w3":
+            # one MoE layer's w1 launches at a decode step: 64 experts,
+            # one row each, as layers.moe issues them
+            xe = torch.randn(N_EXPERTS, 1, k, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+
+            def layer():
+                return torch.stack([mx_matmul_resident(xe[i], stack.take(i))
+                                    for i in range(N_EXPERTS)])
+
+            def plain():
+                return torch.stack([ref.mx_matmul_2d_ref(
+                    xe[i], t.codes, t.scales, spec)
+                    for i, t in enumerate(map(stack.take, range(N_EXPERTS)))])
+
+            got, want = layer(), plain()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            if not err <= MATMUL_TOL * scale:
+                raise AssertionError(f"mx_matmul one MoE layer's w1: max "
+                                     f"error {err} > {MATMUL_TOL} x {scale}")
+            # the library yardstick: one batched product over the stack
+            # dequantized to bf16 once
+            wd = torch.stack([ref.dequant_ref(t.codes, t.scales, spec)
+                              for t in map(stack.take, range(N_EXPERTS))]
+                             ).to(torch.bfloat16)
+
+            def library():
+                return torch.matmul(xe, wd)
+
+            tb, by = bound(stack.nbytes + xe.numel() * 2 + N_EXPERTS * n * 4,
+                           2.0 * N_EXPERTS * n * k, BF16_FLOPS)
+            row = dict(kernel="mx_matmul_2d",
+                       shape=f"{N_EXPERTS} experts x {pname} M=1 (one MoE "
+                             f"layer's w1 launches)", spec=str(spec),
+                       launches=N_EXPERTS, max_abs_err=err,
+                       ms=time_ms(torch, layer, flush=flush),
+                       graph_ms=graph_ms(torch, layer, flush=flush),
+                       plain_ms=time_ms(torch, plain, flush=flush),
+                       library_ms=time_ms(torch, library, flush=flush),
+                       library_graph_ms=graph_ms(torch, library,
+                                                 flush=flush),
+                       bound_ms=tb, bound_by=by)
+            row["graph_us_per_launch"] = row["graph_ms"] * 1e3 / N_EXPERTS
+            worst = max(worst, err)
+            del wd
+            emit("time", **row)
+            rows.append(row)
+        del stack
+    k, n = YI_W1
+    w = (torch.randn(k, n, generator=gen, device="cuda")
+         / math.sqrt(k)).to(torch.bfloat16)
+    mw = MXWeight.quantize(w, spec)
+    del w
+    a = torch.randn(8, k, generator=gen, device="cuda").to(torch.bfloat16)
+    row = _matmul_row(torch, ref, mx_matmul_2d, a, mw, mw.codes, spec,
+                      "yi-34b w1/w3", flush)
+    rows.append(row)
+    worst = max(worst, row["max_abs_err"])
+    emit("check", kernel="mx_matmul_2d", what="the GQA family's shapes",
+         compared=len(rows), max_abs_err=worst,
+         criterion=f"max|kernel-plain| <= {MATMUL_TOL} * max|plain|; rows "
+                   f"of M 1 / 30 slices equal the M=480 call's")
+    return rows
+
+
+def check_family_attention(torch, flush):
+    """B3 and B4 at moonshot's GQA group of 1 (16 query heads over 16 KV
+    heads: 15 of an m16 tile's 16 rows are padding) and yi-34b's 7 (56
+    over 8), bf16 q, INT8 K / E2M1 V, D 128, against their plain
+    versions, timed beside SDPA (the fastest backend)."""
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
+                                                    mx_paged_decode_attention)
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    kv = "int8@32:ocp/e2m1@32:ocp"
+    kspec, vspec = (QuantSpec.parse(x) for x in kv.split("/"))
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rows = {"mx_paged_decode_attention": [], "mx_decode_attention": []}
+    for hq, hkv in ((16, 16), (56, 8)):
+        kw = dict(key_spec=kspec, value_spec=vspec, rep=hq // hkv)
+        q32, kc, ks, vc, vs, bt, lengths = _paged_case(
+            torch, kspec, vspec, gen, hq=hq, hkv=hkv)
+        for q in (q32.to(torch.bfloat16), q32):
+            args = (q, kc, ks, vc, vs, bt, lengths)
+            _attn_check(torch, mx_paged_decode_attention(*args, **kw),
+                        ref.mx_paged_decode_attention_ref(*args, **kw),
+                        worst)
+        rows["mx_paged_decode_attention"].append(_time_paged_attention(
+            torch, flush, (q32.to(torch.bfloat16), kc, ks, vc, vs, bt,
+                           lengths), kspec, vspec, kv))
+        del kc, ks, vc, vs
+        b, s, d = 8, 640, 128
+        cache = []
+        for spec in (kspec, vspec):
+            x = torch.randn(b * s * hkv, d, generator=gen, device="cuda")
+            c, sc = mx_quantize_2d(x, spec)
+            cache += [c.reshape(b, s, hkv, d), sc.reshape(b, s, hkv, d // 32)]
+        q = torch.randn(b, 1, hq, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for pos in (0, 63, 575, 639):
+            lengths = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+            _attn_check(torch, mx_decode_attention(q, *cache, pos, **kw),
+                        ref.mx_decode_attention_ref(q, *cache, lengths,
+                                                    **kw), worst)
+        rows["mx_decode_attention"].append(_time_decode_attention(
+            torch, flush, q, cache, kw, kv, 575, s, mx_decode_attention,
+            ref))
+    emit("check", kernel="mx_paged_decode_attention / mx_decode_attention",
+         what="GQA groups 1 and 7", compared=12,
+         max_abs_err_bf16=worst[torch.bfloat16],
+         max_abs_err_f32=worst[torch.float32],
+         criterion=f"f32 within {ATTN_TOL_F32}; bf16 within torch's bf16 "
+                   f"defaults")
+    for r in rows.values():
+        for row in r:
+            row["max_abs_err"] = worst[torch.bfloat16]
+    return rows
+
+
+def check_family_kv_write(torch, flush):
+    """The fused paged KV write at moonshot's 16 and yi-34b's 8 KV heads
+    (8 slots, D 128, bf16, INT8 keys / packed E2M1 values, pages of 16),
+    bit for bit against its plain version (the trash page left out),
+    timed beside it and its byte bound."""
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_kv_write import mx_paged_kv_write
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    kspec, vspec = QuantSpec.parse("int8@32:ocp"), QuantSpec.parse(
+        "e2m1@32:ocp")
+    b, page, npg, hd = 8, 16, 36, 128
+    rows = []
+    for n_kv in (16, 8):
+        pool = {n: torch.randint(0, 256, (1 + b * npg, page, n_kv, w),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.uint8)
+                for n, w in (("kc_pages", kspec.storage_nbytes(hd)),
+                             ("ks_pages", hd // 32),
+                             ("vc_pages", vspec.storage_nbytes(hd)),
+                             ("vs_pages", hd // 32))}
+        bt = (1 + torch.randperm(b * npg, generator=gen, device="cuda")
+              ).reshape(b, npg).to(torch.int32)
+        lengths = torch.randint(0, npg * page, (b,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        k, v = (_kv_rand(torch, gen, (b, 1, n_kv, hd), torch.bfloat16, False)
+                for _ in range(2))
+        args = (pool, k, v, bt, lengths, kspec, vspec)
+        plain = {n: t.clone() for n, t in pool.items()}
+        mx_paged_kv_write(*args)
+        ref.mx_paged_kv_write_ref(plain, *args[1:])
+        for n in pool:
+            if not torch.equal(pool[n][1:], plain[n][1:]):
+                raise AssertionError(f"mx_paged_kv_write at Hkv {n_kv}: {n} "
+                                     f"differs from the plain version")
+        nbytes = (2 * k.numel() * k.element_size() + 2 * b * 4
+                  + b * n_kv * (kspec.storage_nbytes(hd)
+                                + vspec.storage_nbytes(hd) + 2 * hd // 32))
+        tb, by = bound(nbytes, 2 * k.numel() * CONVERTER_OPS_PER_ELEMENT,
+                       F32_CUDA_CORE_FLOPS)
+        row = dict(kernel="mx_kv_write",
+                   shape=f"paged decode write: 8 slots, Hkv {n_kv}, D 128, "
+                         f"bf16", spec="int8@32:ocp/e2m1@32:ocp",
+                   max_abs_err=0.0,
+                   ms=time_ms(torch, lambda: mx_paged_kv_write(*args),
+                              flush=flush),
+                   graph_ms=graph_ms(torch, lambda: mx_paged_kv_write(*args),
+                                     flush=flush),
+                   plain_ms=time_ms(torch, lambda: ref.mx_paged_kv_write_ref(
+                       *args), flush=flush),
+                   bound_ms=tb, bound_by=by, library_ms=None)
+        emit("time", **row)
+        rows.append(row)
+    emit("check", kernel="mx_kv_write", what="Hkv 16 and 8", compared=2,
+         criterion="bit-identical pool bytes (page 0, the trash page, left "
+                   "out)")
+    return rows
+
+
+def ptxas_usage(log: str, entry: str):
+    """Registers and spill-store bytes that ``ptxas -v`` reported for the
+    kernel whose mangled name holds ``entry``, from the build's log."""
+    import re
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = chunk.split("'")[1]
+        if entry in name:
+            regs = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores", chunk)
+            return (int(regs.group(1)) if regs else None,
+                    int(spill.group(1)) if spill else 0)
+    raise AssertionError(f"no ptxas report for {entry} in the build log")
+
+
+def check_flash_head_dim_192(torch, flush):
+    """Flash attention at head dim 192, which both builds run zero-padded
+    to 256 (ROADMAP C5): 8 x 512 tokens, causal, 32 heads over 2 KV
+    heads, f32 within 2e-5 and bf16 within 2e-2 of the plain version (a
+    ragged causal case too); timed in both dtypes beside SDPA.  Neither
+    D 256 build may spill registers (ptxas's report)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_attn import flash_attention
+    usage = {}
+    for spec, entry in (("bfloat16", "flash_tc_kernelILi256"),
+                        ("float32", "flash_fwd_kernelILi256")):
+        regs, spill = ptxas_usage(build.build_log, entry)
+        usage[spec] = {"registers": regs, "spill_store_bytes": spill}
+        if spill:
+            raise AssertionError(f"the {spec} flash build at D 256 spills "
+                                 f"{spill} bytes ({regs} registers)")
+    emit("flash_d256_registers", **usage)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    tols = {torch.float32: ATTN_TOL_F32, torch.bfloat16: FLASH_TOL_BF16}
+    rate = {torch.float32: F32_CUDA_CORE_FLOPS, torch.bfloat16: BF16_FLOPS}
+    h, hkv, d = 32, 2, 192
+    rows = []
+    for b, s in ((2, 77), (8, 512)):
+        qkv = [torch.randn(b, s, nh, d, generator=gen, device="cuda")
+               for nh in (h, hkv, hkv)]
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dt) for t in qkv)
+            got = flash_attention(q, k, v)
+            want = ref.flash_attention_ref(q, k, v, True)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=tols[dt], atol=tols[dt])
+            if s != 512:
+                continue
+            pairs = b * h * s * (s + 1) / 2
+            nbytes = q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel())
+            tb, by = bound(nbytes, 4.0 * pairs * d, rate[dt])
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            row = dict(kernel="flash_attention",
+                       shape="8 x 512 tokens, causal, H 32, Hkv 2, D 192 "
+                             "(the D 256 build)",
+                       spec=str(dt).replace("torch.", ""),
+                       max_abs_err=float((got.float() - want.float()).abs()
+                                         .max()),
+                       ms=time_ms(torch, lambda: flash_attention(q, k, v),
+                                  flush=flush),
+                       plain_ms=time_ms(torch, lambda: ref
+                                        .flash_attention_ref(q, k, v, True),
+                                        flush=flush),
+                       library_ms=time_ms(torch, lambda: F
+                                          .scaled_dot_product_attention(
+                                              qt, kt, vt, is_causal=True,
+                                              enable_gqa=True), flush=flush),
+                       bound_ms=tb, bound_by=by, **usage[str(dt)[6:]])
+            emit("time", **row)
+            rows.append(row)
+    emit("check", kernel="flash_attention", what="head dim 192", compared=4,
+         criterion=f"|kernel - plain| <= tol + tol * |plain|, tol "
+                   f"{ATTN_TOL_F32} (f32) / {FLASH_TOL_BF16} (bf16)")
+    return rows
+
+
+def check_family_shapes(torch, flush):
+    """Every kernel of this slice's paths at its new shapes; rows keyed
+    by the kernels line's names."""
+    attn = check_family_attention(torch, flush)
+    return {"mx_matmul_2d": check_family_matmul(torch, flush),
+            "mx_kv_write": check_family_kv_write(torch, flush),
+            "flash_attention": check_flash_head_dim_192(torch, flush),
+            **attn}
+
+
+# =============================================================================
 # phase 3: full-width serving
 # =============================================================================
 def _counters():
@@ -1142,9 +1498,63 @@ KERNEL_FAMILIES = {
 }
 
 
+def graph_kernel_names(graph) -> list:
+    """The kernel of every kernel node of a captured CUDA graph (kept
+    with ``keep_graph=True``): what one replay launches, read through the
+    driver API (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``,
+    ``cuFuncGetName`` / ``cuKernelGetName``)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    class Params(ctypes.Structure):         # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", vp)] + [(f, ctypes.c_uint) for f in (
+            "gx", "gy", "gz", "bx", "by", "bz", "smem")] + [
+            ("kernel_params", vp), ("extra", vp), ("kern", vp),
+            ("ctx", vp)]
+
+    def check(rc, what):
+        if rc != 0:
+            raise AssertionError(f"{what} failed with CUresult {rc}")
+
+    def walk(g, out):
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(vp(g), None, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        nodes = (vp * n.value)()
+        check(cu.cuGraphGetNodes(vp(g), nodes, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            if kind.value == 5:                 # CU_GRAPH_NODE_TYPE_GRAPH
+                child = vp()
+                check(cu.cuGraphChildGraphNodeGetGraph(
+                    vp(node), ctypes.byref(child)), "child graph")
+                walk(child.value, out)
+            if kind.value != 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+                continue
+            prm = Params()
+            check(cu.cuGraphKernelNodeGetParams_v2(vp(node),
+                                                   ctypes.byref(prm)),
+                  "cuGraphKernelNodeGetParams")
+            name = ctypes.c_char_p()
+            rc = (cu.cuKernelGetName(ctypes.byref(name), vp(prm.kern))
+                  if prm.kern else 1)
+            if rc != 0:
+                check(cu.cuFuncGetName(ctypes.byref(name), vp(prm.func)),
+                      "cuFuncGetName")
+            out.append(name.value.decode())
+        return out
+
+    return walk(graph.raw_cuda_graph(), [])
+
+
 def check_replay(torch, path, step, want, replay=None):
     """The launches one replay of a captured step credits
-    (``CapturedStep.launches``) are ``want`` per wrapper, and
+    (``CapturedStep.launches``) are ``want`` per wrapper; the captured
+    graph holds exactly that many kernel nodes of each family; and
     ``torch.profiler`` over one replay (``replay``, by default ``step``
     itself) sees the device run exactly that many kernels of each
     family."""
@@ -1152,6 +1562,14 @@ def check_replay(torch, path, step, want, replay=None):
     if credited != want:
         raise AssertionError(f"{path}: one replay credits {credited}, "
                              f"expected {want}")
+    nodes = graph_kernel_names(step.graph)
+    in_graph, expect = {}, {}
+    for fam, (wrappers, kernels) in KERNEL_FAMILIES.items():
+        in_graph[fam] = sum(any(k in n for k in kernels) for n in nodes)
+        expect[fam] = sum(credited.get(w, 0) for w in wrappers)
+    if in_graph != expect:
+        raise AssertionError(f"{path}: the captured graph holds {in_graph} "
+                             f"kernel nodes, the wrappers credit {expect}")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1160,14 +1578,13 @@ def check_replay(torch, path, step, want, replay=None):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    seen, expect = {}, {}
-    for fam, (wrappers, kernels) in KERNEL_FAMILIES.items():
-        seen[fam] = sum(any(k in n for k in kernels) for n in names)
-        expect[fam] = sum(credited.get(w, 0) for w in wrappers)
+    seen = {fam: sum(any(k in n for k in kernels) for n in names)
+            for fam, (_, kernels) in KERNEL_FAMILIES.items()}
     if seen != expect:
         raise AssertionError(f"{path}: the profiler saw {seen} kernels in "
                              f"one replay, the wrappers credit {expect}")
     emit("replay_check", path=path, launches_per_replay=credited,
+         graph_kernel_nodes=in_graph, graph_nodes=len(nodes),
          profiled_kernels=seen, device_kernels=len(names))
 
 
@@ -1215,6 +1632,8 @@ def serve_full_width(torch):
     import numpy as np
     from repro_torch.launch.serve import build_model
     from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
     (model, params), load, load_s = _drive(torch, lambda: build_model(
         "chatglm3_6b", reduced=False, quant=POLICY, weight_resident=True,
         device="cuda", seed=0, attn_impl="flash"))
@@ -1294,8 +1713,11 @@ def serve_full_width(torch):
     serve_slo(torch, model, params)
     drill = serve_faults(torch, model, params)
     static = serve_static(torch, model, params)
+    emit("serve_family", path="chatglm3-6b peak memory", config=cfg.name,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         weight_bytes=_weight_bytes(params))
     del params, model
-    torch.cuda.empty_cache()
+    _free(torch)
     # the kernels line counts the continuous run's and the fault drill's
     # launches (each a main path of its own, driven from 0)
     launches = {k: n + drill.get(k, 0) for k, n in launches.items()}
@@ -1304,7 +1726,23 @@ def serve_full_width(torch):
             "mx_kv_write_tokens": tokens_launches}
 
 
-def check_graph_window(torch, model, params, prompts, temperature):
+def launches_per_pass(cfg, per_stack: int) -> int:
+    """Launches of one pass over the layers' matmul weights: one per
+    weight of a dense layer (7) and of an MoE layer's attention (4) and
+    shared experts (3), and ``per_stack`` for each of an MoE layer's 3
+    expert stacks."""
+    moe = 4 + 3 * per_stack + (3 if cfg.n_shared_experts else 0)
+    return sum(moe if cfg.moe_layer(i) else 7 for i in range(cfg.n_layers))
+
+
+def matmuls_per_pass(cfg) -> int:
+    """B2 launches of one decode step or prefill batch: ``layers.moe``
+    launches every expert, whatever its load."""
+    return launches_per_pass(cfg, cfg.n_experts)
+
+
+def check_graph_window(torch, model, params, prompts, temperature,
+                       bucket=64, path="continuous"):
     """One decode window of the continuous engine (8 replays of its
     captured step) against ``paged_decode_multi_step`` run eagerly from
     the same state: identical tokens, lengths, budgets, keys and flags,
@@ -1316,7 +1754,7 @@ def check_graph_window(torch, model, params, prompts, temperature):
     n_l = model.cfg.n_layers
     eng = ContinuousBatchingEngine(
         model, params, max_slots=8, page_size=16, max_len=256 + 33,
-        sync_every=8, prefill_bucket=64,
+        sync_every=8, prefill_bucket=bucket,
         gen=GenerationConfig(temperature=temperature, seed=7))
     for p in prompts:
         eng.add_request(p, 32)
@@ -1347,13 +1785,14 @@ def check_graph_window(torch, model, params, prompts, temperature):
     if not all(same.values()):
         raise AssertionError(f"graph and eager windows differ at "
                              f"temperature {temperature}: {same}")
-    emit("graph_vs_eager", path="continuous", temperature=temperature,
+    emit("graph_vs_eager", path=path, temperature=temperature,
          steps=window, eager_s=t1 - t0, graph_step_s=t2 - t1, **same)
     if temperature == 0.0:
         # a window of one step: run() resets the step's token index
-        check_replay(torch, "continuous decode step", w.step, {
-            "mx_matmul_2d": 7 * n_l, "mx_paged_kv_write": n_l,
-            "mx_paged_decode_attention": n_l}, replay=lambda: w.run(1))
+        check_replay(torch, f"{path} decode step", w.step, {
+            "mx_matmul_2d": matmuls_per_pass(model.cfg),
+            "mx_paged_kv_write": n_l, "mx_paged_decode_attention": n_l},
+            replay=lambda: w.run(1))
 
 
 def check_quarantine(torch, model, params, prompts):
@@ -2446,6 +2885,215 @@ def serve_c5(torch):
 
 
 # =============================================================================
+# phase 3, continued: the rest of the GQA family at full width
+# =============================================================================
+MOE_ARCH = "moonshot_v1_16b_a3b"
+# the prediction written before the first run of serve_moe: B2 launches
+# per decode step of full-width moonshot-v1-16b-a3b (47 MoE layers of
+# 4 + 3 x 64 + 3, one dense layer of 7)
+MOE_MATMULS_PER_STEP = 9360
+# prefill buckets of 256 tokens: a prefill batch of G prompts x bucket is
+# then always a multiple of the MoE dispatch group of 256 tokens, where
+# the reference's x.reshape(g, gs, d) (and the port's moe) refuses
+# anything past 256 that is no multiple of it (ROADMAP C8)
+MOE_BUCKET = 256
+
+
+def _load(torch, arch, **over):
+    """Build a full-width config with weight-resident e4m3 weights as a
+    driven path (the peak memory counter reset first); check the
+    converter's launches and emit the setup row."""
+    from repro_torch.launch.serve import build_model
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    (model, params), load, load_s = _drive(torch, lambda: build_model(
+        arch, reduced=False, quant=POLICY, weight_resident=True,
+        device="cuda", seed=0, attn_impl="flash", **over))
+    cfg = model.cfg
+    # one converter launch per matmul weight; an expert stack is one
+    # (E, K, N) launch
+    _check_launches(f"{arch} load", load,
+                    {"mx_quantize_2d": launches_per_pass(cfg, 1)})
+    emit("serve_setup", config=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+         moe_d_ff=cfg.moe_d_ff, vocab=cfg.vocab, policy=str(cfg.mx),
+         build_s=load_s, launches=load,
+         weight_bytes=_weight_bytes(params),
+         device_mem_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    return model, params
+
+
+def _free(torch) -> None:
+    """Return a dropped model's memory to the card: a dropped engine's
+    captured step is a reference cycle that holds the weights until the
+    cyclic collector runs."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _weight_bytes(params) -> int:
+    from repro_torch.core.mx_weight import params_nbytes
+    return params_nbytes(params)
+
+
+def _continuous_run(torch, path, model, params, prompts, new, bucket,
+                    temperature=0.0):
+    """One driven run of the continuous engine (8 slots, pages of 16,
+    ``sync_every`` 8), every decode step a replay; launches checked
+    against the engine's steps and prefill batches; one result row."""
+    from repro_torch.serve import ContinuousBatchingEngine, GenerationConfig
+    cfg, n_l = model.cfg, model.cfg.n_layers
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=8, page_size=16,
+        max_len=max(map(len, prompts)) + new + 1, sync_every=8,
+        prefill_bucket=bucket,
+        gen=GenerationConfig(temperature=temperature, seed=3))
+    capture_s = time.perf_counter() - t0
+    outs, launches, wall = _drive(torch, lambda: _serve(eng, prompts, new))
+    ph = eng.phase
+    steps, batches = eng.n_steps, eng.n_prefill_batches
+    _check_launches(path, launches, {
+        "mx_matmul_2d": matmuls_per_pass(cfg) * (steps + batches),
+        "mx_kv_write": n_l * (steps + batches),
+        "mx_paged_decode_attention": n_l * steps})
+    if eng.n_quarantined or eng.scheduler.failed:
+        raise AssertionError(f"{path}: a healthy request was quarantined")
+    for p, o in zip(prompts, outs):
+        if len(o) != new or o.min() < 0 or o.max() >= cfg.vocab:
+            raise AssertionError(f"{path}: bad output for a {len(p)}-token "
+                                 f"prompt")
+    emit("serve_family", path=path, config=cfg.name,
+         temperature=temperature, requests=len(prompts), new_tokens=new,
+         prefill_bucket=bucket, wall_s=wall, prefill_s=ph["prefill"],
+         decode_s=ph["decode"], host_sync_s=ph["sync"],
+         decode_tokens_per_s=(eng.n_generated - len(prompts)) / ph["decode"],
+         decode_steps=steps, step_wall_ms=ph["decode"] / steps * 1e3,
+         windows=eng.n_syncs, prefill_batches=batches,
+         graph_capture_s=capture_s, launches=launches,
+         matmuls_per_step=matmuls_per_pass(cfg),
+         kv_pool_nbytes=eng.kv_pool_nbytes,
+         weight_pool_nbytes=eng.weight_pool_nbytes,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del eng
+    return [o.tolist() for o in outs], launches
+
+
+def _family_prompts(vocab, seed, n, lo, hi):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(m)).astype(np.int32)
+            for m in rng.integers(lo, hi, size=n)]
+
+
+def _static_moe(torch, model, params, new):
+    """``ServeEngine`` over the MX KV cache on the MoE weights: 8 prompts
+    of 512 tokens (16 dispatch groups), greedy; the first call captures
+    the decode step, the second, driven, replays it once per token
+    (launches counted per replay) and must give the eager loop's tokens;
+    one replay's launches are confirmed in the captured graph and by the
+    profiler."""
+    import numpy as np
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    cfg, n_l = model.cfg, model.cfg.n_layers
+    b, s = 8, 512
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(b, s)).astype(np.int32)
+    gen = GenerationConfig(max_new_tokens=new)
+    eng = ServeEngine(model, params, max_len=s + new + 8)
+    eng.generate({"tokens": tokens}, gen)               # captures the step
+    out, launches, wall = _drive(
+        torch, lambda: eng.generate({"tokens": tokens}, gen))
+    if eng.n_captures != 1:
+        raise AssertionError(f"static MoE serving captured "
+                             f"{eng.n_captures} decode steps")
+    _check_launches("static MoE serving", launches, {
+        "mx_matmul_2d": matmuls_per_pass(cfg) * new,
+        "mx_kv_write": n_l * new, "mx_decode_attention": n_l * (new - 1)})
+    ph = eng.phase
+    emit("serve_family", path="static MoE, MX KV", config=cfg.name,
+         batch=b, prompt_len=s, new_tokens=new, wall_s=wall,
+         prefill_s=ph["prefill"], decode_s=ph["decode"],
+         decode_tokens_per_s=b * (new - 1) / ph["decode"],
+         step_wall_ms=ph["decode"] / (new - 1) * 1e3,
+         kv_cache_nbytes=eng.kv_cache_nbytes, launches=launches,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    t0 = time.perf_counter()
+    eager = _static_eager(torch, model, params, tokens, new, s + new + 8)
+    eager_s = time.perf_counter() - t0
+    if not np.array_equal(out, eager):
+        raise AssertionError("static MoE serving: graph and eager decode "
+                             "loops give other tokens")
+    emit("graph_vs_eager", path="static MoE, MX KV", steps=new - 1,
+         eager_s=eager_s, graph_decode_s=ph["decode"], tokens=True)
+    check_replay(torch, "static MoE decode step", eng._graphs[(b, 0.0)].step,
+                 {"mx_matmul_2d": matmuls_per_pass(cfg),
+                  "mx_cache_kv_write": n_l, "mx_decode_attention": n_l})
+    del eng
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def serve_moe(torch):
+    """Full-width moonshot-v1-16b-a3b (48 layers: one dense, 47 of 64
+    experts of d_ff 1408, top-6, 2 shared; random weights from a seed,
+    e4m3 as each layer is made; INT8 K / E2M1 V pages) through the
+    continuous engine, greedy and at T 0.8, with prefill buckets of 256;
+    one replayed window against the eager loop (greedy) and one replay's
+    launches (the predicted B2 count) confirmed by the profiler; then ``ServeEngine`` over the MX KV cache on the same
+    weights.  ``sync_every`` 1 against 8 is not checked: at capacity 1.25
+    the JAX engine does not keep that identity (a finished slot's frozen
+    token still routes), tests/test_torch_archs_serve.py."""
+    model, params = _load(torch, MOE_ARCH)
+    cfg = model.cfg
+    if matmuls_per_pass(cfg) != MOE_MATMULS_PER_STEP:
+        raise AssertionError(f"{matmuls_per_pass(cfg)} B2 launches per "
+                             f"step, predicted {MOE_MATMULS_PER_STEP}")
+    prompts = _family_prompts(cfg.vocab, 10, 16, 64, 513)
+    new = 32
+    launches = {}
+    for temperature in (0.0, 0.8):
+        _, got = _continuous_run(torch, "continuous MoE", model, params,
+                                 prompts, new, MOE_BUCKET, temperature)
+        if temperature == 0.0:
+            launches = dict(got)        # the emitted row keeps its own
+    short = _family_prompts(cfg.vocab, 11, 8, 64, 257)
+    check_graph_window(torch, model, params, short, 0.0, bucket=MOE_BUCKET,
+                       path="continuous MoE")
+    _, static = _static_moe(torch, model, params, 8)
+    emit("serve_family", path="moonshot peak memory", config=cfg.name,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         weight_bytes=_weight_bytes(params))
+    del params, model
+    _free(torch)
+    launches["mx_decode_attention"] = static["mx_decode_attention"]
+    return launches
+
+
+def serve_yi(torch):
+    """Full-width yi-34b (60 layers, d 7168, 56 heads over 8 KV heads,
+    d_ff 20480; random weights from a seed, e4m3 as each layer is made)
+    through the continuous engine, greedy; one replayed window against
+    the eager loop and one replay's launches confirmed by the
+    profiler."""
+    model, params = _load(torch, "yi_34b")
+    cfg = model.cfg
+    prompts = _family_prompts(cfg.vocab, 12, 16, 64, 513)
+    _, launches = _continuous_run(torch, "continuous yi-34b", model, params,
+                                  prompts, 32, 64)
+    short = _family_prompts(cfg.vocab, 13, 8, 64, 257)
+    check_graph_window(torch, model, params, short, 0.0,
+                       path="continuous yi-34b")
+    emit("serve_family", path="yi-34b peak memory", config=cfg.name,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         weight_bytes=_weight_bytes(params))
+    del params, model
+    _free(torch)
+    return launches
+
+
+# =============================================================================
 # phase 4: card against CPU
 # =============================================================================
 def _to_cpu(tree):
@@ -2461,12 +3109,16 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def card_vs_cpu(torch):
+def card_vs_cpu(torch, arch="chatglm3_6b", new=3):
+    """The continuous engine on 2 full-width f32 layers of ``arch`` (for
+    moonshot-v1-16b-a3b its dense layer and one MoE layer), on the
+    card and on the CPU: first-prefill logits within LOGITS_TOL, greedy
+    tokens equal (a flip only at a top-2 gap below it)."""
     import numpy as np
     from repro_torch.launch.serve import build_model
     from repro_torch.models import Model
     from repro_torch.serve import ContinuousBatchingEngine
-    model, params = build_model("chatglm3_6b", reduced=False, quant=POLICY,
+    model, params = build_model(arch, reduced=False, quant=POLICY,
                                 weight_resident=True, device="cuda", seed=1,
                                 n_layers=2, dtype="float32",
                                 attn_impl="flash")
@@ -2486,18 +3138,18 @@ def card_vs_cpu(torch):
     outs = []
     for m, p in ((model, params), (cpu_model, cpu_params)):
         eng = ContinuousBatchingEngine(m, p, max_slots=2, page_size=16,
-                                       max_len=64 + 4, sync_every=8,
+                                       max_len=64 + new + 1, sync_every=8,
                                        prefill_bucket=64)
-        outs.append([o.tolist() for o in _serve(eng, prompts, 3)])
+        outs.append([o.tolist() for o in _serve(eng, prompts, new)])
     # a token flip is accepted only where the logits that chose it have a
     # top-2 gap below the tolerance (traced on the card)
     flips = _flips(torch, model, params, prompts, *outs)
-    emit("card_vs_cpu", layers=2, dtype="float32",
-         logits_max_abs_err=err, tolerance=LOGITS_TOL, tokens=outs[0],
-         cpu_tokens=outs[1], flips=flips, seconds=time.perf_counter() - t0)
+    emit("card_vs_cpu", config=model.cfg.name, layers=2, dtype="float32",
+         n_experts=model.cfg.n_experts, logits_max_abs_err=err,
+         tolerance=LOGITS_TOL, tokens=outs[0], cpu_tokens=outs[1],
+         flips=flips, seconds=time.perf_counter() - t0)
     del params, model
     torch.cuda.empty_cache()
-    static_card_vs_cpu(torch)
 
 
 def static_card_vs_cpu(torch):
@@ -2580,11 +3232,31 @@ def main() -> int:
     check_head_dim_96(torch)
     f_row, f_err = check_flash(torch, flush)
     check_lm_head(torch, flush)
+    family = check_family_shapes(torch, flush)
     del flush
     torch.cuda.empty_cache()
-    launches = serve_full_width(torch)
-    serve_c5(torch)
-    card_vs_cpu(torch)
+    emit("phase_seconds", name="build and kernels",
+         seconds=time.perf_counter() - t_start)
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        emit("phase_seconds", name=name, seconds=time.perf_counter() - t)
+        return out
+
+    # this slice's paths first (the MoE step's profile of ~24k kernels is
+    # the first of the process), each driven from 0: their launches join
+    # the kernels line's
+    family_launches = [timed(name, path, torch) for name, path in (
+        ("serve_moe", serve_moe), ("serve_yi", serve_yi))]
+    launches = timed("chatglm3-6b serving", serve_full_width, torch)
+    for counts in family_launches:
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    timed("head dim 48", serve_c5, torch)
+    timed("card vs CPU", card_vs_cpu, torch)
+    timed("static card vs CPU", static_card_vs_cpu, torch)
+    timed("MoE card vs CPU", card_vs_cpu, torch, MOE_ARCH, new=2)
 
     sources = {"mx_quantize_2d": "src/repro_torch/csrc/mx_quant.cu",
                "mx_kv_write": "src/repro_torch/csrc/mx_kv_write.cu",
@@ -2619,6 +3291,13 @@ def main() -> int:
             if key in row:      # the f32 kernel's error; SDPA's backend;
                 #                 the KV write's composed yardstick
                 kernels[-1][key] = row[key]
+        # the kernel at this slice's new shapes (the GQA family)
+        kernels[-1]["family_shapes"] = [
+            {k: r.get(k) for k in ("shape", "spec", "max_abs_err", "ms",
+                                   "graph_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms",
+                                   "library_graph_ms")}
+            for r in family.get(name, ())]
         if "multi_token" in row:    # the KV write's suffix-prefill mode,
             mt = row["multi_token"]  # launched on the prefix path
             kernels[-1]["multi_token"] = {

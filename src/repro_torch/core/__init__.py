@@ -4,7 +4,8 @@ from repro_torch.core.convert import (MXArray, decode_elements,  # noqa: F401
                                       pow2_f32, scale_to_f32)
 from repro_torch.core.formats import (ALL_FORMATS, FORMATS,  # noqa: F401
                                       MXFormat, get_format)
-from repro_torch.core.mx_weight import MXWeight, params_nbytes  # noqa: F401
+from repro_torch.core.mx_weight import (MXWeight,  # noqa: F401
+                                        mx_weight_nbytes, params_nbytes)
 from repro_torch.core.pack import (pack_codes, pack_codes_rows,  # noqa: F401
                                    packed_nbytes, unpack_codes,
                                    unpack_codes_rows)

@@ -8,6 +8,9 @@ An ``MXWeight`` holds a matmul weight W (K, N) entirely in MX form:
   * ``scales`` uint8 — E8M0 shared scales, one per ``block`` rows:
     (Kp/32, N).
 
+A stack of MoE expert weights (E, K, N) keeps its leading expert axis
+on both leaves; ``take(i)`` is expert ``i``'s (K, N) weight as a view.
+
 fp weights are never materialized on the serving path: the dequant x
 matmul kernel (``kernels/mx_matmul.py``) decodes code tiles on chip.
 """
@@ -25,9 +28,9 @@ from repro_torch.core.spec import QuantSpec, as_spec
 @dataclasses.dataclass
 class MXWeight:
     """A weight-resident MX matmul operand: packed codes + E8M0 scales."""
-    codes: torch.Tensor      # (storage_nbytes(Kp), N) u8 if packed,
-    #                          else (Kp, N) u8
-    scales: torch.Tensor     # (Kp // block, N) u8
+    codes: torch.Tensor      # (..., storage_nbytes(Kp), N) u8 if packed,
+    #                          else (..., Kp, N) u8
+    scales: torch.Tensor     # (..., Kp // block, N) u8
     fmt: str                 # element format name
     mode: str                # "paper" | "ocp"
     block: int               # codes per shared scale
@@ -51,8 +54,9 @@ class MXWeight:
 
     @classmethod
     def quantize(cls, w: torch.Tensor, spec) -> "MXWeight":
-        """Quantize W (K, N) along the contraction axis (-2) with the
-        converter kernel (its plain version for a CPU tensor)."""
+        """Quantize W (..., K, N) along the contraction axis (-2) with the
+        converter kernel (its plain version for a CPU tensor); leading
+        axes (an expert stack's E) ride along."""
         from repro_torch.kernels.ops import mx_quantize
         spec = as_spec(spec)
         if w.dim() < 2:
@@ -68,20 +72,38 @@ class MXWeight:
                    mode=spec.mode, block=spec.block, packed=packed,
                    k=int(k), n=int(n))
 
+    def take(self, i: int) -> "MXWeight":
+        """Entry ``i`` of the leading axis (one MoE expert) as a (K, N)
+        weight whose leaves are views of the stack's: contiguous, and
+        4-byte aligned wherever the stack is and N is a multiple of 4,
+        as the matmul kernel reads them."""
+        return dataclasses.replace(self, codes=self.codes[i],
+                                   scales=self.scales[i])
+
     def unpacked_codes(self) -> torch.Tensor:
-        """Codes with the bit-packing undone: (Kp, N) u8."""
+        """Codes with the bit-packing undone: (..., Kp, N) u8."""
         if not self.packed:
             return self.codes
         return unpack_codes_rows(self.codes, self.fmt, self.kp)
 
     def dequantize(self) -> torch.Tensor:
-        """Materialize the f32 weight (K, N) (tests and references only)."""
+        """Materialize the f32 weight (..., K, N) (tests and references
+        only)."""
         codes = self.unpacked_codes()
         mx = MXArray.from_spec(
             codes, self.scales,
             QuantSpec(self.fmt, self.mode, self.block, packed=False),
             orig_len=self.k, axis=codes.dim() - 2)
         return mx_dequantize(mx)
+
+
+def mx_weight_nbytes(k: int, n: int, spec) -> int:
+    """Device bytes of one (K, N) weight stored per ``spec``:
+    ``storage_nbytes`` bytes of codes per column plus one E8M0 byte per
+    block of rows (packed E2M1 at block 32: 4.25 bits per weight)."""
+    spec = as_spec(spec)
+    kp = -(-k // spec.block) * spec.block
+    return spec.storage_nbytes(kp) * n + (kp // spec.block) * n
 
 
 def params_nbytes(params) -> int:

@@ -20,7 +20,8 @@
 // registers.  Under causal masking the loop stops at the last tile the
 // diagonal reaches: the Pallas kernel computes the strictly upper tiles
 // and masks them to exactly zero weight, so skipping them is exact.
-// Shared memory is about 86 KB at D = 128, two blocks per SM.
+// Shared memory is about 86 KB at D = 128, two blocks per SM (150 KB
+// and one block at D = 256).
 //
 // Bound.  At the serving prefill shape in f32 (B = 8, S = 512, 32 heads,
 // D = 128) the function moves ~142 MB (q, k, v, o once) and does ~17
@@ -194,7 +195,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Sk, Hkv, D), o like q; f32, contiguous,
-// 16-byte aligned; D in {32, 64, 128}; H a multiple of Hkv; Sk >= 1;
+// 16-byte aligned; D in {32, 64, 128, 256}; H a multiple of Hkv; Sk >= 1;
 // scores scaled by 1/sqrt(scale_d): D itself, or the head dim before the
 // wrapper zero-padded q/k/v up to D (the padding adds nothing to S).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
@@ -212,6 +213,9 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                          st);
     case 128:
       return launch_d<128>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
+                          st);
+    case 256:
+      return launch_d<256>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
                           st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -24,7 +24,8 @@
 // Design.  One block of 4 warps per (64-query tile, head, row b); warp w
 // owns query rows 16w .. 16w + 15 of the tile, one m16 row of mma atoms.
 // Its Q rows are read once from shared memory into registers as A
-// fragments (ldmatrix).  64-key tiles of KV head h / rep (read in place:
+// fragments (ldmatrix); at D = 256 they are read from shared memory at
+// each key tile instead (registers, below).  64-key tiles of KV head h / rep (read in place:
 // GQA costs no expanded copy) stream through a ring of two K and two V
 // stages filled with cp.async; the copies of tile j + 1 are issued before
 // the work on tile j, so they overlap it.  Tiles are XOR-swizzled at
@@ -59,7 +60,12 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBq = 64, kBk = 64;          // query rows, keys per tile
+constexpr int kBq = 64;                    // query rows of a tile
+// keys of a K/V tile: 64, and 32 at D = 256, where fewer S and P
+// registers keep the kernel out of local memory (below)
+__host__ __device__ constexpr int keys_per_tile(int d) {
+  return d > 128 ? 32 : 64;
+}
 constexpr int kThreads = 128;              // 4 warps of 16 query rows
 
 // Byte offset of 16-byte chunk c of row r in a tile of rows of D bf16.
@@ -68,10 +74,33 @@ constexpr int kThreads = 128;              // 4 warps of 16 query rows
 // groups (rows of 128 or 256 bytes: key r & 7; rows of 64 bytes, two to a
 // 128-byte line: key (r >> 1) & 3).
 template <int D>
+__device__ __forceinline__ int row_key(int r) {
+  return D / 8 >= 8 ? (r & 7) : ((r >> 1) & 3);
+}
+template <int D>
 __device__ __forceinline__ int tile_off(int r, int c) {
-  constexpr int kC = D / 8;
-  const int key = kC >= 8 ? (r & 7) : ((r >> 1) & 3);
-  return r * (D * 2) + ((c ^ key) << 4);
+  return r * (D * 2) + ((c ^ row_key<D>(r)) << 4);
+}
+
+// The unrolled mma loops read chunk c = 2i + lo of rows that share one
+// key (row r, or r plus a multiple of 16): since the key is below 8,
+// c ^ key = (c & ~7) + ((c & 7) ^ key), and the second term takes 4
+// values per lane.  This lane's 4 (times 16 bytes) are computed once, so
+// every address of the loops is a register plus an immediate.
+struct Swizzle {
+  int base;       // byte offset of row r
+  int x[4];       // ((2i + lo) ^ key) * 16, i = 0..3
+  __device__ __forceinline__ int at(int c) const {
+    return base + ((c & ~7) << 4) + x[(c & 7) >> 1];
+  }
+};
+template <int D>
+__device__ __forceinline__ Swizzle swizzle(int r, int lo) {
+  Swizzle z;
+  z.base = r * (D * 2);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) z.x[i] = ((2 * i + lo) ^ row_key<D>(r)) << 4;
+  return z;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -141,18 +170,26 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-// grid (H, B, query tiles); shared memory: Q tile, K ring, V ring
+// grid (H, B, query tiles); shared memory: Q tile, K ring, V ring.  At
+// D = 256 a warp's O alone takes 128 f32 registers a lane, and Q held as
+// fragments would take 64 more, past the 255 a thread may have (the
+// build spilled): there Q's fragments are read from the Q tile at each
+// k-step of every key tile instead (one ldmatrix beside those of K), and
+// key tiles are 32 wide (S and P in half the registers).  Shared memory
+// is then 96 KB, and the kernel runs one block per SM.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2) flash_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     int sq, int sk, int h, int hkv, int causal, int scale_d) {
+  constexpr int kBk = keys_per_tile(D);
   constexpr int kQTile = kBq * D * 2;  // bytes of the Q tile
   constexpr int kTile = kBk * D * 2;   // bytes of one K or V tile
   constexpr int kKs = D / 16;          // k-steps of S = Q K^T
   constexpr int kNb = kBk / 8;         // 8-key blocks of S
   constexpr int kPk = kBk / 16;        // k-steps of P V
   constexpr int kDn = D / 8;           // 8-column blocks of O: 16 bytes
+  constexpr bool kQRegs = D <= 128;    // Q fragments held in registers
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t qs = smem_u32(smem);
   const uint32_t ks = qs + kQTile, vs = ks + 2 * kTile;
@@ -176,6 +213,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(
   const int qrow = warp * 16 + (lane & 15), qch = lane >> 4;
   const int krow = (lane & 7) + ((lane >> 4) << 3), kch = (lane >> 3) & 1;
   const int vrow = (lane & 7) + (((lane >> 3) & 1) << 3), vch = lane >> 4;
+  const Swizzle qz = swizzle<D>(qrow, qch), kz = swizzle<D>(krow, kch),
+                vz = swizzle<D>(vrow, vch);
 
   const float scale = 1.0f / sqrtf((float)scale_d);
   float oacc[kDn][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -183,16 +222,16 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(
   for (int n = 0; n < kDn; ++n)
 #pragma unroll
     for (int r = 0; r < 4; ++r) oacc[n][r] = 0.f;
-  uint32_t qf[kKs][4];
+  uint32_t qf[kQRegs ? kKs : 1][4];
 
   for (int j = 0; j < nk; ++j) {
     const int st = j & 1, k0 = j * kBk;
     cp_wait<1>();       // K[j] (and Q) in for this thread
     __syncthreads();    // ... for all; stage st ^ 1 read by tile j - 1
-    if (j == 0) {
+    if (kQRegs && j == 0) {
 #pragma unroll
       for (int kk = 0; kk < kKs; ++kk)
-        ldmatrix_x4(qf[kk], qs + tile_off<D>(qrow, 2 * kk + qch));
+        ldmatrix_x4(qf[kk], qs + qz.at(2 * kk));
     }
     if (j + 1 < nk)
       load_tile<D, kBk>(ks + (st ^ 1) * kTile, k, b, k0 + kBk, sk, hkv, g,
@@ -211,14 +250,22 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(
       for (int r = 0; r < 4; ++r) s[nb][r] = 0.f;
     const uint32_t kt = ks + st * kTile;
 #pragma unroll
-    for (int kk = 0; kk < kKs; ++kk)
+    for (int kk = 0; kk < kKs; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = qf[kk][r];
+      } else {
+        ldmatrix_x4(a, qs + qz.at(2 * kk));
+      }
 #pragma unroll
       for (int np = 0; np < kNb / 2; ++np) {
         uint32_t r[4];
-        ldmatrix_x4(r, kt + tile_off<D>(16 * np + krow, 2 * kk + kch));
-        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        ldmatrix_x4(r, kt + 16 * np * (D * 2) + kz.at(2 * kk));
+        mma_bf16(s[2 * np], a, r[0], r[1]);
+        mma_bf16(s[2 * np + 1], a, r[2], r[3]);
       }
+    }
 
     // online softmax in base 2; rows gr (r = 0, 1) and gr + 8 (r = 2, 3)
     const bool edge = k0 + kBk > sk || (causal && k0 + kBk - 1 > wr0);
@@ -281,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(
 #pragma unroll
       for (int dp = 0; dp < kDn / 2; ++dp) {
         uint32_t r[4];
-        ldmatrix_x4_trans(r, vt + tile_off<D>(16 * kk + vrow, 2 * dp + vch));
+        ldmatrix_x4_trans(r, vt + 16 * kk * (D * 2) + vz.at(2 * dp));
         mma_bf16(oacc[2 * dp], pf[kk], r[0], r[1]);
         mma_bf16(oacc[2 * dp + 1], pf[kk], r[2], r[3]);
       }
@@ -316,7 +363,7 @@ template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int b,
              int sq, int sk, int h, int hkv, int causal, int scale_d,
              cudaStream_t st) {
-  constexpr int bytes = (kBq + 4 * kBk) * D * 2;   // Q, K ring, V ring
+  constexpr int bytes = (kBq + 4 * keys_per_tile(D)) * D * 2;   // Q, K, V
   static bool configured = false;          // above 48 KB needs the attribute
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -336,7 +383,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Sk, Hkv, D), o like q; bf16, contiguous,
-// 16-byte aligned; D in {32, 64, 128}; H a multiple of Hkv; Sk >= 1;
+// 16-byte aligned; D in {32, 64, 128, 256}; H a multiple of Hkv; Sk >= 1;
 // B and the number of 64-row query tiles at most 65535; scores scaled by
 // 1/sqrt(scale_d): D itself, or the head dim before the wrapper
 // zero-padded q/k/v up to D (the padding adds nothing to S).
@@ -355,6 +402,9 @@ extern "C" int flash_attn_tc_launch(const void* q, const void* k,
                          st);
     case 128:
       return launch_d<128>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
+                          st);
+    case 256:
+      return launch_d<256>(q, k, v, o, b, sq, sk, h, hkv, causal, scale_d,
                           st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -52,7 +52,8 @@ SIGNATURES: Dict[str, str] = {
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None     # wall time of this process's build
-build_log: str = ""                       # nvcc output (ptxas register use)
+build_log: str = ""       # nvcc output (ptxas register use), kept with the
+#                           library and read back when it is already built
 
 
 def _nvcc() -> str:
@@ -89,7 +90,9 @@ def build() -> Path:
     out = BUILD_DIR / f"libmx_kernels_{_digest()}.so"
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)   # one build at a time
+        log = out.with_suffix(".log")
         if out.exists():
+            build_log = log.read_text() if log.exists() else ""
             return out
         t0 = time.perf_counter()
         nvcc = _nvcc()
@@ -115,10 +118,11 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        build_log = "\n".join(logs)
+        log.write_text(build_log)
         os.replace(so, out)
         shutil.rmtree(tmp, ignore_errors=True)
         build_seconds = time.perf_counter() - t0
-        build_log = "\n".join(logs)
     return out
 
 

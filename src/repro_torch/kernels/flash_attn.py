@@ -5,9 +5,9 @@ CUDA tensors the wrapper launches a kernel (or raises): bf16, the serving
 path's type, runs csrc/flash_attn_tc.cu on the tensor cores (the one new
 rounding, P to bf16 before P V, is held to the reference's bf16 tolerance
 of 2e-2), f32 runs csrc/flash_attn.cu on the CUDA cores.  Both are built
-for head dims 32, 64 and 128; a smaller head dim runs zero-padded up to
-the next of those (``kernel_head_dim``), as the reference's kernel takes
-any head dim.  On CPU tensors
+for head dims 32, 64, 128 and 256; any other head dim up to 256 runs
+zero-padded up to the next of those (``kernel_head_dim``), as the
+reference's kernel takes any head dim.  On CPU tensors
 it computes the plain version, ``ref.flash_attention_ref``.  The
 reference's backward is dense recompute, not a kernel; it comes with
 training.
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128)      # head dims the kernels are compiled for
+HEAD_DIMS = (32, 64, 128, 256)   # head dims the kernels are compiled for
 
 
 def kernel_head_dim(d: int) -> int:
@@ -26,12 +26,12 @@ def kernel_head_dim(d: int) -> int:
     least of HEAD_DIMS >= d.  The wrapper zero-pads q, k and v up to it,
     which adds nothing to Q K^T, scales the scores by 1/sqrt(d) as
     before, and drops the padded output columns (zero: P times zero V
-    columns).  Past 128 no kernel is built: ValueError."""
+    columns).  Past 256 no kernel is built: ValueError."""
     for dk in HEAD_DIMS:
         if d <= dk:
             return dk
     raise ValueError(f"flash_attention: head dim {d} is past the largest "
-                     f"compiled head dim, {HEAD_DIMS[-1]}")
+                     f"compiled head dim, {HEAD_DIMS[-1]} (ROADMAP C5)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

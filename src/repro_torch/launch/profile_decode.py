@@ -3,9 +3,12 @@ path as replays of its captured CUDA graph beside the eager loop of the
 same step function, in the same call; then one traced prefill batch,
 cold and prefix-cache hit.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_decode
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode [--arch ARCH]
 
-Builds full-width chatglm3-6b (all 28 layers) with 8-bit MX weights and
+Builds a full-width config (``--arch``, any of ``ARCH_IDS``; default
+chatglm3-6b, all its layers; every batch below is a multiple of 256
+tokens, so an MoE config's capacity groups split evenly) with 8-bit MX
+weights and
 traces ``SYNC_EVERY`` decode steps of each serving path with
 ``torch.profiler`` (CPU + CUDA activities), 8 rows at ~256 positions:
 
@@ -42,6 +45,7 @@ device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import time
@@ -251,10 +255,13 @@ def _prefill(model: Model, params, rng) -> None:
             flush=True)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="chatglm3_6b")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
-    model, params = build_model("chatglm3_6b", reduced=False, quant=POLICY,
+    model, params = build_model(args.arch, reduced=False, quant=POLICY,
                                 weight_resident=True, device="cuda",
                                 seed=0, attn_impl="flash")
     rng = np.random.default_rng(0)

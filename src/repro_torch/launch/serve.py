@@ -12,17 +12,21 @@ continuous batching over the paged MX KV cache.
 
 Runs on the CUDA device, each decode step one replay of a captured CUDA
 graph; ``--device cpu`` computes every kernel's plain version instead
-(use it with ``--reduced``).  Attention runs through the kernels
-(``attn_impl="flash"``, as the reference's serving cells set it).
+(use it with ``--reduced``).  ``--arch`` takes every entry of
+``repro_torch.models.ARCH_IDS`` (the dense GQA decoders and the MoE
+``moonshot_v1_16b_a3b``).  Attention runs through the kernels
+(``attn_impl="flash"``, as the reference's serving cells set it), but
+for ``--prefix-cache`` over an fp KV pool, which serves at ``"dense"``
+as the reference's launcher does (its default ``attn_impl``).
 ``--temperature`` /
 ``--seed`` sample as the reference's flags do; paged mode runs the
 numeric-health guards unless ``--no-health-checks``.  ``--prefix-cache``
 shares the KV pages of common prompt prefixes (``--shared-prefix N``
 gives every prompt N common leading tokens) and prints the hit rate and
 the effective pool beside the allocated one; the tokens are those of a
-run without it.  It needs MX KV pages (``kv_key`` / ``kv_value`` in
-``--quant``): over an fp pool at ``"flash"`` the cold and the suffix
-prefill attend by different routes, and the engine refuses it.
+run without it (for a dense config; MoE capacity routing depends on
+which tokens share a prefill, ROADMAP C8).  ``--mx-kv`` / ``--mx-mode``
+are the reference's deprecated aliases for ``--quant kv=<fmt>@32:<mode>``.
 Weights are random, made on the device from seed 0; with
 ``--weight-resident`` each layer is quantized to MX storage as soon as
 it is made.
@@ -205,6 +209,12 @@ def main(argv=None) -> None:
     ap.add_argument("--quant", default=None,
                     help="policy, e.g. weights=e4m3@32:ocp,"
                          "kv_key=int8@32:ocp,kv_value=e2m1@32:ocp")
+    ap.add_argument("--mx-kv", choices=["off", "int8", "e4m3", "e5m2",
+                                        "e3m2", "e2m3", "e2m1"],
+                    default="off",
+                    help="deprecated: use --quant kv=<fmt>@32:<mode>")
+    ap.add_argument("--mx-mode", choices=["paper", "ocp"], default="ocp",
+                    help="deprecated: use --quant")
     ap.add_argument("--batch", type=int, default=8,
                     help="static batch, or decode slots with --paged")
     ap.add_argument("--page-size", type=int, default=16)
@@ -217,8 +227,8 @@ def main(argv=None) -> None:
                          "with a common prompt prefix (refcounted, "
                          "copy-on-write); only the uncached suffix is "
                          "prefilled, and the tokens stay those of a run "
-                         "without it; needs MX KV pages (kv_key/kv_value "
-                         "in --quant)")
+                         "without it (dense configs); over an fp KV pool "
+                         "attention runs dense")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give every prompt this many common leading "
                          "tokens (a system prompt)")
@@ -345,14 +355,26 @@ def main(argv=None) -> None:
         print(f"[serve] fault plan (seed {args.fault_seed}): {faults}")
     if args.prefix_cache and not args.paged:
         ap.error("--prefix-cache needs --paged (prefixes share pages)")
+    quant = args.quant
+    if not quant and args.mx_kv != "off":
+        print(f"[serve] --mx-kv/--mx-mode are deprecated; use "
+              f"--quant kv={args.mx_kv}@32:{args.mx_mode}")
+        quant = f"kv={args.mx_kv}@32:{args.mx_mode}"
+    # an fp pool under the prefix cache serves at "dense", as the
+    # reference's launcher does: at "flash" its cold prefill would attend
+    # through the flash kernel and its suffix prefill densely (the engine
+    # refuses that pairing)
+    fp_pool = QuantPolicy.parse(quant or "none").kv_key is None
+    attn_impl = "dense" if args.prefix_cache and fp_pool else "flash"
     t0 = time.perf_counter()
     model, params = build_model(args.arch, reduced=args.reduced,
-                                quant=args.quant,
+                                quant=quant,
                                 weight_resident=args.weight_resident,
-                                device=args.device, attn_impl="flash")
+                                device=args.device, attn_impl=attn_impl)
     cfg = model.cfg
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"policy {cfg.mx}, built on {model.device} in "
+          f"policy {cfg.mx}, attention {cfg.attn_impl}, built on "
+          f"{model.device} in "
           f"{time.perf_counter() - t0:.2f}s")
     if not args.paged:
         _serve_static(args, model, params)

@@ -1,4 +1,5 @@
-"""The dense GQA decoder family (chatglm3-6b) in PyTorch."""
+"""The GQA decoder family (dense and MoE; ``registry.ARCH_IDS``) in
+PyTorch."""
 from repro_torch.models.config import ModelConfig  # noqa: F401
-from repro_torch.models.registry import (Model, load_config,  # noqa: F401
-                                         load_reduced)
+from repro_torch.models.registry import (ARCH_IDS, Model,  # noqa: F401
+                                         load_config, load_reduced)

@@ -1,7 +1,7 @@
-"""Model configuration of the port's dense GQA decoder family.
+"""Model configuration of the port's GQA decoder family (dense and MoE).
 
 Mirrors src/repro/models/config.py for the fields the decoder family
-uses; quantization is one per-tensor-role ``QuantPolicy``
+uses (the MLA, SSM and encoder-decoder fields are not ported); quantization is one per-tensor-role ``QuantPolicy``
 (``repro_torch.core.spec``): weights, kv_key and kv_value each carry an
 optional ``QuantSpec``, so INT8 keys can pair with E2M1 values.
 """
@@ -31,6 +31,13 @@ class ModelConfig:
     norm_eps: float = 1e-5
     gated_mlp: bool = True         # SwiGLU vs plain GELU
     tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    moe_topk: int = 0
+    moe_d_ff: int = 0              # per-expert hidden dim
+    n_dense_layers: int = 0        # leading dense layers before the MoE ones
+    capacity_factor: float = 1.25
     mx: QuantPolicy = dataclasses.field(default_factory=QuantPolicy)
     dtype: str = "bfloat16"        # compute and stored-parameter dtype
     # "dense" | "flash": "flash" sends MX decode attention (contiguous and
@@ -48,6 +55,12 @@ class ModelConfig:
         if self.head_dim is not None:
             return self.head_dim
         return self.d_model // self.n_heads
+
+    def moe_layer(self, i: int) -> bool:
+        """Layer ``i`` (absolute, from 0) routes its MLP through experts:
+        every layer past the leading ``n_dense_layers`` of an MoE
+        config."""
+        return self.n_experts > 0 and i >= self.n_dense_layers
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -1,9 +1,11 @@
-"""Decoder-only LM, dense GQA family (mirrors
+"""Decoder-only LM, the GQA family, dense and MoE (mirrors
 src/repro/models/decoder.py).
 
-The reference stacks layers and drives them with ``lax.scan``; here
-``params["layers"]`` is a list of per-layer dicts walked by a Python
-loop.  Caches and page pools stay layer-stacked on a leading axis (as in
+The reference stacks layers and drives them with ``lax.scan`` after a
+list of an MoE config's leading dense layers; here ``params["layers"]``
+is one list of ``n_layers`` per-layer dicts (the dense layers first: an
+``"mlp"``, an MoE layer a ``"moe"`` with its router, expert stacks and
+shared experts) walked by a Python loop.  Caches and page pools stay layer-stacked on a leading axis (as in
 the reference), and each layer reads its slice ``leaf[i]`` — a
 contiguous view.  The fused decode window (the reference's jitted
 ``lax.scan``) is ``paged_decode_window_step`` repeated: here as a Python
@@ -26,8 +28,9 @@ from repro_torch.models.config import ModelConfig
 
 VOCAB_PAD = 512
 
-# matmul weight leaves quantized by ``quantize_weights`` — all (K, N);
-# norms, the embedding and the LM head stay fp
+# matmul weight leaves quantized by ``quantize_weights`` — all (K, N), or
+# (E, K, N) expert stacks; the router, norms, the embedding and the LM
+# head stay fp
 _WEIGHT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "w3"})
 
 
@@ -45,25 +48,42 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device):
     return (x * std).to(dtype)
 
 
-def _layer_init(gen, cfg: ModelConfig, device) -> Dict[str, Any]:
+def _layer_init(gen, cfg: ModelConfig, device,
+                moe_layer: bool) -> Dict[str, Any]:
+    """One layer's weights (the reference's ``_layer_init``): attention,
+    then an MLP of ``d_ff`` or, on an MoE layer, the reference's
+    ``moe_init``: an f32 router, (E, d, ff) / (E, ff, d) expert stacks of
+    ``moe_d_ff`` and gated shared experts of ``moe_d_ff *
+    n_shared_experts``."""
     d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = cfg.torch_dtype
 
-    def dense_init(d_in, d_out):
-        return _normal(gen, (d_in, d_out), 1.0 / np.sqrt(d_in), dt, device)
+    def dense_init(d_in, d_out, lead=(), dtype=dt):
+        return _normal(gen, lead + (d_in, d_out), 1.0 / np.sqrt(d_in),
+                       dtype, device)
+
+    def mlp_init(ff, gated):
+        w = {"w1": dense_init(d, ff)}
+        if gated:
+            w["w3"] = dense_init(d, ff)
+        w["w2"] = dense_init(ff, d)
+        return w
 
     p = {"ln1": torch.ones(d, dtype=dt, device=device),
          "ln2": torch.ones(d, dtype=dt, device=device),
          "attn": {"wq": dense_init(d, nh * hd), "wk": dense_init(d, nkv * hd),
                   "wv": dense_init(d, nkv * hd),
                   "wo": dense_init(nh * hd, d)}}
-    if cfg.gated_mlp:
-        p["mlp"] = {"w1": dense_init(d, cfg.d_ff),
-                    "w3": dense_init(d, cfg.d_ff),
-                    "w2": dense_init(cfg.d_ff, d)}
-    else:
-        p["mlp"] = {"w1": dense_init(d, cfg.d_ff),
-                    "w2": dense_init(cfg.d_ff, d)}
+    if not moe_layer:
+        p["mlp"] = mlp_init(cfg.d_ff, cfg.gated_mlp)
+        return p
+    e, ff = (cfg.n_experts,), cfg.moe_d_ff
+    p["moe"] = {"router": dense_init(d, cfg.n_experts, dtype=torch.float32),
+                "experts": {"w1": dense_init(d, ff, e),
+                            "w3": dense_init(d, ff, e),
+                            "w2": dense_init(ff, d, e)}}
+    if cfg.n_shared_experts:
+        p["moe"]["shared"] = mlp_init(ff * cfg.n_shared_experts, True)
     return p
 
 
@@ -97,8 +117,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     vp, d, dt = padded_vocab(cfg), cfg.d_model, cfg.torch_dtype
     params: Dict[str, Any] = {
         "embed": _normal(gen, (vp, d), 0.02, dt, device), "layers": []}
-    for _ in range(cfg.n_layers):
-        lp = _layer_init(gen, cfg, device)
+    for i in range(cfg.n_layers):
+        lp = _layer_init(gen, cfg, device, cfg.moe_layer(i))
         if quantize:
             lp = _quantize_layer_tree(lp, cfg.mx.weights)
         params["layers"].append(lp)
@@ -144,8 +164,10 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), head.to(torch.float32))
 
 
-def _block(lp, x, cfg: ModelConfig, *, positions=None, cache=None,
+def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
            cache_pos: int = 0, paged=None, paged_prefill=None):
+    """Layer ``i``: attention (over the cache or pages given), then the
+    MLP or, on an MoE layer, ``moe``.  Returns (x, cache)."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if paged_prefill is not None:
         block_tables, starts, prompt_lens = paged_prefill
@@ -162,6 +184,8 @@ def _block(lp, x, cfg: ModelConfig, *, positions=None, cache=None,
                                cache=cache, cache_pos=cache_pos)
     x = x + a
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.moe_layer(i):
+        return x + L.moe(lp["moe"], h2, cfg)[0], cache
     return x + L.mlp(lp["mlp"], h2, cfg), cache
 
 
@@ -188,8 +212,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = _embed(params, cfg, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for lp in params["layers"]:
-        x, _ = _block(lp, x, cfg, positions=positions)
+    for i, lp in enumerate(params["layers"]):
+        x, _ = _block(i, lp, x, cfg, positions=positions)
     return _head(params, cfg, x)
 
 
@@ -213,7 +237,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             leaf.zero_()
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(lp, x, cfg, positions=positions,
+        x, _ = _block(i, lp, x, cfg, positions=positions,
                       cache=_layer_view(cache, i))
     return _head(params, cfg, x), cache, s
 
@@ -234,7 +258,7 @@ def decode_step(params, token: torch.Tensor, cache, pos,
         positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                                device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(lp, x, cfg, positions=positions,
+        x, _ = _block(i, lp, x, cfg, positions=positions,
                       cache=_layer_view(cache, i), cache_pos=pos)
     return _head(params, cfg, x), cache
 
@@ -273,7 +297,7 @@ def paged_prefill_suffix(params, tokens: torch.Tensor, starts: torch.Tensor,
     x = _embed(params, cfg, tokens)
     paged_prefill = (block_tables, starts, prompt_lens)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(lp, x, cfg, cache=_layer_view(pool, i),
+        x, _ = _block(i, lp, x, cfg, cache=_layer_view(pool, i),
                       paged_prefill=paged_prefill)
     return _head(params, cfg, x), pool
 
@@ -287,7 +311,8 @@ def paged_decode_step(params, token: torch.Tensor, pool, block_tables,
     x = _embed(params, cfg, token[:, None])
     paged = (block_tables, lengths)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(lp, x, cfg, cache=_layer_view(pool, i), paged=paged)
+        x, _ = _block(i, lp, x, cfg, cache=_layer_view(pool, i),
+                      paged=paged)
     return _head(params, cfg, x), pool
 
 

@@ -1,7 +1,9 @@
-"""Layers of the dense GQA decoder (mirrors src/repro/models/layers.py).
+"""Layers of the GQA decoder, dense and MoE (mirrors
+src/repro/models/layers.py).
 
 Every projection routes through ``dense()``: an ``MXWeight`` operand goes
-to the dequant x matmul kernel, an fp weight to ``torch.matmul``.  KV
+to the dequant x matmul kernel, an fp weight to ``torch.matmul``; an MoE
+layer's experts run one such launch per expert (``moe``).  KV
 caches are quantized along the head dim per the ``kv_key``/``kv_value``
 policy roles and written, packed, in one launch of the fused KV-write
 kernel per layer (a prompt suffix over pages too).  Attention follows
@@ -486,3 +488,102 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
     return dense(h, p["w2"])
+
+
+# =============================================================================
+# MoE: capacity-routed experts (GShard-style groups)
+# =============================================================================
+GROUP_SIZE = 256   # dispatch group size (the reference's)
+
+
+def moe_groups(n_tok: int, cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(g, gs, cap) of ``n_tok`` tokens: groups of ``gs = min(256,
+    n_tok)`` tokens and each expert's capacity ``cap`` per group, as the
+    reference computes them.  The reference reshapes the tokens to (g,
+    gs, d), which fails when ``n_tok`` is past 256 and no multiple of it
+    (ROADMAP C8); so does this, with a ValueError."""
+    gs = min(GROUP_SIZE, n_tok)
+    g = n_tok // gs
+    if g * gs != n_tok:
+        raise ValueError(
+            f"moe: {n_tok} tokens do not split into groups of {gs}: past "
+            f"{GROUP_SIZE} tokens a batch must be a multiple of "
+            f"{GROUP_SIZE} (the reference's x.reshape(g, gs, d) fails "
+            f"there too; ROADMAP C8)")
+    cap = max(1, int(gs * cfg.moe_topk / cfg.n_experts
+                     * cfg.capacity_factor))
+    return g, gs, cap
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
+    """Router probabilities and top-k of grouped tokens xt (g, gs, d):
+    logits and softmax in f32, and the top ``k`` experts per token with
+    ties to the lower index (as ``lax.top_k``; a stable descending sort,
+    with no host sync).  Returns (probs (g, gs, e) f32, topw (g, gs, k)
+    renormalised, topi (g, gs, k) int64)."""
+    logits = torch.einsum("gsd,de->gse", xt.to(torch.float32),
+                          router.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[..., :k], topi[..., :k]
+    topw = topw / (torch.sum(topw, dim=-1, keepdim=True) + 1e-9)
+    return probs, topw, topi
+
+
+def _expert_mm(t: torch.Tensor, w) -> torch.Tensor:
+    """Per-expert matmuls t (E, R, K) @ w (E, K, N) -> (E, R, N) in t's
+    dtype.  An ``MXWeight`` stack: one dequant x matmul launch per expert
+    over its rows ``t[i]`` (a contiguous slice) and its weight
+    ``w.take(i)`` (views of the stack); an fp stack: one batched matmul
+    (f32 accumulate)."""
+    if isinstance(w, MXWeight):
+        return torch.stack([mx_matmul_resident(t[i], w.take(i))
+                            for i in range(t.shape[0])]).to(t.dtype)
+    return torch.matmul(t, w.to(t.dtype))
+
+
+def moe(p: Params, x: torch.Tensor,
+        cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-factor top-k MoE over x (B, S, d); returns (out, aux) —
+    the reference's function (ref layers.py:898-985).
+
+    Tokens are grouped (g, gs); each (token, choice) takes the next slot
+    of its expert's capacity buffer in (token, choice) order, and choices
+    past ``cap`` are dropped.  Dispatch and combine are one-hot
+    contractions, as the reference's (a token's non-finite activation
+    reaches its whole group there as here).  The dispatched tokens lie
+    expert-major, (E, g * cap, d), so expert i's rows are one contiguous
+    slice for its matmuls.  Shared experts run through ``mlp``; ``aux``
+    is the Switch load-balance loss.  Nothing here waits for the host,
+    so the layer captures into a decode graph."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_topk
+    g, gs, cap = moe_groups(b * s, cfg)
+    xt = x.reshape(g, gs, d)
+    probs, topw, topi = moe_route(p["router"], xt, k)
+    experts = torch.arange(e, device=x.device)
+    onehot = (topi[..., None] == experts).to(torch.float32)  # (g,gs,k,e)
+    pos_in_e = (torch.cumsum(onehot.reshape(g, gs * k, e), dim=1)
+                .reshape(g, gs, k, e) - 1.0) * onehot
+    keep = (pos_in_e < cap) & (onehot > 0)
+    posq = torch.clamp(pos_in_e, 0, cap - 1).to(torch.int64)
+    slots = torch.arange(cap, device=x.device)
+    # (g, gs, k, e, cap): each kept (token, choice) hits one (e, slot)
+    capoh = ((posq[..., None] == slots) & keep[..., None]).to(x.dtype)
+    disp = torch.sum(capoh, dim=2)                          # (g,gs,e,cap)
+    comb = torch.einsum("gsk,gskec->gsec", topw.to(x.dtype), capoh)
+    xe = torch.einsum("gsec,gsd->egcd", disp, xt).contiguous()
+    xe = xe.reshape(e, g * cap, d)
+    we = p["experts"]
+    h = _expert_mm(xe, we["w1"])
+    gte = _expert_mm(xe, we["w3"])
+    h = F.silu(h.to(torch.float32)).to(x.dtype) * gte
+    ye = _expert_mm(h, we["w2"]).reshape(e, g, cap, d)
+    out = torch.einsum("gsec,egcd->gsd", comb, ye).reshape(b, s, d)
+    if cfg.n_shared_experts:
+        out = out + mlp(p["shared"], x, cfg)
+    # load-balance aux loss (Switch): e * sum_e f_e * P_e / k
+    f_e = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
+    p_e = torch.mean(probs, dim=(0, 1))
+    aux = e * torch.sum(f_e * p_e) / k
+    return out, aux

@@ -1,8 +1,12 @@
 """Carry parameters across from the reference package, as numpy.
 
 The reference keeps its layer params stacked on a leading ``n_scan`` axis
-(one ``lax.scan`` slice per layer); the port keeps a list of per-layer
-dicts.  ``from_numpy`` takes the reference's tree with every array
+(one ``lax.scan`` slice per layer), after a list ``dense_layers`` of the
+leading dense layers of an MoE config; the port keeps one list of
+``n_layers`` per-layer dicts, the dense layers first (its KV caches and
+pools stack all ``n_layers`` on one leading axis alike).  An MoE layer's
+expert stacks keep their leading ``E`` axis, and its router stays f32
+whatever the config's dtype, as the reference's does.  ``from_numpy`` takes the reference's tree with every array
 already converted to numpy (the caller does the jax -> numpy step; this
 package never sees a jax object) and returns the port's params on
 ``device``.  An ``MXWeight`` leaf arrives as a dict
@@ -27,10 +31,17 @@ def _is_mx(leaf) -> bool:
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":        # numpy has no bf16 torch takes;
+        a = a.astype(np.float32)          # widening to f32 is exact
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def _leaf(leaf, i, cfg: ModelConfig, device):
+# fp leaves kept in f32 whatever the config's dtype (ref layers.py:881)
+_F32_KEYS = frozenset({"router"})
+
+
+def _leaf(leaf, i, cfg: ModelConfig, device, key: str = ""):
     """Layer ``i``'s slice of one stacked leaf (``i`` None: unstacked)."""
     if _is_mx(leaf):
         codes, scales = leaf["codes"], leaf["scales"]
@@ -43,25 +54,28 @@ def _leaf(leaf, i, cfg: ModelConfig, device):
                         packed=bool(leaf["packed"]), k=int(leaf["k"]),
                         n=int(leaf["n"]))
     if isinstance(leaf, dict):
-        return {k: _leaf(v, i, cfg, device) for k, v in leaf.items()}
+        return {k: _leaf(v, i, cfg, device, k) for k, v in leaf.items()}
     arr = np.asarray(leaf)
-    return _tensor(arr if i is None else arr[i], cfg.torch_dtype, device)
+    dtype = torch.float32 if key in _F32_KEYS else cfg.torch_dtype
+    return _tensor(arr if i is None else arr[i], dtype, device)
 
 
 def from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                device="cuda") -> Dict[str, Any]:
-    """The reference's params (numpy leaves; stacked ``layers``) -> the
-    port's params (per-layer list) on ``device`` (the card unless the
-    caller asks for ``"cpu"``)."""
+    """The reference's params (numpy leaves; ``dense_layers`` then the
+    stacked ``layers``) -> the port's params (one per-layer list) on
+    ``device`` (the card unless the caller asks for ``"cpu"``)."""
     device = torch.device(device)
+    dense = tree.get("dense_layers", [])
     n = next(v for v in _first_leaves(tree["layers"])).shape[0]
-    if n != cfg.n_layers:
-        raise ValueError(f"params hold {n} layers, config says "
-                         f"{cfg.n_layers}")
+    if len(dense) != cfg.n_dense_layers or len(dense) + n != cfg.n_layers:
+        raise ValueError(f"params hold {len(dense)} dense + {n} stacked "
+                         f"layers, config says {cfg.n_dense_layers} dense "
+                         f"of {cfg.n_layers}")
     out = {k: _leaf(tree[k], None, cfg, device)
            for k in ("embed", "norm_f", "lm_head") if k in tree}
-    out["layers"] = [_leaf(tree["layers"], i, cfg, device)
-                     for i in range(n)]
+    out["layers"] = [_leaf(lp, None, cfg, device) for lp in dense] + [
+        _leaf(tree["layers"], i, cfg, device) for i in range(n)]
     return out
 
 

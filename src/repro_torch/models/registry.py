@@ -1,5 +1,6 @@
 """Architecture registry and the ``Model`` surface the serving engine calls
-(mirrors src/repro/models/registry.py for the dense decoder family)."""
+(mirrors src/repro/models/registry.py for the GQA decoder family, dense
+and MoE)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,11 +11,25 @@ import torch
 from repro_torch.models import decoder
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ("chatglm3_6b",)
+ARCH_IDS = ("chatglm3_6b", "glm4_9b", "yi_34b", "deepseek_67b",
+            "moonshot_v1_16b_a3b")
+
+# the reference's other archs, each with the ROADMAP item that ports it
+NOT_PORTED = {
+    "deepseek_v2_236b": "A7 (MLA attention: mla_attention / mla_decode)",
+    "internvl2_76b": "A3 (the patch frontend and prefix_embeds)",
+    "zamba2_1p2b": "A10 (the hybrid SSM family)",
+    "rwkv6_7b": "A10 (the RWKV family)",
+    "seamless_m4t_medium": "A10 (the encoder-decoder family)",
+}
 
 
 def _config_module(arch: str):
     arch = arch.replace("-", "_").replace(".", "p")
+    if arch in NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported yet: ROADMAP item {NOT_PORTED[arch]}; "
+            f"the port serves {list(ARCH_IDS)}")
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; the port serves "
                          f"{list(ARCH_IDS)}")
@@ -38,7 +53,7 @@ class Model:
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.family != "decoder":
             raise NotImplementedError(
-                f"{cfg.name}: the port covers the dense decoder family")
+                f"{cfg.name}: the port covers the GQA decoder family")
         self.cfg = cfg
         self.device = torch.device(device)
 
@@ -50,6 +65,8 @@ class Model:
         return decoder.quantize_weights(params, self.cfg)
 
     def supports_paged(self) -> bool:
+        """As the reference's: a GQA decoder (no MLA, no modality
+        frontend; neither field is ported, so every ported config)."""
         return self.cfg.family == "decoder"
 
     def init_paged_cache(self, num_pages: int, page_size: int):

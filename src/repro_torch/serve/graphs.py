@@ -70,7 +70,9 @@ class CapturedStep:
         torch.cuda.current_stream(device).wait_stream(side)
         wrappers = kernel_wrappers()
         before = [w.launches for w in wrappers]
-        graph = torch.cuda.CUDAGraph()
+        # the graph's nodes stay readable (``graph.raw_cuda_graph()``)
+        # after instantiation: what one replay launches can be listed
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         # a captured step holds a reference cycle (its step closure and
         # the buffers' owner), so a dropped engine's graph dies in the
         # cyclic collector; destroying a graph while a capture is open
@@ -84,6 +86,7 @@ class CapturedStep:
         finally:
             if gc_on:
                 gc.enable()
+        graph.instantiate()
         for w, n in zip(wrappers, before):
             if w.launches != n:
                 self.launches[w] = w.launches - n

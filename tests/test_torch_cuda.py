@@ -412,6 +412,65 @@ def test_matmul_bf16_at_w1_width(dev, spec, m):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=tol)
 
 
+@pytest.mark.parametrize("kn", [(2048, 1408), (1408, 2048)])
+def test_matmul_through_expert_take_views(dev, kn):
+    """moonshot-v1-16b-a3b's expert shapes: a stack of 4 experts quantized
+    on the card, each expert's matmul launched on ``take(i)`` (views of
+    the stack, no copy) at one row and at 30 rows, bf16 activations,
+    against the plain version; rows equal bit for bit across the two."""
+    k, n = kn
+    rng = np.random.default_rng(k)
+    w = torch.from_numpy(rng.normal(size=(4, k, n)).astype(np.float32)
+                         / np.sqrt(k)).to(dev)
+    stack = MXWeight.quantize(w, QuantSpec.parse("e4m3@32:ocp"))
+    a = torch.from_numpy(rng.normal(size=(4, 30, k)).astype(np.float32)) \
+        .to(dev).to(torch.bfloat16)
+    for i in range(4):
+        wi = stack.take(i)
+        assert wi.codes.data_ptr() == stack.codes.data_ptr() \
+            + i * wi.codes.numel()
+        got = mx_matmul_2d(a[i], wi.codes, wi.scales, wi.spec)
+        one = mx_matmul_2d(a[i, :1], wi.codes, wi.scales, wi.spec)
+        want = mx_matmul_2d(a[i].cpu(), wi.codes.cpu(), wi.scales.cpu(),
+                            wi.spec)
+        torch.cuda.synchronize()
+        tol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=tol)
+        assert torch.equal(one, got[:1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_on_card_matches_cpu(dev, dtype):
+    """``layers.moe`` on e4m3 expert stacks (reduced moonshot widths, 64
+    tokens) on the card against its CPU run: the same routing, outputs
+    within the matmul's tolerance (bf16: one bf16 rounding step)."""
+    import dataclasses
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.models import Model, layers, load_reduced
+    cfg = load_reduced("moonshot_v1_16b_a3b", dtype=dtype,
+                       mx=QuantPolicy.parse("weights=e4m3@32:ocp"))
+    params = Model(cfg, device="cpu").init(seed=2, quantize=True)
+    moe = params["layers"][1]["moe"]
+    on_dev = {"router": moe["router"].to(dev),
+              "experts": {k: dataclasses.replace(
+                  w, codes=w.codes.to(dev), scales=w.scales.to(dev))
+                  for k, w in moe["experts"].items()},
+              "shared": {k: dataclasses.replace(
+                  w, codes=w.codes.to(dev), scales=w.scales.to(dev))
+                  for k, w in moe["shared"].items()}}
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 32, cfg.d_model)).astype(np.float32)).to(cfg.torch_dtype)
+    want, aux = layers.moe(moe, x, cfg)
+    before = mx_matmul_2d.launches
+    got, aux_d = layers.moe(on_dev, x.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert mx_matmul_2d.launches - before == 3 * cfg.n_experts + 3
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol * float(want.abs().max()))
+    torch.testing.assert_close(aux_d.cpu(), aux, rtol=1e-5, atol=1e-6)
+
+
 def _paged_case(rng, kspec, vspec, b=3, hq=4, hkv=2, d=64, page=8, npg=5):
     n_pool = b * npg + 1
     q = torch.from_numpy(rng.normal(size=(b, 1, hq, d)).astype(np.float32))
@@ -493,7 +552,7 @@ def test_decode_attention_kernel_matches_plain(dev, kv):
 # 32 (two m-tiles), D 64 and 128, positions at tile (16), split (64) and
 # page edges; held to torch's bf16 defaults against the plain version
 TC_SHAPES = [(16, 2, 128), (7, 2, 64), (1, 2, 64), (32, 1, 128),
-             (16, 1, 64)]
+             (16, 1, 64), (1, 16, 128), (7, 8, 128)]   # moonshot, yi-34b
 TC_POSITIONS = (0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 575, 639)
 
 
@@ -551,6 +610,21 @@ def _bf16_paged(rng, kspec, vspec, rep=16, hkv=2, d=128, page=16, npg=40,
         vs[bt[-1, 0], 1, 0, 0] = scale_code
     return (q, kc, ks, vc, vs, bt, lengths), dict(
         key_spec=kspec, value_spec=vspec, rep=rep)
+
+
+@pytest.mark.parametrize("rep,hkv", [(1, 16), (7, 8)])
+def test_paged_attention_tc_at_gqa_groups(dev, rep, hkv):
+    """The GQA groups of moonshot-v1-16b-a3b (1 query head per KV head:
+    15 of the 16 rows of an m16 tile are padding) and yi-34b (7), INT8
+    keys and E2M1 values, against the plain version."""
+    args, kw = _bf16_paged(np.random.default_rng(rep), QuantSpec.parse(
+        "int8@32:ocp"), QuantSpec.parse("e2m1@32:ocp"), rep=rep, hkv=hkv,
+        npg=12)
+    want = mx_paged_decode_attention(*args, **kw)
+    got = mx_paged_decode_attention(*(t.to(dev) for t in args), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.cpu(), want)
 
 
 @pytest.mark.parametrize("mode", ["paper", "ocp"])
@@ -652,6 +726,9 @@ def test_decode_attention_tc_is_deterministic(dev):
     (2, 300, 300, 4, 2, 48, True),        # D 48: zero-padded to 64
     (1, 77, 77, 4, 1, 16, True),          # D 16: zero-padded to 32
     (2, 64, 130, 4, 2, 96, False),        # D 96: zero-padded to 128
+    (2, 130, 130, 4, 2, 192, True),       # D 192: zero-padded to 256
+    (1, 77, 200, 2, 1, 256, True),        # D 256, Sq != Sk
+    (2, 64, 130, 4, 2, 256, False),       # D 256, non-causal, ragged Sk
 ])
 def test_flash_kernel_matches_plain(dev, case):
     """f32 (csrc/flash_attn.cu, CUDA cores) at 2e-5; bf16
@@ -731,8 +808,12 @@ def test_cuda_tensor_never_takes_the_plain_path(dev):
     before = flash_attention.launches
     flash_attention(y, y, y)
     assert flash_attention.launches == before + 1
-    with pytest.raises(ValueError):             # head dim 160: no kernel
-        y = torch.ones(1, 16, 4, 160, device=dev)
+    y = torch.ones(1, 16, 4, 160, device=dev)   # head dim 160: padded to
+    before = flash_attention.launches           # the 256 build
+    flash_attention(y, y, y)
+    assert flash_attention.launches == before + 1
+    with pytest.raises(ValueError):             # head dim 288: no kernel
+        y = torch.ones(1, 16, 4, 288, device=dev)
         flash_attention(y, y, y)
 
 

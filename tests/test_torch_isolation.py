@@ -50,3 +50,26 @@ def test_sources_import_no_jax_or_reference():
                 if name.split(".")[0] in ("jax", "jaxlib", "repro"):
                     bad.append(f"{p.relative_to(ROOT)}: {name}")
     assert bad == []
+
+
+def test_every_arch_config_is_scanned():
+    """The scans above cover each config of ``ARCH_IDS`` and the MoE
+    layer's module: each is a module of the package, imported in the
+    fresh interpreter and parsed for imports, and none of them pulls in
+    jax or the reference."""
+    code = (
+        "import json, sys\n"
+        "from repro_torch.models import ARCH_IDS, load_config\n"
+        "from repro_torch.models.layers import moe\n"
+        "cfgs = [load_config(a).name for a in ARCH_IDS]\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps([list(ARCH_IDS), bad]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, cwd=str(ROOT))
+    archs, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == [] and len(archs) == 5
+    scanned = set(_modules())
+    assert {f"repro_torch.configs.{a}" for a in archs} <= scanned
+    assert "repro_torch.models.layers" in scanned

@@ -443,16 +443,16 @@ def test_decode_predicates_match_reference_dispatch(d, kv, pad):
 
 
 def test_flash_predicate():
-    """Flash takes every head dim up to 128, as the reference's kernel
+    """Flash takes every head dim up to 256, as the reference's kernel
     takes any: on the card a head dim runs at the least compiled one
-    (32, 64, 128) at or above it, zero-padded; past 128 the wrapper
-    raises (no configuration has such a head dim)."""
+    (32, 64, 128, 256) at or above it, zero-padded; past 256 the wrapper
+    raises (no configuration has such a head dim; ROADMAP C5)."""
     from repro_torch.kernels.flash_attn import kernel_head_dim
     assert [kernel_head_dim(d) for d in (8, 16, 24, 32, 40, 48, 64, 80,
-                                         96, 128)] \
-        == [32, 32, 32, 32, 64, 64, 64, 128, 128, 128]
+                                         96, 128, 136, 192, 256)] \
+        == [32, 32, 32, 32, 64, 64, 64, 128, 128, 128, 256, 256, 256]
     with pytest.raises(ValueError, match="past the largest"):
-        kernel_head_dim(136)
+        kernel_head_dim(264)
 
 
 # =============================================================================

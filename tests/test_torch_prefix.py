@@ -200,13 +200,14 @@ def test_prefix_matches_off(policy):
     assert 0 < eng_on.prefix_hit_rate < 1 and eng_off.prefix_hit_rate == 0
 
 
-def test_fp_pool_at_flash_refuses_prefix_cache():
+def test_fp_pool_at_flash_refuses_prefix_cache(capsys):
     """Over an fp pool at ``attn_impl="flash"`` the cold prefill attends
     through the flash kernel and the suffix prefill densely, so token
-    identity is not promised there: the engine and the launcher refuse
-    the prefix cache.  An MX pool at ``"flash"`` and an fp pool at
-    ``"dense"`` take it, and an fp pool at ``"flash"`` serves without
-    it."""
+    identity is not promised there: the engine refuses the prefix cache.
+    An MX pool at ``"flash"`` and an fp pool at ``"dense"`` take it, and
+    an fp pool at ``"flash"`` serves without it.  The launcher serves an
+    fp pool under ``--prefix-cache`` at ``"dense"``, as the reference's
+    launcher does (ROADMAP C7)."""
     from repro_torch.launch import serve as launcher
     fp, params = _model("weights=e4m3@32:ocp", "flash")
     with pytest.raises(ValueError, match="attn_impl='dense'"):
@@ -221,12 +222,13 @@ def test_fp_pool_at_flash_refuses_prefix_cache():
                                        page_size=PAGE, max_len=32,
                                        prefix_cache=True)
         assert eng.prefix is not None
-    with pytest.raises(ValueError, match="attn_impl='dense'"):
-        launcher.main(["--arch", "chatglm3_6b", "--reduced", "--device",
-                       "cpu", "--paged", "--weight-resident", "--batch",
-                       "2", "--requests", "2", "--new-tokens", "2",
-                       "--prompt-len", "8", "--prefix-cache",
-                       "--quant", "weights=e4m3@32:ocp"])
+    launcher.main(["--arch", "chatglm3_6b", "--reduced", "--device",
+                   "cpu", "--paged", "--weight-resident", "--batch",
+                   "2", "--requests", "2", "--new-tokens", "2",
+                   "--prompt-len", "8", "--prefix-cache",
+                   "--quant", "weights=e4m3@32:ocp"])
+    out = capsys.readouterr().out
+    assert "attention dense" in out and "prefix cache" in out
 
 
 def test_cow_forks_fire_and_stay_identical():

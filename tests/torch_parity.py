@@ -17,4 +17,6 @@ def params_to_numpy(tree):
                 "packed": tree.packed, "k": tree.k, "n": tree.n}
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):       # an MoE config's dense_layers
+        return [params_to_numpy(v) for v in tree]
     return np.asarray(tree)
