@@ -21,6 +21,7 @@ pattern is split with an arithmetic shift plus a mask.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -84,8 +85,31 @@ class MXArray:
                    block=spec.block, orig_len=orig_len, axis=axis)
 
     @property
+    def spec(self) -> QuantSpec:
+        """The QuantSpec this array was quantized under.  ``packed`` reads
+        False: MXArray codes are one byte per element whatever the
+        quantizing spec's storage preference."""
+        return QuantSpec(self.fmt, self.mode, self.block, packed=False)
+
+    @property
     def format(self) -> MXFormat:
         return get_format(self.fmt)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The logical (unpadded) shape of the quantized tensor."""
+        s = list(self.codes.shape)
+        s[self.axis] = self.orig_len
+        return tuple(s)
+
+    @property
+    def nbytes_logical(self) -> float:
+        """Storage bytes under ideal bit-packing (codes plus the amortized
+        E8M0 scale; roofline math)."""
+        return math.prod(self.shape) * self.format.bits_per_element() / 8.0
+
+    def dequantize(self) -> torch.Tensor:
+        return mx_dequantize(self)
 
 
 # =============================================================================
@@ -330,3 +354,31 @@ def mx_dequantize(mx: MXArray) -> torch.Tensor:
                           val)
     val = val.reshape(lead + (nblk * mx.block,))[..., :mx.orig_len]
     return val.movedim(-1, mx.axis)
+
+
+def quantize_dequantize(x: torch.Tensor, spec=None,
+                        mode: Optional[str] = None,
+                        block: Optional[int] = None,
+                        axis: int = -1) -> torch.Tensor:
+    """The quantize -> dequantize round trip in f32 (fake quantization;
+    the calibration sweep scores candidate specs with it)."""
+    spec = resolve_spec(spec, None, mode, block, default=_PAPER_DEFAULT,
+                        caller="quantize_dequantize")
+    return mx_dequantize(mx_quantize(x, spec, axis=axis))
+
+
+def mx_error_bound(spec="e4m3", mode: Optional[str] = None) -> float:
+    """Worst-case |dequant(quant(v)) - v| relative to the block's largest
+    element: 2^-mbits for the float formats (one ulp at the block's top
+    binade), 2^-6 for INT8.  Depends only on the element format; ``mode``
+    is the reference's legacy no-op."""
+    del mode
+    if isinstance(spec, QuantSpec):
+        f = spec.format
+    elif isinstance(spec, MXFormat):
+        f = spec
+    else:
+        f = get_format(QuantSpec.parse(spec).fmt)
+    if f.is_int:
+        return 2.0 ** (-f.int_frac_bits)
+    return 2.0 ** (-f.mbits)

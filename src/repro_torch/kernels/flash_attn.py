@@ -8,9 +8,11 @@ of 2e-2), f32 runs csrc/flash_attn.cu on the CUDA cores.  Both are built
 for head dims 32, 64, 128 and 256; any other head dim up to 256 runs
 zero-padded up to the next of those (``kernel_head_dim``), as the
 reference's kernel takes any head dim.  On CPU tensors
-it computes the plain version, ``ref.flash_attention_ref``.  The
-reference's backward is dense recompute, not a kernel; it comes with
-training.
+it computes the plain version, ``ref.flash_attention_ref``.
+``flash_attention_vjp`` is the differentiable entry point the model
+calls: its forward is ``flash_attention``, its backward recomputes the
+plain version densely and differentiates that, as the reference's
+``custom_vjp`` does (the backward is no kernel there either).
 """
 from __future__ import annotations
 
@@ -81,3 +83,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` forward; backward by dense recomputation
+    through ``ref.flash_attention_ref`` (the reference's ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out = ref.flash_attention_ref(qr, kr, vr, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (qr, kr, vr), grad)
+        return dq, dk, dv, None
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """``flash_attention`` with a backward (dense recompute); the same
+    values and launches forward."""
+    return _FlashAttention.apply(q, k, v, causal)

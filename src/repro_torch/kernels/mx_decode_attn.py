@@ -273,8 +273,12 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
             max_pages, cb_k, cb_v, kkind, vkind, PAGES_PER_SPLIT, stream)
     build.check(err, "mx_paged_decode_attention")
     mx_paged_decode_attention.launches += 1
+    by = mx_paged_decode_attention.launches_by_spec
+    by[key_spec, value_spec] = by.get((key_spec, value_spec), 0) + 1
     return out
 
 
 mx_decode_attention.launches = 0
 mx_paged_decode_attention.launches = 0
+# (key QuantSpec, value QuantSpec) -> launches
+mx_paged_decode_attention.launches_by_spec = {}

@@ -110,7 +110,10 @@ def mx_matmul_2d(a: torch.Tensor, codes: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mx_matmul_2d")
     mx_matmul_2d.launches += 1
+    by = mx_matmul_2d.launches_by_spec
+    by[spec] = by.get(spec, 0) + 1
     return out
 
 
 mx_matmul_2d.launches = 0
+mx_matmul_2d.launches_by_spec = {}     # QuantSpec -> launches

@@ -5,20 +5,29 @@ kernel's plain version for a CPU tensor; there is no other switch.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.convert import MXArray
-from repro_torch.core.spec import as_spec
+from repro_torch.core.spec import QuantSpec, resolve_spec
 from repro_torch.kernels.mx_matmul import mx_matmul_2d
 from repro_torch.kernels.mx_quant import mx_quantize_2d
 
+_PAPER_DEFAULT = QuantSpec("e4m3", "paper")
 
-def mx_quantize(x: torch.Tensor, spec, axis: int = -1) -> MXArray:
+
+def mx_quantize(x: torch.Tensor, spec=None, mode: Optional[str] = None,
+                block: Optional[int] = None, axis: int = -1) -> MXArray:
     """Quantize an ND tensor along ``axis`` with the converter kernel;
     returns an MXArray whose codes are zero-padded to a block multiple
-    (the layout of the reference's ``mx_quantize_pallas``)."""
-    spec = as_spec(spec)
+    (the layout of the reference's ``mx_quantize_pallas``).  ``spec`` is
+    a QuantSpec or spec string (default ``e4m3@32:paper``), or a bare
+    format name with the reference's deprecated ``mode=`` / ``block=``
+    keywords."""
+    spec = resolve_spec(spec, None, mode, block, default=_PAPER_DEFAULT,
+                        caller="mx_quantize")
     axis = axis % x.dim()
     xm = x.to(torch.float32).movedim(axis, -1)
     shape = xm.shape
@@ -52,3 +61,35 @@ def mx_matmul_resident(a: torch.Tensor, w) -> torch.Tensor:
         a2 = a2.clone()
     out = mx_matmul_2d(a2, w.codes, w.scales, w.spec)
     return out.reshape(lead + (w.n,))
+
+
+def mx_matmul(a: torch.Tensor, w: MXArray) -> torch.Tensor:
+    """a (..., K) @ w through the dequant x matmul kernel, where ``w`` is
+    an MXArray of logical shape (K, N) quantized along axis 0 (the
+    contraction axis; one code byte per element); returns f32 (..., N).
+    K is zero-padded to the codes' block multiple."""
+    if w.axis != 0 or w.codes.dim() != 2:
+        raise ValueError("mx_matmul: the weight must be a 2-D MXArray "
+                         "quantized along the contraction axis (axis 0)")
+    k, n = w.shape
+    if a.shape[-1] != k:
+        raise ValueError(f"mx_matmul: a has K={a.shape[-1]}, the weight "
+                         f"{k}")
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, k)
+    kp = w.codes.shape[0]
+    if kp != k:
+        a2 = F.pad(a2, (0, kp - k))
+    out = mx_matmul_2d(a2.contiguous(), w.codes, w.scales, w.spec)
+    return out.reshape(lead + (n,))
+
+
+def quantize_weight(w: torch.Tensor, spec=None, mode: Optional[str] = None,
+                    block: Optional[int] = None) -> MXArray:
+    """Quantize a (K, N) weight along K (the contraction axis) for
+    ``mx_matmul``, with the converter's plain version as the
+    reference's does."""
+    from repro_torch.core.convert import mx_quantize as mx_quantize_plain
+    spec = resolve_spec(spec, None, mode, block, default=_PAPER_DEFAULT,
+                        caller="quantize_weight")
+    return mx_quantize_plain(w, spec, axis=0)

@@ -31,6 +31,21 @@ Weights are random, made on the device from seed 0; with
 ``--weight-resident`` each layer is quantized to MX storage as soon as
 it is made.
 
+Per-layer policies (``repro_torch.calib``): ``--quant auto:<budget>``
+runs ``--calib-batches`` synthetic batches (``--batch`` x
+``--prompt-len`` tokens from numpy seed 1) through the instrumented
+forward over the fp weights, searches per-layer KV specs under a total
+of ``<budget>`` KV bytes per token over all layers, prints the table and
+serves it (``--save-policy PATH`` writes its JSON); ``--policy-json
+PATH`` serves a saved table without calibrating (layers quantize their
+weights per their own entry under ``--weight-resident``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
+        --reduced --device cpu --paged --quant auto:200 \
+        --calib-batches 2 --save-policy policy.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
+        --reduced --device cpu --paged --policy-json policy.json
+
 Requests that arrive over time serve through the asyncio front end
 (``serve.frontend.AsyncServer``): ``--arrival poisson:R`` (R req/s),
 ``onoff:R:ON:OFF`` (bursts of R req/s for ON seconds, then OFF seconds
@@ -66,14 +81,18 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import time
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
 
-from repro_torch.core.spec import QuantPolicy
-from repro_torch.models import Model, load_config, load_reduced
+from repro_torch.core.spec import PolicyTable, QuantPolicy
+from repro_torch.models import (Model, apply_policy_table, load_config,
+                                load_reduced)
+from repro_torch.models.layers import any_fp_kv
 from repro_torch.obs import MetricsRegistry, Tracer, rate
 from repro_torch.serve import (AsyncServer, ContinuousBatchingEngine,
                                FaultPlan, GenerationConfig, ServeEngine,
@@ -83,19 +102,61 @@ from repro_torch.serve import (AsyncServer, ContinuousBatchingEngine,
 from repro_torch.serve.engine import KERNEL_FAIL_REFUSED
 
 
+WEIGHTS_ROLE_NEEDED = ("--weight-resident needs a 'weights' role in the "
+                       "policy, e.g. --quant weights=e4m3@32:ocp")
+
+
+def has_weights_role(cfg) -> bool:
+    """Some layer's policy quantizes its weights."""
+    return any(cfg.layer_policy(i).weights is not None
+               for i in range(cfg.n_layers))
+
+
 def build_model(arch: str, *, reduced: bool, quant: str,
                 weight_resident: bool, device: str = "cuda",
-                seed: int = 0, **overrides) -> Tuple[Model, dict]:
-    """Config + random weights on ``device`` (quantized layer by layer
-    when ``weight_resident``)."""
+                seed: int = 0, table=None,
+                **overrides) -> Tuple[Model, dict]:
+    """Config (under ``table``, a per-layer ``PolicyTable``, when given)
+    + random weights on ``device``, quantized layer by layer, each at its
+    own policy's weights spec, when ``weight_resident``."""
     policy = QuantPolicy.parse(quant or "none")
     cfg = (load_reduced if reduced else load_config)(arch, mx=policy,
                                                       **overrides)
-    if weight_resident and cfg.mx.weights is None:
-        raise ValueError("--weight-resident needs a 'weights' role in the "
-                         "policy, e.g. --quant weights=e4m3@32:ocp")
+    if table is not None:
+        cfg = apply_policy_table(cfg, table)
+    if weight_resident and not has_weights_role(cfg):
+        raise ValueError(WEIGHTS_ROLE_NEEDED)
     model = Model(cfg, device=device)
     return model, model.init(seed=seed, quantize=weight_resident)
+
+
+def auto_policy(model: Model, params, budget: float, batch: int,
+                prompt_len: int, n_batches: int, save: str = None):
+    """Calibrate the KV roles on ``n_batches`` synthetic (batch,
+    prompt_len) token batches (numpy seed 1, as the reference's launcher
+    draws them) over the fp ``params``, search per-layer KV specs under
+    ``budget`` KV bytes per token, print the table and return the model
+    under it."""
+    from repro_torch.calib import collect_model_stats, search_kv_policy
+    from repro_torch.serve.paging import kv_cache_token_nbytes
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    batches = [rng.integers(0, cfg.vocab, size=(batch, prompt_len))
+               .astype(np.int32) for _ in range(max(1, n_batches))]
+    t0 = time.perf_counter()
+    stats = collect_model_stats(model, params, batches,
+                                roles=("kv_key", "kv_value"))
+    res = search_kv_policy(stats, budget, cfg)
+    print(f"[serve] calibrated {len(batches)} batches + searched in "
+          f"{time.perf_counter() - t0:.2f}s")
+    print("[serve] " + res.describe().replace("\n", "\n[serve] "))
+    if save:
+        Path(save).write_text(res.table.to_json())
+        print(f"[serve] wrote policy table -> {save}")
+    cfg = apply_policy_table(cfg, res.table)
+    print(f"[serve] KV cache: {kv_cache_token_nbytes(cfg)} B/token across "
+          f"{cfg.n_layers} layers (budget {budget:.4g} B/token)")
+    return Model(cfg, device=model.device)
 
 
 def make_prompts(n: int, prompt_len: int, mixed: bool, vocab: int,
@@ -208,7 +269,18 @@ def main(argv=None) -> None:
                     help="keep matmul weights as MX codes + scales")
     ap.add_argument("--quant", default=None,
                     help="policy, e.g. weights=e4m3@32:ocp,"
-                         "kv_key=int8@32:ocp,kv_value=e2m1@32:ocp")
+                         "kv_key=int8@32:ocp,kv_value=e2m1@32:ocp, or "
+                         "'auto:<bytes>' to calibrate and search a "
+                         "per-layer policy under a total KV "
+                         "bytes-per-token budget")
+    ap.add_argument("--calib-batches", type=int, default=4,
+                    help="calibration batches for --quant auto "
+                         "(each --batch x --prompt-len synthetic tokens)")
+    ap.add_argument("--save-policy", default=None,
+                    help="write the auto-selected PolicyTable JSON here")
+    ap.add_argument("--policy-json", default=None,
+                    help="serve a previously saved PolicyTable JSON "
+                         "(skips calibration)")
     ap.add_argument("--mx-kv", choices=["off", "int8", "e4m3", "e5m2",
                                         "e3m2", "e2m3", "e2m1"],
                     default="off",
@@ -355,26 +427,60 @@ def main(argv=None) -> None:
         print(f"[serve] fault plan (seed {args.fault_seed}): {faults}")
     if args.prefix_cache and not args.paged:
         ap.error("--prefix-cache needs --paged (prefixes share pages)")
-    quant = args.quant
-    if not quant and args.mx_kv != "off":
+    if args.policy_json and (args.quant or args.mx_kv != "off"):
+        ap.error("--policy-json and --quant/--mx-kv are mutually "
+                 "exclusive: the saved table already fixes the policy "
+                 "(re-run calibration with --quant auto:<budget> to "
+                 "replace it)")
+    quant, auto_budget, table = args.quant, None, None
+    if quant and (quant == "auto" or quant.startswith("auto:")):
+        from repro_torch.calib import parse_auto_budget
+        try:
+            auto_budget = parse_auto_budget(quant)
+        except ValueError as e:
+            ap.error(str(e))
+        quant = None
+    elif not quant and args.mx_kv != "off":
         print(f"[serve] --mx-kv/--mx-mode are deprecated; use "
               f"--quant kv={args.mx_kv}@32:{args.mx_mode}")
         quant = f"kv={args.mx_kv}@32:{args.mx_mode}"
+    if args.policy_json:
+        table = PolicyTable.from_json(Path(args.policy_json).read_text())
+    t0 = time.perf_counter()
+    try:
+        model, params = build_model(
+            args.arch, reduced=args.reduced, quant=quant,
+            weight_resident=args.weight_resident and auto_budget is None,
+            device=args.device, table=table, attn_impl="flash")
+    except ValueError as e:
+        ap.error(str(e))
+    if table is not None:
+        cfg = model.cfg
+        print(f"[serve] policy table from {args.policy_json}: {cfg.mx}"
+              + (f" + {len(cfg.mx_table.overrides)} layer overrides"
+                 if cfg.mx_table is not None else ""))
+    if auto_budget is not None:
+        # calibrate -> search -> apply: the fp weights serve the table
+        model = auto_policy(model, params, auto_budget, args.batch,
+                            args.prompt_len, args.calib_batches,
+                            args.save_policy)
+        if args.weight_resident:
+            if not has_weights_role(model.cfg):
+                ap.error(WEIGHTS_ROLE_NEEDED)
+            params = model.quantize_weights(params)
     # an fp pool under the prefix cache serves at "dense", as the
     # reference's launcher does: at "flash" its cold prefill would attend
     # through the flash kernel and its suffix prefill densely (the engine
     # refuses that pairing)
-    fp_pool = QuantPolicy.parse(quant or "none").kv_key is None
-    attn_impl = "dense" if args.prefix_cache and fp_pool else "flash"
-    t0 = time.perf_counter()
-    model, params = build_model(args.arch, reduced=args.reduced,
-                                quant=quant,
-                                weight_resident=args.weight_resident,
-                                device=args.device, attn_impl=attn_impl)
+    if args.prefix_cache and any_fp_kv(model.cfg):
+        model = Model(dataclasses.replace(model.cfg, attn_impl="dense"),
+                      device=model.device)
     cfg = model.cfg
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"policy {cfg.mx}, attention {cfg.attn_impl}, built on "
-          f"{model.device} in "
+          f"policy {cfg.mx}"
+          + (f" + {len(cfg.mx_table.overrides)} layer overrides"
+             if cfg.mx_table is not None else "")
+          + f", attention {cfg.attn_impl}, built on {model.device} in "
           f"{time.perf_counter() - t0:.2f}s")
     if not args.paged:
         _serve_static(args, model, params)

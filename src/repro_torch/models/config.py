@@ -1,9 +1,12 @@
 """Model configuration of the port's GQA decoder family (dense and MoE).
 
 Mirrors src/repro/models/config.py for the fields the decoder family
-uses (the MLA, SSM and encoder-decoder fields are not ported); quantization is one per-tensor-role ``QuantPolicy``
+uses (the MLA, SSM and encoder-decoder fields are not ported);
+quantization is a per-tensor-role ``QuantPolicy``
 (``repro_torch.core.spec``): weights, kv_key and kv_value each carry an
-optional ``QuantSpec``, so INT8 keys can pair with E2M1 values.
+optional ``QuantSpec``, so INT8 keys can pair with E2M1 values.  A
+per-layer ``PolicyTable`` (``apply_policy_table``) gives each layer its
+own policy: ``layer_cfg(i)`` is layer ``i``'s uniform view.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.spec import QuantPolicy, QuantSpec  # noqa: F401
+from repro_torch.core.spec import (PolicyTable, QuantPolicy,  # noqa: F401
+                                   QuantSpec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +43,10 @@ class ModelConfig:
     n_dense_layers: int = 0        # leading dense layers before the MoE ones
     capacity_factor: float = 1.25
     mx: QuantPolicy = dataclasses.field(default_factory=QuantPolicy)
+    # per-layer policy table; set only through ``apply_policy_table``, so
+    # an all-layers-identical table collapses to ``mx`` (today's path).
+    # When set, ``mx`` mirrors the table's default.
+    mx_table: Optional[PolicyTable] = None
     dtype: str = "bfloat16"        # compute and stored-parameter dtype
     # "dense" | "flash": "flash" sends MX decode attention (contiguous and
     # paged) and the causal fp prefill through their kernels; "dense"
@@ -56,6 +64,20 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // self.n_heads
 
+    def layer_policy(self, i: int) -> QuantPolicy:
+        """The quantization policy of absolute layer ``i``."""
+        if self.mx_table is None:
+            return self.mx
+        return self.mx_table.layer(i)
+
+    def layer_cfg(self, i: int) -> "ModelConfig":
+        """A uniform-policy view of this config for layer ``i``: what the
+        layer functions are handed."""
+        if self.mx_table is None:
+            return self
+        return dataclasses.replace(self, mx=self.mx_table.layer(i),
+                                   mx_table=None)
+
     def moe_layer(self, i: int) -> bool:
         """Layer ``i`` (absolute, from 0) routes its MLP through experts:
         every layer past the leading ``n_dense_layers`` of an MoE
@@ -65,3 +87,29 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+
+def apply_policy_table(cfg: ModelConfig, table) -> ModelConfig:
+    """Install a per-layer ``PolicyTable`` (or a plain ``QuantPolicy``) on
+    a config.  An all-layers-identical table collapses to its default
+    ``QuantPolicy`` with ``mx_table=None``, the config the uniform policy
+    builds; a table may not name a layer past ``n_layers``."""
+    if isinstance(table, QuantPolicy):
+        return dataclasses.replace(cfg, mx=table, mx_table=None)
+    if not isinstance(table, PolicyTable):
+        raise TypeError(f"expected a PolicyTable or QuantPolicy, got "
+                        f"{type(table).__name__}")
+    collapsed = table.collapse()
+    if isinstance(collapsed, QuantPolicy):
+        return dataclasses.replace(cfg, mx=collapsed, mx_table=None)
+    if cfg.family != "decoder":
+        raise NotImplementedError(
+            f"{cfg.name}: per-layer policy tables cover the decoder "
+            f"family; {cfg.family!r} models take a uniform QuantPolicy")
+    bad = [i for i, _ in table.overrides if i >= cfg.n_layers]
+    if bad:
+        raise ValueError(
+            f"{cfg.name}: policy table names layer(s) {bad} but the "
+            f"model has {cfg.n_layers} layers (indices 0.."
+            f"{cfg.n_layers - 1})")
+    return dataclasses.replace(cfg, mx=table.default, mx_table=table)

@@ -5,9 +5,13 @@ The reference stacks layers and drives them with ``lax.scan`` after a
 list of an MoE config's leading dense layers; here ``params["layers"]``
 is one list of ``n_layers`` per-layer dicts (the dense layers first: an
 ``"mlp"``, an MoE layer a ``"moe"`` with its router, expert stacks and
-shared experts) walked by a Python loop.  Caches and page pools stay layer-stacked on a leading axis (as in
-the reference), and each layer reads its slice ``leaf[i]`` — a
-contiguous view.  The fused decode window (the reference's jitted
+shared experts) walked by a Python loop, each layer under its own config
+``cfg.layer_cfg(i)`` (a per-layer ``PolicyTable`` gives each layer its
+weight and KV formats).  Caches and page pools stay layer-stacked on a
+leading axis (as in the reference), one stack per KV group
+(``layers.kv_groups``: the layers sharing KV specs; a uniform policy is
+one group), and each layer reads its slice, a contiguous view.  The
+fused decode window (the reference's jitted
 ``lax.scan``) is ``paged_decode_window_step`` repeated: here as a Python
 loop (``paged_decode_multi_step``, what a CPU tensor runs), on the card
 as one captured CUDA graph replayed once per step
@@ -17,7 +21,8 @@ waits for the host.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import functools
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -103,14 +108,21 @@ def _quantize_layer_tree(lp, spec):
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def layer_cfgs(cfg: ModelConfig) -> Tuple[ModelConfig, ...]:
+    """Each layer's uniform config (``cfg`` itself without a table)."""
+    return tuple(cfg.layer_cfg(i) for i in range(cfg.n_layers))
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
          quantize: bool = False) -> Dict[str, Any]:
     """Random weights on ``device`` from a seeded ``torch.Generator``,
     layer by layer: the embedding at 0.02 std, projections at
     1/sqrt(fan_in) (the reference's ``embed_init``/``dense_init``).  With
     ``quantize`` each layer is converted to weight-resident MXWeight
-    storage (``cfg.mx.weights``) as soon as it is made, so the fp weights
-    of only one layer exist at a time."""
+    storage (its own policy's ``weights``; a layer without one stays fp)
+    as soon as it is made, so the fp weights of only one layer exist at
+    a time."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -120,7 +132,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     for i in range(cfg.n_layers):
         lp = _layer_init(gen, cfg, device, cfg.moe_layer(i))
         if quantize:
-            lp = _quantize_layer_tree(lp, cfg.mx.weights)
+            lp = _quantize_layer_tree(lp, cfg.layer_policy(i).weights)
         params["layers"].append(lp)
     params["norm_f"] = torch.ones(d, dtype=dt, device=device)
     if not cfg.tie_embeddings:
@@ -131,10 +143,11 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 
 def quantize_weights(params, cfg: ModelConfig):
     """Convert every layer's matmul weights to weight-resident MXWeight
-    storage per ``cfg.mx.weights``."""
+    storage per its own policy's ``weights`` (a layer without one stays
+    fp)."""
     out = dict(params)
-    out["layers"] = [_quantize_layer_tree(lp, cfg.mx.weights)
-                     for lp in params["layers"]]
+    out["layers"] = [_quantize_layer_tree(lp, cfg.layer_policy(i).weights)
+                     for i, lp in enumerate(params["layers"])]
     return out
 
 
@@ -165,9 +178,13 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
-           cache_pos: int = 0, paged=None, paged_prefill=None):
-    """Layer ``i``: attention (over the cache or pages given), then the
-    MLP or, on an MoE layer, ``moe``.  Returns (x, cache)."""
+           cache_pos: int = 0, paged=None, paged_prefill=None, tap=None):
+    """Layer ``i`` under its config ``cfg``: attention (over the cache or
+    pages given), then the MLP or, on an MoE layer, ``moe``.  Returns (x,
+    cache, aux): ``aux`` the MoE load-balance loss (None on a dense
+    layer).  ``tap`` (calibration) receives the post-RoPE k/v and, as
+    ``activations``, the two post-norm matmul inputs along the sequence
+    axis."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if paged_prefill is not None:
         block_tables, starts, prompt_lens = paged_prefill
@@ -181,40 +198,85 @@ def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
             lengths=lengths)
     else:
         a, cache = L.attention(lp["attn"], h, cfg, positions=positions,
-                               cache=cache, cache_pos=cache_pos)
+                               cache=cache, cache_pos=cache_pos, tap=tap)
     x = x + a
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if tap is not None:
+        tap["activations"] = torch.cat([h, h2], dim=1)
     if cfg.moe_layer(i):
-        return x + L.moe(lp["moe"], h2, cfg)[0], cache
-    return x + L.mlp(lp["mlp"], h2, cfg), cache
-
-
-def _layer_view(stacked: Dict[str, torch.Tensor], i: int):
-    return {k: v[i] for k, v in stacked.items()}
+        m, aux = L.moe(lp["moe"], h2, cfg)
+        return x + m, cache, aux
+    return x + L.mlp(lp["mlp"], h2, cfg), cache, None
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Layer-stacked contiguous cache (L, B, max_len, n_kv, X)."""
-    return L.init_kv_cache(cfg, batch, max_len, cfg.n_kv_heads, cfg.hd,
-                           device, layers_dim=(cfg.n_layers,))
+    """Contiguous caches, one stack per KV group (L_g, B, max_len, n_kv,
+    X)."""
+    return L.grouped_kv(cfg, lambda c, ld: L.init_kv_cache(
+        c, batch, max_len, c.n_kv_heads, c.hd, device, layers_dim=ld))
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device):
-    """Layer-stacked page pools (L, num_pages, page_size, n_kv, X)."""
-    return L.init_paged_kv_cache(cfg, num_pages, page_size, cfg.n_kv_heads,
-                                 cfg.hd, device, layers_dim=(cfg.n_layers,))
+    """Page pools, one stack per KV group (L_g, num_pages, page_size,
+    n_kv, X), each sized by its group's specs."""
+    return L.grouped_kv(cfg, lambda c, ld: L.init_paged_kv_cache(
+        c, num_pages, page_size, c.n_kv_heads, c.hd, device,
+        layers_dim=ld))
+
+
+def _mean_aux(auxs, device) -> torch.Tensor:
+    """The mean of per-layer load-balance losses, 0 for a dense layer."""
+    if not auxs:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.stack([torch.zeros((), dtype=torch.float32, device=device)
+                        if a is None else a for a in auxs]).mean()
+
+
+def _forward_with_aux(params, tokens: torch.Tensor, cfg: ModelConfig):
+    """Full causal forward over tokens (B, S) with no cache; returns
+    (logits (B, S, Vp) f32, aux): the MoE load-balance loss averaged over
+    the layers past the leading dense ones, as the reference's training
+    ``forward`` averages its scanned stack (0 for a dense config)."""
+    x = _embed(params, cfg, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    cfgs, auxs = layer_cfgs(cfg), []
+    for i, lp in enumerate(params["layers"]):
+        x, _, aux = _block(i, lp, x, cfgs[i], positions=positions)
+        if i >= cfg.n_dense_layers:
+            auxs.append(aux)
+    return _head(params, cfg, x), _mean_aux(auxs, x.device)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full causal forward over tokens (B, S) with no cache; returns
     logits (B, S, Vp) f32."""
+    return _forward_with_aux(params, tokens, cfg)[0]
+
+
+def forward_calib(params, tokens: torch.Tensor, cfg: ModelConfig):
+    """Instrumented forward for calibration (the reference's
+    ``forward_calib``): per layer, the tensors each quantizable role
+    would see, unquantized whatever ``cfg.mx`` says: ``activations`` (the
+    two post-norm matmul inputs concatenated along the sequence axis),
+    and the post-RoPE ``kv_key`` / ``kv_value`` projections.  Returns
+    (logits, aux, taps) with ``taps[role][layer]``; aux is averaged over
+    every layer, dense ones included, as the reference's ``forward_calib``
+    averages it (its training ``forward`` skips them)."""
     x = _embed(params, cfg, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    taps = {"activations": [], "kv_key": [], "kv_value": []}
+    cfgs, auxs = layer_cfgs(cfg), []
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(i, lp, x, cfg, positions=positions)
-    return _head(params, cfg, x)
+        tap = {}
+        x, _, aux = _block(i, lp, x, cfgs[i], positions=positions, tap=tap)
+        taps["activations"].append(tap["activations"])
+        taps["kv_key"].append(tap["k"])
+        taps["kv_value"].append(tap["v"])
+        auxs.append(aux)
+    return _head(params, cfg, x), _mean_aux(auxs, x.device), taps
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -236,9 +298,10 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                  f"{max_len}")
             leaf.zero_()
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    cfgs = layer_cfgs(cfg)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(i, lp, x, cfg, positions=positions,
-                      cache=_layer_view(cache, i))
+        x, _, _ = _block(i, lp, x, cfgs[i], positions=positions,
+                         cache=L.kv_layer_view(cache, cfg, i))
     return _head(params, cfg, x), cache, s
 
 
@@ -257,24 +320,30 @@ def decode_step(params, token: torch.Tensor, cache, pos,
     else:
         positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                                device=x.device)
+    cfgs = layer_cfgs(cfg)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(i, lp, x, cfg, positions=positions,
-                      cache=_layer_view(cache, i), cache_pos=pos)
+        x, _, _ = _block(i, lp, x, cfgs[i], positions=positions,
+                         cache=L.kv_layer_view(cache, cfg, i),
+                         cache_pos=pos)
     return _head(params, cfg, x), cache
 
 
 def scatter_prefill(cfg: ModelConfig, pool, cache, page_ids):
     """Scatter a batched contiguous prefill cache into the page pools (in
-    place), packing sub-byte codes on the way."""
-    return L.paged_cache_scatter(pool, cache, page_ids, cfg)
+    place), group by group, packing sub-byte codes per the group's
+    specs."""
+    for g in L.kv_groups(cfg):
+        L.paged_cache_scatter(L.group_leaves(pool, g),
+                              L.group_leaves(cache, g), page_ids, g.cfg)
+    return pool
 
 
 def copy_pool_pages(pool, src: torch.Tensor, dst: torch.Tensor):
     """Copy page contents src[i] -> dst[i] in every layer-stacked pool leaf
-    (L, P, page, n_kv, X), in place (the copy-on-write fork under prefix
-    sharing).  The bytes copy verbatim whatever the layer's spec, so MX
-    and fp pools alike; the leaves stay the tensors a captured decode
-    step reads."""
+    (L_g, P, page, n_kv, X) of every KV group, in place (the copy-on-write
+    fork under prefix sharing).  The bytes copy verbatim whatever the
+    layer's spec, so MX and fp pools alike; the leaves stay the tensors a
+    captured decode step reads."""
     src, dst = src.to(torch.int64), dst.to(torch.int64)
     for leaf in pool.values():
         leaf.index_copy_(1, dst, leaf.index_select(1, src))
@@ -296,9 +365,11 @@ def paged_prefill_suffix(params, tokens: torch.Tensor, starts: torch.Tensor,
     starts[g] + i (the engine samples at prompt_lens - starts - 1)."""
     x = _embed(params, cfg, tokens)
     paged_prefill = (block_tables, starts, prompt_lens)
+    cfgs = layer_cfgs(cfg)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(i, lp, x, cfg, cache=_layer_view(pool, i),
-                      paged_prefill=paged_prefill)
+        x, _, _ = _block(i, lp, x, cfgs[i],
+                         cache=L.kv_layer_view(pool, cfg, i),
+                         paged_prefill=paged_prefill)
     return _head(params, cfg, x), pool
 
 
@@ -310,9 +381,10 @@ def paged_decode_step(params, token: torch.Tensor, pool, block_tables,
     (B, 1, Vp) f32, pool) — the pool is updated in place."""
     x = _embed(params, cfg, token[:, None])
     paged = (block_tables, lengths)
+    cfgs = layer_cfgs(cfg)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _block(i, lp, x, cfg, cache=_layer_view(pool, i),
-                      paged=paged)
+        x, _, _ = _block(i, lp, x, cfgs[i],
+                         cache=L.kv_layer_view(pool, cfg, i), paged=paged)
     return _head(params, cfg, x), pool
 
 

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.core.formats import poison_threshold
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import paged_page_size
+from repro_torch.models.layers import (group_leaves, kv_groups,
+                                       paged_page_size)
 
 
 def slot_scale_poison(pool, page_tables: torch.Tensor,
@@ -35,23 +36,26 @@ def slot_scale_poison(pool, page_tables: torch.Tensor,
     SCALE_NAN/SCALE_INF marker byte sits inside the slot's live positions
     (pos < lengths[b]) in any layer's K or V scale pages.
 
-    ``pool``: layer-stacked page pools ((L, P, page, n_kv, X) leaves);
-    ``page_tables`` (B, n) int32 physical page ids (a block-table slice or
-    a prefill's page ids); ``lengths`` (B,) int32 written positions.  The
-    threshold follows each role's mode (``core.formats.poison_threshold``).
-    All on the device: nothing waits for the host."""
+    ``pool``: the page pools, one layer-stacked (L_g, P, page, n_kv, X)
+    stack per KV group (``layers.kv_groups``); ``page_tables`` (B, n)
+    int32 physical page ids (a block-table slice or a prefill's page
+    ids); ``lengths`` (B,) int32 written positions.  The threshold
+    follows each group's and role's mode
+    (``core.formats.poison_threshold``).  All on the device: nothing
+    waits for the host."""
     b, n = page_tables.shape
     page = paged_page_size(pool)
     live = torch.arange(n * page, device=lengths.device)[None, :] \
         < lengths.to(torch.int64)[:, None]
     flags = torch.zeros(b, dtype=torch.bool, device=lengths.device)
     ids = page_tables.to(torch.int64)
-    for key, spec in (("ks_pages", cfg.mx.kv_key),
-                      ("vs_pages", cfg.mx.kv_value)):
-        leaf = pool.get(key)
-        if leaf is None or spec is None:       # fp pool: no scale bytes
-            continue
-        bad = leaf[:, ids] >= poison_threshold(spec.mode)  # (L,B,n,pg,h,X)
-        bad = bad.any(dim=0).any(dim=-1).any(dim=-1)       # (B, n, page)
-        flags |= (bad.reshape(b, n * page) & live).any(dim=-1)
+    for group in kv_groups(cfg):
+        leaves, mx = group_leaves(pool, group), group.cfg.mx
+        for key, spec in (("ks_pages", mx.kv_key), ("vs_pages", mx.kv_value)):
+            leaf = leaves.get(key)
+            if leaf is None or spec is None:   # fp pool: no scale bytes
+                continue
+            bad = leaf[:, ids] >= poison_threshold(spec.mode)
+            bad = bad.any(dim=0).any(dim=-1).any(dim=-1)   # (B, n, page)
+            flags |= (bad.reshape(b, n * page) & live).any(dim=-1)
     return flags

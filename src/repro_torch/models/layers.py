@@ -22,9 +22,19 @@ tokens, and both attend the same dequantized bytes.
 Unlike the functional reference, cache and page-pool writes update the
 given tensors in place (the pools are the largest serving allocation;
 copying them per step would double it).
+
+Under a per-layer ``PolicyTable`` the layers whose KV specs agree form
+one group (``kv_groups``): a cache or pool holds one layer-stacked leaf
+per name and group, the first group's under the plain names and group
+``j``'s as ``<name>.<j>``, and ``kv_layer_view`` hands each layer its
+slices.  Every leaf keeps its page (or batch) axis at 1, so the walkers
+that copy pages whatever the spec (copy-on-write, swap, snapshots,
+scrubbing) take the grouped pool as they take a uniform one.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -35,7 +45,7 @@ from repro_torch.core.convert import MXArray, mx_dequantize
 from repro_torch.core.mx_weight import MXWeight
 from repro_torch.core.pack import pack_codes, unpack_codes
 from repro_torch.core.spec import QuantSpec
-from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.flash_attn import flash_attention_vjp
 from repro_torch.kernels.mx_decode_attn import (decode_kernel_takes,
                                                 mx_decode_attention,
                                                 mx_paged_decode_attention,
@@ -191,8 +201,8 @@ def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, cache=None,
-              cache_pos=0) -> Tuple[torch.Tensor, Any]:
+              positions: torch.Tensor, cache=None, cache_pos=0,
+              tap: Optional[dict] = None) -> Tuple[torch.Tensor, Any]:
     """GQA self-attention over x (B, S, d), causal.  With a cache, k/v
     are first written at ``cache_pos`` (a host int, or at decode a
     one-element int32 tensor on x's device).  Decode (S == 1) attends the
@@ -202,7 +212,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     reference's quantized prefill does, so a later suffix prefill over
     shared pages can be bit-identical to it.  A prompt over fresh fp k/v
     (no cache, or an fp cache) attends through the flash kernel at
-    ``"flash"``, densely at ``"dense"``."""
+    ``"flash"``, densely at ``"dense"`` (through ``flash_attention_vjp``,
+    which a backward pass differentiates).  ``tap`` (calibration) receives
+    the post-RoPE, pre-quantization k/v: what the ``kv_key`` /
+    ``kv_value`` roles quantize."""
     b, s, d = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     mx_kv = cfg.mx.kv_key is not None
@@ -213,6 +226,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
+    if tap is not None:
+        tap["k"], tap["v"] = k, v
     mask = None
     if cache is not None:
         cache = cache_write(cache, k, v, cache_pos, cfg)
@@ -235,8 +250,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             k, v = kq[:, :s], vq[:, :s]
             mask = _causal_mask(s, s, x.device)
     if mask is None and flash and s > 1:
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True)
+        out = flash_attention_vjp(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True)
     else:
         if mask is None:
             mask = _causal_mask(s, k.shape[1], x.device)
@@ -277,8 +292,9 @@ def init_paged_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def paged_page_size(pool) -> int:
-    leaf = pool.get("kc_pages", pool.get("k_pages"))
-    return leaf.shape[-3]
+    """Positions per page: axis -3 of every pool leaf (P, page, n_kv, X),
+    layer-stacked or not."""
+    return next(iter(pool.values())).shape[-3]
 
 
 # pool key -> (contiguous prefill-cache key, element-code policy role)
@@ -475,6 +491,83 @@ def attention_paged_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     out = _sdpa_gqa(q, ka, va, mask)
     out = dense(out.reshape(g, s, nh * hd), p["wo"])
     return out, pool
+
+
+# =============================================================================
+# per-layer KV groups (the caches and pools of a PolicyTable)
+# =============================================================================
+@dataclasses.dataclass(frozen=True)
+class KVGroup:
+    """Layers whose (kv_key, kv_value) specs agree, in layer order: their
+    cache or pool leaves stack on a leading axis, each named ``<name>`` +
+    ``suffix``.  ``cfg`` is the uniform config of the group's first layer
+    (every layer of the group has its KV specs)."""
+    suffix: str
+    layers: Tuple[int, ...]
+    cfg: ModelConfig
+
+
+@functools.lru_cache(maxsize=64)
+def kv_groups(cfg: ModelConfig) -> Tuple[KVGroup, ...]:
+    """The KV groups of ``cfg``, in order of each group's first layer; a
+    uniform policy is one group under the plain leaf names."""
+    layers: Dict[Tuple, list] = {}
+    for i in range(cfg.n_layers):
+        pol = cfg.layer_policy(i)
+        layers.setdefault((pol.kv_key, pol.kv_value), []).append(i)
+    return tuple(KVGroup("" if j == 0 else f".{j}", tuple(ls),
+                         cfg.layer_cfg(ls[0]))
+                 for j, ls in enumerate(layers.values()))
+
+
+@functools.lru_cache(maxsize=64)
+def _kv_slots(cfg: ModelConfig) -> Tuple[Tuple[KVGroup, int], ...]:
+    slots = {}
+    for g in kv_groups(cfg):
+        for j, i in enumerate(g.layers):
+            slots[i] = (g, j)
+    return tuple(slots[i] for i in range(cfg.n_layers))
+
+
+def leaf_base(name: str) -> str:
+    """A grouped leaf's plain name (``"kc_pages.1"`` -> ``"kc_pages"``)."""
+    return name.partition(".")[0]
+
+
+def group_leaves(tree: Dict[str, torch.Tensor],
+                 group: KVGroup) -> Dict[str, torch.Tensor]:
+    """One group's layer-stacked leaves of a cache or pool, under their
+    plain names (the tensors themselves: writes land in ``tree``)."""
+    return {leaf_base(k): v for k, v in tree.items()
+            if k[len(leaf_base(k)):] == group.suffix}
+
+
+def kv_layer_view(tree: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s slices of a grouped cache or pool, under the plain
+    names: contiguous views the layer reads and writes in place."""
+    group, j = _kv_slots(cfg)[i]
+    return {k: v[j] for k, v in group_leaves(tree, group).items()}
+
+
+def grouped_kv(cfg: ModelConfig, make) -> Dict[str, torch.Tensor]:
+    """A cache or pool of every KV group: ``make(group_cfg, layers_dim)``
+    builds one group's plain-named leaves, stacked over its layers."""
+    out = {}
+    for g in kv_groups(cfg):
+        for name, leaf in make(g.cfg, (len(g.layers),)).items():
+            out[name + g.suffix] = leaf
+    return out
+
+
+def any_mx_kv(cfg: ModelConfig) -> bool:
+    """Some layer quantizes its KV cache (the pool has scale bytes)."""
+    return any(g.cfg.mx.kv_key is not None for g in kv_groups(cfg))
+
+
+def any_fp_kv(cfg: ModelConfig) -> bool:
+    """Some layer keeps an fp KV cache."""
+    return any(g.cfg.mx.kv_key is None for g in kv_groups(cfg))
 
 
 # =============================================================================

@@ -12,6 +12,9 @@ package never sees a jax object) and returns the port's params on
 ``device``.  An ``MXWeight`` leaf arrives as a dict
 ``{"codes", "scales", "fmt", "mode", "block", "packed", "k", "n"}`` and is
 rebuilt byte for byte, so both sides compute with identical weights.
+Under a per-layer policy table the reference's quantized ``layers`` are
+a list of per-layer trees (each at its own weight format) instead of a
+stack; both are taken.
 """
 from __future__ import annotations
 
@@ -67,15 +70,21 @@ def from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     ``device`` (the card unless the caller asks for ``"cpu"``)."""
     device = torch.device(device)
     dense = tree.get("dense_layers", [])
-    n = next(v for v in _first_leaves(tree["layers"])).shape[0]
+    stack = tree["layers"]
+    if isinstance(stack, (list, tuple)):      # per-layer (a policy table)
+        n = len(stack)
+    else:
+        n = next(v for v in _first_leaves(stack)).shape[0]
     if len(dense) != cfg.n_dense_layers or len(dense) + n != cfg.n_layers:
         raise ValueError(f"params hold {len(dense)} dense + {n} stacked "
                          f"layers, config says {cfg.n_dense_layers} dense "
                          f"of {cfg.n_layers}")
     out = {k: _leaf(tree[k], None, cfg, device)
            for k in ("embed", "norm_f", "lm_head") if k in tree}
-    out["layers"] = [_leaf(lp, None, cfg, device) for lp in dense] + [
-        _leaf(tree["layers"], i, cfg, device) for i in range(n)]
+    out["layers"] = [_leaf(lp, None, cfg, device) for lp in dense] + (
+        [_leaf(lp, None, cfg, device) for lp in stack]
+        if isinstance(stack, (list, tuple))
+        else [_leaf(stack, i, cfg, device) for i in range(n)])
     return out
 
 

@@ -9,7 +9,8 @@ import importlib
 import torch
 
 from repro_torch.models import decoder
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import (ModelConfig,  # noqa: F401
+                                       apply_policy_table)
 
 ARCH_IDS = ("chatglm3_6b", "glm4_9b", "yi_34b", "deepseek_67b",
             "moonshot_v1_16b_a3b")
@@ -75,6 +76,12 @@ class Model:
 
     def forward(self, params, tokens):
         return decoder.forward(params, tokens, self.cfg)
+
+    def forward_calib(self, params, tokens):
+        """Instrumented forward for ``repro_torch.calib``: (logits, aux,
+        taps) with per-layer activation / kv_key / kv_value tensors (see
+        decoder.forward_calib)."""
+        return decoder.forward_calib(params, tokens, self.cfg)
 
     def init_cache(self, batch: int, max_len: int):
         return decoder.init_cache(self.cfg, batch, max_len, self.device)

@@ -26,7 +26,8 @@ from typing import Dict
 import torch
 
 from repro_torch.core.formats import poison_threshold
-from repro_torch.models.layers import paged_page_size
+from repro_torch.models.layers import (group_leaves, kv_groups,
+                                       paged_page_size)
 
 # per-role stats sample_mx_health returns (and the engine's gauge names
 # derive from): total scale bytes in live positions, poison markers,
@@ -57,10 +58,12 @@ def sample_mx_health(pool, block_tables: torch.Tensor,
                      cfg) -> Dict[str, Dict[str, int]]:
     """Per-role scale-byte statistics over every slot's live positions.
 
-    ``pool`` is the engine's layer-stacked page pool; ``block_tables``
-    (B, n) int32 physical page ids per slot; ``lengths`` (B,) written
-    positions.  Returns ``{"kv_key": {stat: int}, "kv_value": {...}}``,
-    read back in one host transfer.  A role quantized as fp (no scale
+    ``pool`` is the engine's page pool, one layer-stacked stack per KV
+    group (``layers.kv_groups``), each group read at its own specs;
+    ``block_tables`` (B, n) int32 physical page ids per slot;
+    ``lengths`` (B,) written positions.  Returns ``{"kv_key": {stat:
+    int}, "kv_value": {...}}`` summed over the layers, read back in one
+    host transfer.  A role quantized as fp in every layer (no scale
     leaf) reports all-zero stats."""
     dev = block_tables.device
     ids = block_tables.to(torch.int64)
@@ -68,15 +71,15 @@ def sample_mx_health(pool, block_tables: torch.Tensor,
     page = paged_page_size(pool)
     live = (torch.arange(n * page, device=dev)[None, :]
             < lengths.to(device=dev, dtype=torch.int64)[:, None])
-    rows = []
-    for leaf_name, role in _ROLES:
-        leaf, spec = pool.get(leaf_name), getattr(cfg.mx, role)
-        if leaf is None or spec is None:
-            rows.append(torch.zeros(len(scale_stat_names), dtype=torch.int64,
-                                    device=dev))
-            continue
-        rows.append(_leaf_stats(leaf, poison_threshold(spec.mode), ids,
-                                live))
+    rows = [torch.zeros(len(scale_stat_names), dtype=torch.int64,
+                        device=dev) for _ in _ROLES]
+    for group in kv_groups(cfg):
+        leaves = group_leaves(pool, group)
+        for r, (leaf_name, role) in enumerate(_ROLES):
+            leaf, spec = leaves.get(leaf_name), getattr(group.cfg.mx, role)
+            if leaf is not None and spec is not None:
+                rows[r] = rows[r] + _leaf_stats(
+                    leaf, poison_threshold(spec.mode), ids, live)
     host = torch.stack(rows).tolist()        # the one host transfer
     return {role: dict(zip(scale_stat_names, (int(v) for v in row)))
             for (_, role), row in zip(_ROLES, host)}

@@ -64,6 +64,8 @@ import torch
 from repro_torch.core.mx_weight import params_nbytes
 from repro_torch.models.decoder import request_keys, sample_tokens
 from repro_torch.models.health import slot_scale_poison
+from repro_torch.models.layers import (any_fp_kv, any_mx_kv, group_leaves,
+                                       kv_groups)
 from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import MetricsRegistry, rate
 from repro_torch.obs.mxhealth import sample_mx_health
@@ -264,7 +266,7 @@ class ContinuousBatchingEngine:
         if faults is not None and any(f.site == "kernel_fail"
                                       for f in faults.faults):
             raise ValueError(KERNEL_FAIL_REFUSED)
-        if prefix_cache and model.cfg.mx.kv_key is None \
+        if prefix_cache and any_fp_kv(model.cfg) \
                 and model.cfg.attn_impl == "flash":
             raise ValueError(
                 "prefix_cache over an fp KV pool needs attn_impl='dense': "
@@ -395,6 +397,18 @@ class ContinuousBatchingEngine:
         """Allocated page-pool bytes, summed over layers."""
         return int(sum(t.numel() * t.element_size()
                        for t in self.pool.values()))
+
+    @property
+    def kv_pool_layer_nbytes(self) -> List[int]:
+        """Allocated page-pool bytes of each layer: under a per-layer
+        table each layer's pages are sized by its own KV specs."""
+        out = [0] * self.model.cfg.n_layers
+        for g in kv_groups(self.model.cfg):
+            leaves = group_leaves(self.pool, g).values()
+            per_layer = sum(t[0].numel() * t.element_size() for t in leaves)
+            for i in g.layers:
+                out[i] = int(per_layer)
+        return out
 
     @property
     def weight_pool_nbytes(self) -> int:
@@ -582,7 +596,7 @@ class ContinuousBatchingEngine:
             [self._cur_tok, self._lengths, self._remaining])))
         w.run(window)
         flags = [w.tokens[:window].reshape(-1), w.bad.to(torch.int32)]
-        if self.health_checks and self.model.cfg.mx.kv_key is not None:
+        if self.health_checks and any_mx_kv(self.model.cfg):
             # lengths after the window: every position a slot wrote
             flags.append(slot_scale_poison(self.pool, w.block_tables,
                                            w.state[1], self.model.cfg)
@@ -717,7 +731,7 @@ class ContinuousBatchingEngine:
         out = [first]
         if self.health_checks:
             bad = ~torch.isfinite(last).all(dim=-1)
-            if self.model.cfg.mx.kv_key is not None:
+            if any_mx_kv(self.model.cfg):
                 bad |= slot_scale_poison(self.pool, tables, lens,
                                          self.model.cfg)
             out.append(bad.to(torch.int32))

@@ -40,8 +40,9 @@ Sites (who consults, what the fault does):
                      front end's watchdog to catch.
 
 The corruption helpers write the layer-stacked pool leaves
-``(L, P, page, n_kv, X)`` in place: the captured decode graph reads those
-very tensors, so a rebound pool would serve the old pages.
+``(L_g, P, page, n_kv, X)`` of every KV group in place (a leaf is found
+by its plain name, ``layers.leaf_base``): the captured decode graph
+reads those very tensors, so a rebound pool would serve the old pages.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.formats import SCALE_NAN
+from repro_torch.models.layers import leaf_base
 
 _SCALE_LEAVES = ("ks_pages", "vs_pages")
 _FP_LEAVES = ("k_pages", "v_pages")
@@ -168,9 +170,8 @@ def poison_pool_pages(pool, page_ids, offset: Optional[int] = None):
     ``offset`` of each — in every layer, in place; returns the pool."""
     ids = _page_index(pool, page_ids)
     for names, val in ((_SCALE_LEAVES, SCALE_NAN), (_FP_LEAVES, np.nan)):
-        for name in names:
-            leaf = pool.get(name)
-            if leaf is None:
+        for name, leaf in pool.items():
+            if leaf_base(name) not in names:
                 continue
             if offset is None:
                 leaf.index_fill_(1, ids, val)
@@ -202,8 +203,8 @@ def corrupt_swap_payload(pages) -> int:
     restore.  Returns the number of leaves touched."""
     hit = 0
     for names, val in ((_SCALE_LEAVES, SCALE_NAN), (_FP_LEAVES, np.nan)):
-        for name in names:
-            if name in pages:
-                pages[name].fill_(val)
+        for name, leaf in pages.items():
+            if leaf_base(name) in names:
+                leaf.fill_(val)
                 hit += 1
     return hit

@@ -14,8 +14,9 @@ over the same buffers.
 
 The kernel wrappers count launches on the host, so a replay counts
 nothing by itself: each replay credits every wrapper with the launches
-its one captured call recorded, and the capture's own recording (which
-launches nothing) is taken back off.
+its one captured call recorded (and, for a wrapper that also counts by
+spec, each spec's), and the capture's own recording (which launches
+nothing) is taken back off.
 
 ``PagedDecodeGraph`` holds the continuous engine's window buffers and
 its captured step (``decoder.paged_decode_window_step``); a window of n
@@ -55,12 +56,15 @@ class CapturedStep:
     device), or run as it is on the CPU; calling the object replays it.
 
     ``launches`` maps each kernel wrapper to the launches one replay
-    makes (empty on the CPU, where the wrappers count as they run)."""
+    makes, and ``spec_launches`` each wrapper that counts by spec
+    (``launches_by_spec``) to one replay's launches per spec (both empty
+    on the CPU, where the wrappers count as they run)."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device):
         self.fn = fn
         self.graph = None
         self.launches: Dict[Callable, int] = {}
+        self.spec_launches: Dict[Callable, dict] = {}
         if device.type != "cuda":
             return
         side = torch.cuda.Stream(device)
@@ -70,6 +74,8 @@ class CapturedStep:
         torch.cuda.current_stream(device).wait_stream(side)
         wrappers = kernel_wrappers()
         before = [w.launches for w in wrappers]
+        by_spec = {w: dict(w.launches_by_spec) for w in wrappers
+                   if hasattr(w, "launches_by_spec")}
         # the graph's nodes stay readable (``graph.raw_cuda_graph()``)
         # after instantiation: what one replay launches can be listed
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -91,6 +97,14 @@ class CapturedStep:
             if w.launches != n:
                 self.launches[w] = w.launches - n
                 w.launches = n          # the capture only recorded them
+        for w, was in by_spec.items():
+            now = w.launches_by_spec
+            got = {k: n - was.get(k, 0) for k, n in now.items()
+                   if n != was.get(k, 0)}
+            if got:
+                self.spec_launches[w] = got
+                now.clear()
+                now.update(was)
         self.graph = graph
 
     def __call__(self) -> None:
@@ -100,6 +114,10 @@ class CapturedStep:
         self.graph.replay()
         for w, n in self.launches.items():
             w.launches += n
+        for w, got in self.spec_launches.items():
+            by = w.launches_by_spec
+            for k, n in got.items():
+                by[k] = by.get(k, 0) + n
 
 
 class PagedDecodeGraph:

@@ -54,6 +54,37 @@ def pages_needed(tokens: int, page_size: int) -> int:
     return max(1, -(-tokens // page_size))
 
 
+# =============================================================================
+# KV storage cost: the one account that pool sizing, the calibration
+# search's byte budgets and the reports share
+# =============================================================================
+def spec_side_nbytes(spec, n_kv: int, hd: int, fp_bytes: int = 2) -> int:
+    """Bytes one layer's K *or* V side stores per token position: ``spec``
+    None (fp) costs ``n_kv * hd * fp_bytes``; an MX spec its (optionally
+    bit-packed) element codes plus the E8M0 scales, exactly the per-layer
+    layout of ``models.layers.init_paged_kv_cache``."""
+    if spec is None:
+        return n_kv * hd * fp_bytes
+    cl = -(-hd // spec.block) * spec.block
+    return n_kv * (spec.storage_nbytes(cl) + cl // spec.block)
+
+
+def kv_token_nbytes(policy, n_kv: int, hd: int, fp_bytes: int = 2) -> int:
+    """Bytes one layer's KV cache (K + V) stores per token under
+    ``policy`` (a ``QuantPolicy``)."""
+    return (spec_side_nbytes(policy.kv_key, n_kv, hd, fp_bytes)
+            + spec_side_nbytes(policy.kv_value, n_kv, hd, fp_bytes))
+
+
+def kv_cache_token_nbytes(cfg) -> int:
+    """Total KV bytes per token position across every layer of ``cfg``
+    (a per-layer table sums each layer's own specs): the quantity
+    ``--quant auto:<budget>`` budgets."""
+    fp_bytes = cfg.torch_dtype.itemsize
+    return sum(kv_token_nbytes(cfg.layer_policy(i), cfg.n_kv_heads, cfg.hd,
+                               fp_bytes) for i in range(cfg.n_layers))
+
+
 class BlockManager:
     """Refcounted free-list allocator + block tables over a fixed page pool.
 

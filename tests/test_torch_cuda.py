@@ -1387,3 +1387,102 @@ def test_watchdog_recovers_a_stalled_step_on_card(dev):
     assert time.perf_counter() - t0 < 40
     assert srv.n_recoveries >= 1 and ("stall", None, 2) in plan.fired
     assert got == want
+
+
+# a per-layer table: layer 1 at packed e2m1 weights and its own KV formats
+MIXED_TABLE = (POLICY, {1: "weights=e2m1@32:ocp,kv_key=e3m2@32:ocp,"
+                           "kv_value=e2m3@32:ocp"})
+
+
+def test_policy_table_window_matches_eager_on_card(dev):
+    """Two full-width layers under a table that mixes weight and KV
+    formats by layer: one replay credits 7 matmul, 1 KV-write and 1
+    paged-attention launch per layer, by spec each layer's own formats
+    (and a run's launches by spec add up to its launches), each layer's
+    pool is sized by its own specs, and the first window after admission,
+    replayed, equals the eager loop (tokens, state, keys, flags, pools)."""
+    from repro_torch.core.spec import PolicyTable
+    from repro_torch.kernels.mx_decode_attn import mx_paged_decode_attention
+    from repro_torch.kernels.mx_matmul import mx_matmul_2d
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serve import ContinuousBatchingEngine
+    from repro_torch.serve.paging import kv_token_nbytes
+    model, params = build_model(
+        "chatglm3_6b", reduced=False, quant=None, weight_resident=True,
+        device=str(dev), seed=0, n_layers=2, attn_impl="flash",
+        table=PolicyTable(*MIXED_TABLE))
+    cfg = model.cfg
+    assert [lp["mlp"]["w1"].fmt for lp in params["layers"]] \
+        == ["e4m3", "e2m1"]
+    eng = ContinuousBatchingEngine(model, params, max_slots=4, page_size=16,
+                                   max_len=200, sync_every=8,
+                                   prefill_bucket=64)
+    assert {w.__name__: n for w, n in eng.window.step.launches.items()} \
+        == {"mx_matmul_2d": 14, "mx_paged_kv_write": 2,
+            "mx_paged_decode_attention": 2}
+    by_spec = eng.window.step.spec_launches
+    assert {str(k): n for k, n in by_spec[mx_matmul_2d].items()} \
+        == {"e4m3@32:ocp+unpacked": 7, "e2m1@32:ocp": 7}
+    assert {f"{k}/{v}": n
+            for (k, v), n in by_spec[mx_paged_decode_attention].items()} \
+        == {"int8@32:ocp/e2m1@32:ocp": 1, "e3m2@32:ocp/e2m3@32:ocp": 1}
+    assert eng.kv_pool_layer_nbytes == [
+        16 * eng.blocks.num_pages * kv_token_nbytes(
+            cfg.layer_policy(i), cfg.n_kv_heads, cfg.hd)
+        for i in range(2)]
+    seen = []
+    _arm_eager_check(eng, model, params, 0.0, seen)
+    was = [(w.launches, dict(w.launches_by_spec))
+           for w in (mx_matmul_2d, mx_paged_decode_attention)]
+    out = _serve_all(eng, _prompts(cfg.vocab, 4, 20, 150, seed=3), 16)
+    assert seen and all(len(o) == 16 for o in out)
+    for w, (n0, by0) in zip((mx_matmul_2d, mx_paged_decode_attention), was):
+        assert sum(w.launches_by_spec.values()) - sum(by0.values()) \
+            == w.launches - n0 > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_vjp_backward_matches_plain_autograd(dev, dtype):
+    """``flash_attention_vjp`` forward launches the flash kernel (within
+    its tolerance of the plain version); its backward, a dense recompute,
+    equals plain autograd through ``flash_attention_ref`` bit for bit."""
+    from repro_torch.kernels.flash_attn import flash_attention_vjp
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+               for shape in ((2, 70, 8, 128), (2, 70, 2, 128),
+                             (2, 70, 2, 128)))
+    g = torch.randn((2, 70, 8, 128), generator=gen, device=dev, dtype=dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention_vjp(*leaves, causal=True)
+    assert flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, leaves, g)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want_out = ref.flash_attention_ref(*plain, causal=True)
+    want = torch.autograd.grad(want_out, plain, g)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out, want_out, rtol=tol, atol=tol)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 2, 128), (3, 77, 40)])
+def test_tensor_reduction_on_card_matches_cpu(dev, shape):
+    """The calibration reduction of one tensor on the card and on the
+    CPU: counts, the exponent histogram, absmax and the sample exactly;
+    the sums within 1e-5 relative (another summation order; a mean of
+    0.5 keeps the sum away from cancellation)."""
+    from repro_torch.calib.stats import _to_stats, tensor_reduction
+    rng = np.random.default_rng(9)
+    x = (rng.normal(size=shape) + 0.5).astype(np.float32)
+    x.reshape(-1)[::13] = 0.0
+    x.reshape(-1)[5::97] *= np.float32(1e-39)        # f32 subnormals
+    x = torch.from_numpy(x)
+    card = _to_stats(tensor_reduction(x.to(dev)))
+    cpu = _to_stats(tensor_reduction(x))
+    assert (card.count, card.n_zero, card.absmax) \
+        == (cpu.count, cpu.n_zero, cpu.absmax)
+    np.testing.assert_array_equal(card.exp_hist, cpu.exp_hist)
+    np.testing.assert_array_equal(card.sample, cpu.sample)
+    np.testing.assert_allclose(card.total, cpu.total, rtol=1e-5)
+    np.testing.assert_allclose(card.sumsq, cpu.sumsq, rtol=1e-5)
