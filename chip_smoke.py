@@ -117,6 +117,29 @@ failure (the script then exits non-zero and prints no result line):
    the searched table's JSON, logits and tokens); and the MX matmul and
    paged attention timed at the formats the tables picked.
 
+7. training (``train``, last): full-width chatglm3-6b cut to 4 of its
+   28 layers (AdamW's f32 state), bf16, flash, remat, batches of 8 x 512
+   from ``SyntheticLM``: the fake-quant route (``ops.fake_quantize``, the
+   converter kernel then the port's dequantize) bit for bit against the
+   plain round trip at every weight shape of a layer in e4m3, e2m1, e2m3
+   and int8 (NaN/Inf blocks in), the kernel launch timed; 20 baseline
+   steps at lr 3e-4, 20 more at the launcher's default 1e-3 (recorded,
+   not gated), 20 QAT steps (weights and activations E4M3) and 2
+   weights-only QAT steps, each driven from 0 with the converter's and
+   flash's launches per step exact (remat recomputes a layer's kernels
+   only where the backward needs a tensor of it: not under weights +
+   activations, ROADMAP C9), the loss on a held-out batch falling by
+   5e-3 over the 20-step runs at 3e-4, ms per step, tokens/s and peak
+   memory; the QAT run's leaves without gradient exactly every layer's,
+   with moments 0 and masters decayed by the weight decay alone, bit for
+   bit; 10 steps through ``train_loop`` against 5 with a checkpoint at
+   step 5 resumed in a fresh state to 10 (params and AdamW state bit for
+   bit); one full-width layer at 2 x 64 card against CPU: two f32 QAT
+   steps, then with no quant every leaf's gradient and first-step ``m``
+   in f32 and in bf16 (the card's bf16 LM head backward, ROADMAP C10);
+   the launcher in a subprocess twice (``--reduced``, then
+   ``--quant auto:0.75 --save-policy``).
+
 Every model here runs at ``attn_impl="flash"`` (attention through the
 kernels), as the reference's serving cells do.  The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -1597,6 +1620,12 @@ def graph_kernel_names(graph) -> list:
     return walk(graph.raw_cuda_graph(), [])
 
 
+# small kernels launched inside each profile before the replay: late in
+# a long process the profiler has lost the first ~10 kernel records of a
+# profiled replay (PERF.md), once the first B2 launch among them
+PROFILE_WARMUP_KERNELS = 32
+
+
 def check_replay(torch, path, step, want, replay=None):
     """The launches one replay of a captured step credits
     (``CapturedStep.launches``) are ``want`` per wrapper; the captured
@@ -1606,7 +1635,9 @@ def check_replay(torch, path, step, want, replay=None):
     family.  The profiler can drop activity records (graphs of the same
     nodes have shown a few device events more or fewer), so a replay
     whose profile falls short is profiled once more; the miss is kept in
-    the printed row, and a second miss fails."""
+    the printed row, and a second miss fails.  Each profile launches
+    PROFILE_WARMUP_KERNELS small kernels of no family before the replay,
+    so that the records the profiler loses at its start are theirs."""
     credited = {w.__name__: n for w, n in step.launches.items()}
     if credited != want:
         raise AssertionError(f"{path}: one replay credits {credited}, "
@@ -1622,18 +1653,25 @@ def check_replay(torch, path, step, want, replay=None):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     misses = []
+    warm = torch.zeros(1, device="cuda")
     for _ in range(2):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILE_WARMUP_KERNELS):
+                warm.add_(1)
+            torch.cuda.synchronize()
             (replay or step)()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
         seen = {fam: sum(any(k in n for k in kernels) for n in names)
                 for fam, (_, kernels) in KERNEL_FAMILIES.items()}
         if seen == expect:
             break
-        misses.append(dict(profiled_kernels=seen, device_kernels=len(names)))
+        misses.append(dict(profiled_kernels=seen, device_kernels=len(names),
+                           first_kernels=[n[:60] for n in names[:12]]))
     else:
         raise AssertionError(f"{path}: the profiler saw {misses} kernels "
                              f"in two replays, the wrappers credit "
@@ -1641,7 +1679,7 @@ def check_replay(torch, path, step, want, replay=None):
     emit("replay_check", path=path, launches_per_replay=credited,
          graph_kernel_nodes=in_graph, graph_nodes=len(nodes),
          profiled_kernels=seen, device_kernels=len(names),
-         profiler_misses=misses)
+         warmup_kernels=PROFILE_WARMUP_KERNELS, profiler_misses=misses)
 
 
 def _check_launches(path, launches, want):
@@ -3638,6 +3676,555 @@ def serve_policy(torch, flush_bytes=256 * 2 ** 20):
 # =============================================================================
 # phase 4: card against CPU
 # =============================================================================
+# =============================================================================
+# phase 7: training (full-width chatglm3-6b cut to 4 layers)
+# =============================================================================
+TRAIN_ARCH = "chatglm3_6b"
+TRAIN_LAYERS = 4        # AdamW holds 16 B a parameter (bf16 param, f32
+#                         master, m, v) plus its bf16 gradient: 4 of 28
+#                         layers is 1.35 G parameters, ~25 GB
+TRAIN_SHAPE = (8, 512)  # batch x sequence of every training step here
+TRAIN_STEPS = 20
+TRAIN_LR = 3e-4         # the launcher's --lr: at its default, 1e-3, the
+#                         full-width held-out loss rises (the run
+#                         "baseline lr 1e-3" records it), while
+#                         _grads_card_vs_cpu holds the card's step to the
+#                         CPU path's, which the CPU tests hold to the
+#                         reference
+TRAIN_LAUNCHER_LR = 1e-3
+TRAIN_HELDOUT = 1_000_000  # the batch index of the held-out batch: no run
+#                            trains on it
+TRAIN_HELDOUT_MARGIN = 5e-3  # nats the held-out loss must fall by: a
+#                              frozen optimizer moves it by 0 (the step is
+#                              deterministic); weight decay alone shrinks
+#                              the logits by ~lr x 0.1 x 20 = 6e-4
+#                              relative, under 1e-3 nats
+TRAIN_QUANT = "weights=e4m3@32:ocp,activations=e4m3@32:ocp"
+TRAIN_WEIGHTS_QUANT = "weights=e4m3@32:ocp"
+# fake-quant launches per layer and forward: one per matmul weight (wq,
+# wk, wv, wo, w1, w3, w2) and one per matmul input, as each dense()
+# quantizes its own
+FQ_PER_LAYER = {TRAIN_QUANT: 14, TRAIN_WEIGHTS_QUANT: 7, "none": 0}
+TRAIN_FQ_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 256),
+                   "w1/w3": (4096, 13696), "w2": (13696, 4096)}
+TRAIN_FQ_FMTS = ("e4m3", "e2m1", "e2m3", "int8")
+TRAIN_CPU_LOSS_RTOL = 1e-4   # card vs CPU, f32, one full-width layer: sums
+#                              in another order (an activation's E4M3 code
+#                              flipping at a rounding boundary would show)
+TRAIN_CPU_MASTER_RTOL, TRAIN_CPU_MASTER_ATOL = 2e-3, 2e-5  # the reference's
+#                              test_microbatched_matches_full_batch
+# card vs CPU, one full-width layer, no quant: each leaf's gradient and m
+# within this relative L2 error, loss and grad norm within it relatively.
+# f32: sums in other orders (~1e-6).  bf16: each product and norm rounds
+# its output to bf16 (2^-9 relative) on both devices, at places where the
+# f32 sums before it differ, and the card's LM head rounds the logits'
+# gradient to bf16 (ROADMAP C10): a few ulps of bf16 (2^-8 = 3.9e-3)
+TRAIN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _train_model(torch, quant, n_layers=TRAIN_LAYERS, device="cuda", **over):
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.models import Model, load_config
+    cfg = load_config(TRAIN_ARCH, mx=QuantPolicy.parse(quant),
+                      n_layers=n_layers, attn_impl="flash", **over)
+    return Model(cfg, device=device)
+
+
+def _train_opt(steps, lr=TRAIN_LR):
+    """AdamW as the reference's launcher sets it, at ``--lr`` ``lr``."""
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=lr, warmup_steps=min(20, steps // 10 + 1),
+                       total_steps=steps)
+
+
+def _heldout_loss(torch, model, params, batch, fake_quant):
+    """The training loss of ``params`` on ``batch``, forward only."""
+    from repro_torch.train.step import _loss_fn
+    with torch.no_grad():
+        return float(_loss_fn(model, params, batch,
+                              fake_quant=fake_quant)[0])
+
+
+def _train_data(cfg, shape=TRAIN_SHAPE):
+    from repro_torch.data import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=shape[1],
+                                  global_batch=shape[0]))
+
+
+def _train_run(torch, name, quant, steps=TRAIN_STEPS, check=None,
+               lr=TRAIN_LR, gate=True):
+    """``steps`` train steps of a fresh 4-layer model from seed 0 as a
+    driven path: losses finite, ms per step (each step ends in the loss's
+    host read), tokens/s, peak device memory, and the converter's and
+    flash attention's launches, which must be exactly the per-step count
+    the policy implies times ``steps``.  The loss on one held-out batch
+    (TRAIN_HELDOUT) before and after the steps: with ``gate`` it must
+    fall by TRAIN_HELDOUT_MARGIN; without (the run at lr 1e-3, the 2-step
+    run) it is recorded.  ``check(model, params, opt, data)`` runs before the steps
+    (outside the drive).  Returns the run's launches."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.train import build_train_step, init_train_state
+    _free(torch)
+    model = _train_model(torch, quant)
+    cfg = model.cfg
+    params, opt = init_train_state(model, seed=0)
+    fq = quant != "none"
+    step_fn = build_train_step(model, _train_opt(steps, lr), fake_quant=fq)
+    data = _train_data(cfg)
+    extra = check(model, params, opt, data) if check else None
+    batches = [make_batch_for(cfg, data.batch(i)) for i in range(steps)]
+    held = make_batch_for(cfg, data.batch(TRAIN_HELDOUT))
+    held_before = _heldout_loss(torch, model, params, held, fq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+
+    def run():
+        nonlocal params, opt
+        for i in range(steps):
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batches[i], i)
+            losses.append(float(met["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+    _, launches, wall = _drive(torch, run)
+    held_after = _heldout_loss(torch, model, params, held, fq)
+    if not all(math.isfinite(x) for x in losses + [held_after]) or (
+            gate and held_after > held_before - TRAIN_HELDOUT_MARGIN):
+        raise AssertionError(f"train {name}: held-out loss {held_before} -> "
+                             f"{held_after}, losses {losses}, ms {ms}")
+    # remat recomputes a layer, kernels and all, where the backward needs
+    # a tensor it saved: under an activations role no tensor inside a
+    # layer needs a gradient (C9), so nothing is recomputed
+    recompute = cfg.remat and not (fq and cfg.mx.activations is not None)
+    passes = 2 if recompute else 1
+    want = {"mx_quantize_2d": FQ_PER_LAYER[quant] * cfg.n_layers * passes
+            * steps,
+            "flash_attention": cfg.n_layers * passes * steps}
+    _check_launches(f"train {name}", launches, want)
+    step_ms = statistics.median(ms[1:])
+    row = dict(path=name, config=cfg.name, layers=cfg.n_layers,
+               batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1], dtype=cfg.dtype,
+               remat=cfg.remat, quant=quant, steps=steps, lr=lr,
+               losses=losses, heldout_before=held_before,
+               heldout_after=held_after, heldout_gate=gate,
+               first_step_ms=ms[0], step_ms=step_ms, step_ms_all=ms,
+               tokens_per_s=TRAIN_SHAPE[0] * TRAIN_SHAPE[1] / step_ms * 1e3,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()
+                                  if v},
+               recomputed=recompute, wall_s=wall)
+    if extra is not None:
+        row.update(extra(params, opt))
+    emit("train", **row)
+    del params, opt, model, batches, held
+    return launches
+
+
+def _c9_check(torch):
+    """Before the QAT run: the leaves with no gradient (``None``) on the
+    first batch are exactly each layer's matmul weights and norms (under
+    weights + activations nothing inside a layer reaches the loss except
+    through a fake quantizer); a copy of layer 0's masters is kept.
+    After it: those leaves' moments are still exactly 0 and each master
+    is its initial value decayed by every step's lr x weight_decay, in
+    the update's own f32 operations, bit for bit."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.optim.adamw import _lr
+    from repro_torch.train.step import _grads_of
+    from repro_torch.tree import leaves_with_path, path_key
+
+    def before(model, params, opt, data):
+        _, _, grads = _grads_of(model, params,
+                                make_batch_for(model.cfg, data.batch(0)),
+                                True)
+        none = sorted(path_key(p) for p, g in leaves_with_path(grads)
+                      if g is None)
+        layer = sorted(f"layers/{i}/{path_key(p)}"
+                       for i, lp in enumerate(params["layers"])
+                       for p, _ in leaves_with_path(lp))
+        if none != layer:
+            raise AssertionError(f"C9: leaves without gradient {none}, "
+                                 f"expected every layer leaf")
+        del grads
+        start = {path_key(p): w.clone()
+                 for p, w in leaves_with_path(opt["master"]["layers"][0])}
+        opt_cfg = _train_opt(TRAIN_STEPS)
+
+        def after(params, opt):
+            for path, w in leaves_with_path(opt["master"]["layers"][0]):
+                key = path_key(path)
+                m = opt["m"]["layers"][0]
+                v = opt["v"]["layers"][0]
+                for k in path:
+                    m, v = m[k], v[k]
+                if bool(m.abs().max() > 0) or bool(v.abs().max() > 0):
+                    raise AssertionError(f"C9: layer 0 {key}: moments "
+                                         f"moved")
+                want = start[key]
+                for i in range(TRAIN_STEPS):
+                    lr = float(_lr(opt_cfg, i))
+                    want = want - lr * (0.0 + opt_cfg.weight_decay * want)
+                if not torch.equal(w, want):
+                    raise AssertionError(f"C9: layer 0 {key}: master is not "
+                                         f"its weight-decayed start")
+            return {"c9_leaves": len(none),
+                    "c9_check": "no gradient; moments 0; master = start "
+                                "decayed by lr x weight_decay, bit for bit"}
+
+        return after
+
+    return before
+
+
+def _train_resume(torch, tmp):
+    """Resume identity through ``train_loop`` (weights fake-quantized, so
+    the converter, flash and the full backward all run): 10 steps
+    uninterrupted; 5 steps with a checkpoint at step 5, then a fresh
+    state resumed from it to 10.  Params, master, m and v equal the
+    uninterrupted run's bit for bit."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.train import (LoopConfig, build_train_step,
+                                   init_train_state, train_loop)
+    from repro_torch.tree import leaves_with_path, path_key
+    steps = 10
+    model = _train_model(torch, TRAIN_WEIGHTS_QUANT)
+    data = _train_data(model.cfg)
+    step_fn = build_train_step(model, _train_opt(steps), fake_quant=True)
+
+    def batch_fn(i):
+        return make_batch_for(model.cfg, data.batch(i))
+
+    def loop(total, ckpt_dir, every):
+        out = train_loop(LoopConfig(total_steps=total, ckpt_dir=ckpt_dir,
+                                    ckpt_every=every, log_every=1000),
+                         step_fn, *init_train_state(model, seed=0),
+                         batch_fn, log=lambda *_: None)
+        return out
+
+    t0 = time.perf_counter()
+    a = loop(steps, str(tmp / "a"), 0)
+    want = {path_key(p): t.cpu() for p, t in leaves_with_path(
+        {"params": a["params"], "opt": a["opt"]})}
+    a_loss = [h["loss"] for h in a["history"]]
+    del a
+    _free(torch)
+    t1 = time.perf_counter()
+    loop(5, str(tmp / "b"), 5)
+    _free(torch)
+    save_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    b = loop(steps, str(tmp / "b"), 0)
+    resume_s = time.perf_counter() - t1
+    got = {"params": b["params"], "opt": b["opt"]}
+    diff = [path_key(p) for p, t in leaves_with_path(got)
+            if not torch.equal(t.cpu(), want[path_key(p)])]
+    b_loss = [h["loss"] for h in b["history"]]
+    if diff or b_loss != a_loss[5:] or len(want) != len(
+            list(leaves_with_path(got))):
+        raise AssertionError(f"resume: {len(diff)} leaves differ from the "
+                             f"uninterrupted run ({diff[:4]}); losses "
+                             f"{b_loss} vs {a_loss[5:]}")
+    ckpt = tmp / "b" / "step_00000005"
+    emit("train_resume", quant=TRAIN_WEIGHTS_QUANT, layers=model.cfg.n_layers,
+         steps=steps, checkpoint_step=5, leaves=len(want),
+         checkpoint_bytes=sum(f.stat().st_size for f in ckpt.iterdir()),
+         bit_identical=True, losses=a_loss,
+         seconds=time.perf_counter() - t0, save_run_s=save_s,
+         resume_run_s=resume_s)
+    del b, got, want
+    _free(torch)
+
+
+def _fake_quant_rows(torch, flush):
+    """The fake-quant route (``ops.fake_quantize``: the converter kernel,
+    then the port's dequantize) against the plain round trip
+    (``core.convert``) at every weight shape of a chatglm3-6b layer, along
+    axis 0 (K), in e4m3, e2m1, e2m3 and int8 (OCP): codes, scales and
+    values bit for bit, NaN and Inf blocks included; the kernel launch
+    the route makes timed per shape in e4m3 with its bound and plain
+    version."""
+    from repro_torch.core import convert
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    from repro_torch.kernels.ops import fake_quantize
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, n_checked = [], 0
+    for name, (k, n) in TRAIN_FQ_SHAPES.items():
+        w = torch.randn(k, n, generator=gen, device="cuda") * 0.016
+        w[5, 7] = float("nan")                     # a NaN block
+        w[40, 1] = float("inf")                    # an Inf block
+        w[70, 2] = -float("inf")
+        w[96:128, 3] = 1e-40                       # subnormals
+        xt = w.t().contiguous()                    # the launch's layout
+        for fmt in TRAIN_FQ_FMTS:
+            spec = QuantSpec(fmt, "ocp")
+            codes, scales = mx_quantize_2d(xt, spec)
+            want = convert.mx_quantize(w, spec, axis=0)
+            got_v = fake_quantize(w, spec, axis=0)
+            want_v = convert.quantize_dequantize(w, spec, axis=0)
+            if not (torch.equal(codes.t(), want.codes)
+                    and torch.equal(scales.t(), want.scales)
+                    and torch.equal(got_v.view(torch.int32),
+                                    want_v.view(torch.int32))):
+                raise AssertionError(f"fake quant {name} {spec}: the kernel "
+                                     f"route differs from the plain round "
+                                     f"trip")
+            n_checked += 1
+        spec = QuantSpec("e4m3", "ocp")
+        numel = k * n
+        tb, by = bound(numel * (4 + 1 + 1 / 32),
+                       numel * CONVERTER_OPS_PER_ELEMENT, F32_CUDA_CORE_FLOPS)
+        rows.append(dict(
+            kernel="mx_quantize_2d",
+            shape=f"fake-quant {name} {k}x{n} along K (launched {n}x{k})",
+            spec=str(spec), max_abs_err=0.0,
+            ms=time_ms(torch, lambda: mx_quantize_2d(xt, spec), flush=flush),
+            round_trip_ms=time_ms(torch, lambda: fake_quantize(w, spec,
+                                                               axis=0),
+                                  flush=flush),
+            plain_ms=time_ms(torch, lambda: ref.mx_quantize_2d_ref(xt, spec),
+                             flush=flush),
+            bound_ms=tb, bound_by=by, library_ms=None))
+        emit("time", **rows[-1])
+        del w, xt
+    emit("check", kernel="fake_quantize", compared=n_checked,
+         criterion="codes, scales and dequantized values bit-identical to "
+                   "core.convert (NaN/Inf blocks included)")
+    return rows
+
+
+def _train_card_vs_cpu(torch):
+    """One full-width layer of chatglm3-6b, batch 2 x 64, on the card and
+    on the CPU from the same params (seed 3, made once on the CPU): two
+    QAT steps in f32 (``_qat_card_vs_cpu``), then each leaf's gradient
+    and ``m`` with no quant in f32 and in bf16 (``_grads_card_vs_cpu``)."""
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    cpu = _train_model(torch, TRAIN_QUANT, n_layers=1, device="cpu",
+                       dtype="float32", param_dtype="float32", remat=False)
+    start = cpu.init(seed=3)
+    _qat_card_vs_cpu(torch, cpu, tree_map(torch.clone, start))
+    for dtype in ("float32", "bfloat16"):
+        params = tree_map(lambda t: t.to(getattr(torch, dtype), copy=True),
+                          start)
+        _grads_card_vs_cpu(torch, dtype, params)
+    emit("phase_seconds", name="train card vs CPU",
+         seconds=time.perf_counter() - t0)
+    del start
+    _free(torch)
+
+
+def _qat_card_vs_cpu(torch, cpu, cp):
+    """Two QAT steps (weights + activations, f32, remat off) of the
+    one-layer model ``cpu`` from params ``cp`` and the same AdamW state
+    (random moments) on the card and on the CPU: loss and grad norm
+    within TRAIN_CPU_LOSS_RTOL at each step, master within the
+    reference's rtol 2e-3, atol 2e-5; the weights' converter codes equal
+    on both devices.  Under C9 only embed, norm_f and the LM head get a
+    gradient here; ``_grads_card_vs_cpu`` holds every leaf's."""
+    from repro_torch.core import convert
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    from repro_torch.kernels.ops import fake_quantize
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    from repro_torch.tree import leaves, tree_map
+    t0 = time.perf_counter()
+    card = Model(cpu.cfg, device="cuda")
+    co = adamw_init(cp)
+    # random moments (|m| / sqrt(v) <= 1), made on the card and copied:
+    # from zero moments a first step moves each weight by about lr x the
+    # sign of its gradient, and the LM head's 266 M gradient elements
+    # include some at the two devices' rounding noise, which would move
+    # apart by 2 lr
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    gp = tree_map(lambda t: t.cuda(), cp)
+    go = {"master": tree_map(lambda t: t.cuda(), co["master"]),
+          "m": tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                              device="cuda") * 1e-3,
+                        co["m"])}
+    go["v"] = tree_map(lambda m: (m.abs() + 1e-3) ** 2, go["m"])
+    co["m"] = tree_map(lambda t: t.cpu(), go["m"])
+    co["v"] = tree_map(lambda t: t.cpu(), go["v"])
+    spec = cpu.cfg.mx.weights
+    w1 = cp["layers"][0]["mlp"]["w1"]
+    a = convert.mx_quantize(w1, spec, axis=0)
+    gc_, gs_ = mx_quantize_2d(w1.cuda().t().contiguous(), spec)
+    if not (torch.equal(gc_.t().cpu(), a.codes)
+            and torch.equal(gs_.t().cpu(), a.scales)):
+        raise AssertionError("train card vs CPU: converter codes differ")
+    if not torch.equal(fake_quantize(w1.cuda(), spec, axis=0).cpu(),
+                       fake_quantize(w1, spec, axis=0)):
+        raise AssertionError("train card vs CPU: fake-quant values differ")
+    del a, gc_, gs_
+    data = _train_data(cpu.cfg, (2, 64))
+    opt_cfg = _train_opt(2)
+    steps = [build_train_step(m, opt_cfg, fake_quant=True)
+             for m in (card, cpu)]
+    errs = {"loss": 0.0, "grad_norm": 0.0}
+    losses = []
+    for i in range(2):
+        raw = data.batch(i)
+        gp, go, gm = steps[0](gp, go, make_batch_for(card.cfg, raw), i)
+        cp, co, cm = steps[1](cp, co, make_batch_for(cpu.cfg, raw,
+                                                     device="cpu"), i)
+        for k in errs:
+            e = abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k]))
+            errs[k] = max(errs[k], e)
+        losses.append((float(gm["loss"]), float(cm["loss"])))
+    worst = 0.0
+    for g, c in zip(leaves(go["master"]), leaves(co["master"])):
+        c = c.cuda()
+        worst = max(worst, float(((g - c).abs() / (
+            TRAIN_CPU_MASTER_ATOL + TRAIN_CPU_MASTER_RTOL * c.abs())).max()))
+    if errs["loss"] > TRAIN_CPU_LOSS_RTOL or \
+            errs["grad_norm"] > TRAIN_CPU_LOSS_RTOL or worst > 1.0:
+        raise AssertionError(f"train card vs CPU: rel errors {errs}, master "
+                             f"at {worst} x its tolerance")
+    emit("train_card_vs_cpu", layers=1, dtype="float32", batch=2, seq=64,
+         quant=TRAIN_QUANT, steps=2, losses=losses, rel_err=errs,
+         loss_rtol=TRAIN_CPU_LOSS_RTOL, master_worst_over_tol=worst,
+         master_tol=(TRAIN_CPU_MASTER_RTOL, TRAIN_CPU_MASTER_ATOL),
+         codes_equal=True, seconds=time.perf_counter() - t0)
+    del gp, go, cp, co, card
+    _free(torch)
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in f32 on ``a``'s device (``a`` the card's)."""
+    a, b = a.detach().float(), b.detach().to(a.device).float()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _grads_card_vs_cpu(torch, dtype, cp):
+    """One full-width layer in ``dtype`` with no quant and remat on (the
+    main path's settings but depth), batch 2 x 64, from params ``cp`` on
+    the card and on the CPU: every leaf has a gradient on both, and each
+    leaf's gradient (``_grads_of``) and, after one train step from zero
+    moments, its ``m`` (0.1 x the clipped gradient) agree within
+    TRAIN_GRAD_RTOL[dtype] in relative L2 norm; loss and grad norm
+    within it relatively.  A bf16 head on the card runs ``_HeadMM``,
+    whose backward rounds the logits' gradient to bf16 (ROADMAP C10);
+    the CPU's contracts in f32 as the reference does."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    from repro_torch.train.step import _grads_of
+    from repro_torch.tree import leaves_with_path, path_key, tree_map
+    t0 = time.perf_counter()
+    tol = TRAIN_GRAD_RTOL[dtype]
+    cpu = _train_model(torch, "none", n_layers=1, device="cpu", dtype=dtype,
+                       param_dtype=dtype)
+    card = Model(cpu.cfg, device="cuda")
+    models = (card, cpu)
+    params = [tree_map(lambda t: t.cuda(), cp), cp]
+    raw = _train_data(cpu.cfg, (2, 64)).batch(0)
+    batches = [make_batch_for(m.cfg, raw, device=m.device) for m in models]
+    grads, losses = [], []
+    for m, p, b in zip(models, params, batches):
+        loss, _, g = _grads_of(m, p, b, False)
+        grads.append(g)
+        losses.append(float(loss))
+    pairs = list(zip(leaves_with_path(grads[0]), leaves_with_path(grads[1])))
+    missing = [path_key(pa) for (pa, a), (_, b) in pairs
+               if a is None or b is None]
+    if missing:
+        raise AssertionError(f"train grads {dtype}: no gradient at "
+                             f"{missing}")
+    g_err = {path_key(pa): _rel_l2(a, b) for (pa, a), (_, b) in pairs}
+    del grads, pairs
+    opts, mets = [], []
+    for m, p, b in zip(models, params, batches):
+        _, o, met = build_train_step(m, _train_opt(TRAIN_STEPS))(
+            p, adamw_init(p), b, 0)
+        opts.append(o)
+        mets.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+    m_err = {path_key(pa): _rel_l2(a, b) for (pa, a), (_, b) in zip(
+        leaves_with_path(opts[0]["m"]), leaves_with_path(opts[1]["m"]))}
+    s_err = {k: abs(mets[0][k] - mets[1][k]) / abs(mets[1][k])
+             for k in mets[0]}
+    s_err["grads_of_loss"] = abs(losses[0] - losses[1]) / abs(losses[1])
+    worst = max(max(g_err.values()), max(m_err.values()),
+                max(s_err.values()))
+    emit("train_grads_card_vs_cpu", layers=1, dtype=dtype, batch=2, seq=64,
+         quant="none", remat=cpu.cfg.remat, leaves=len(g_err), rtol=tol,
+         grad_rel_l2=g_err, m_rel_l2=m_err, scalar_rel_err=s_err,
+         worst=worst, seconds=time.perf_counter() - t0)
+    if worst > tol:
+        raise AssertionError(f"train grads {dtype}: worst relative error "
+                             f"{worst} over {tol}")
+    del params, opts, card, cpu
+    _free(torch)
+
+
+def _train_launcher(tmp):
+    """The launcher on the card in a subprocess, as a user runs it:
+    reduced chatglm3-6b, 12 steps of 8 x 32, once as is and once with
+    ``--quant auto:0.75 --save-policy``; each exits 0 with a falling loss,
+    and the saved table reloads."""
+    import os
+    import re
+    from repro_torch.core.spec import PolicyTable
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    rows = []
+    for extra in ([], ["--quant", "auto:0.75", "--save-policy",
+                       str(tmp / "p.json")]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "chatglm3_6b", "--reduced", "--steps", "12", "--batch", "8",
+               "--seq", "32", "--ckpt-dir", str(tmp / f"l{len(rows)}"),
+               *extra]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600, cwd=str(ROOT))
+        if out.returncode != 0:
+            raise AssertionError(f"launcher {extra} exited "
+                                 f"{out.returncode}:\n{out.stdout[-2000:]}"
+                                 f"\n{out.stderr[-4000:]}")
+        m = re.search(r"done: loss ([\d.]+) -> ([\d.]+)", out.stdout)
+        if not m or float(m.group(2)) >= float(m.group(1)):
+            raise AssertionError(f"launcher {extra}: no falling loss in\n"
+                                 f"{out.stdout[-2000:]}")
+        rows.append(dict(args=" ".join(cmd[3:]), loss_first=float(
+            m.group(1)), loss_last=float(m.group(2)),
+            seconds=time.perf_counter() - t0))
+    table = PolicyTable.from_json((tmp / "p.json").read_text())
+    emit("train_launcher", runs=rows, table=table.to_json_dict())
+
+
+def train_phase(torch, flush_bytes=256 * 2 ** 20):
+    """Phase 7 (see the module docstring).  Returns (launches of the
+    driven runs, their launches per step by run, the converter's
+    ``train_shapes`` rows)."""
+    import tempfile
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fq_rows = _fake_quant_rows(torch, flush)
+    del flush
+    launches, per_step = {}, {}
+    for name, quant, steps, check, over in (
+            ("baseline", "none", TRAIN_STEPS, None, {}),
+            ("baseline lr 1e-3", "none", TRAIN_STEPS, None,
+             dict(lr=TRAIN_LAUNCHER_LR, gate=False)),
+            ("qat", TRAIN_QUANT, TRAIN_STEPS, _c9_check(torch), {}),
+            ("qat weights only", TRAIN_WEIGHTS_QUANT, 2, None,
+             dict(gate=False))):
+        run = _train_run(torch, name, quant, steps, check, **over)
+        per_step[name] = {k: n / steps for k, n in run.items() if n}
+        for k, n in run.items():
+            launches[k] = launches.get(k, 0) + n
+    _free(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        _train_resume(torch, Path(d))
+    _train_card_vs_cpu(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        _train_launcher(Path(d))
+    return launches, per_step, fq_rows
+
+
 def _to_cpu(tree):
     import dataclasses
     from repro_torch.core.mx_weight import MXWeight
@@ -3737,6 +4324,10 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every result row to this JSON file")
     args = ap.parse_args()
+    # the deterministic train step (phase 7) needs cuBLAS's fixed
+    # workspace, set before cuBLAS starts
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port "
@@ -3801,6 +4392,10 @@ def main() -> int:
     timed("card vs CPU", card_vs_cpu, torch)
     timed("static card vs CPU", static_card_vs_cpu, torch)
     timed("MoE card vs CPU", card_vs_cpu, torch, MOE_ARCH, new=2)
+    train_launches, train_per_step, train_rows = timed("train", train_phase,
+                                                       torch)
+    for kernel, n in train_launches.items():
+        launches[kernel] = launches.get(kernel, 0) + n
 
     sources = {"mx_quantize_2d": "src/repro_torch/csrc/mx_quant.cu",
                "mx_kv_write": "src/repro_torch/csrc/mx_kv_write.cu",
@@ -3850,6 +4445,17 @@ def main() -> int:
                                    "bound_by", "library_ms",
                                    "library_graph_ms")}
             for r in family.get(name, ())]
+        # the training path (phase 7): launches per step of each driven
+        # run, and the converter at the fake-quant shapes
+        kernels[-1]["train_launches_per_step"] = {
+            run: counts.get(name, 0) for run, counts in
+            train_per_step.items()}
+        if name == "mx_quantize_2d":
+            kernels[-1]["train_shapes"] = [
+                {k: r.get(k) for k in ("shape", "spec", "max_abs_err", "ms",
+                                       "round_trip_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
+                for r in train_rows]
         if "multi_token" in row:    # the KV write's suffix-prefill mode,
             mt = row["multi_token"]  # launched on the prefix path
             kernels[-1]["multi_token"] = {

@@ -19,4 +19,5 @@ def reduced() -> ModelConfig:
     reference's ``load_reduced`` serves it)."""
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
-        vocab=512, head_dim=32, dtype="float32")
+        vocab=512, head_dim=32, dtype="float32",
+        param_dtype="float32", remat=False)

@@ -24,4 +24,5 @@ def reduced() -> ModelConfig:
     return dataclasses.replace(
         CONFIG, n_layers=3, d_model=128, n_heads=4, n_kv_heads=4, d_ff=256,
         vocab=512, head_dim=32, n_experts=8, n_shared_experts=2, moe_topk=2,
-        moe_d_ff=64, n_dense_layers=1, dtype="float32")
+        moe_d_ff=64, n_dense_layers=1, dtype="float32",
+        param_dtype="float32", remat=False)

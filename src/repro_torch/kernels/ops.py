@@ -10,8 +10,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.convert import MXArray
-from repro_torch.core.spec import QuantSpec, resolve_spec
+from repro_torch.core.convert import MXArray, mx_dequantize
+from repro_torch.core.spec import QuantSpec, as_spec, resolve_spec
 from repro_torch.kernels.mx_matmul import mx_matmul_2d
 from repro_torch.kernels.mx_quant import mx_quantize_2d
 
@@ -42,6 +42,30 @@ def mx_quantize(x: torch.Tensor, spec=None, mode: Optional[str] = None,
     return MXArray.from_spec(codes.movedim(-1, axis).contiguous(),
                              scales.movedim(-1, axis).contiguous(), spec,
                              orig_len=n, axis=axis)
+
+
+def fake_quantize(x: torch.Tensor, spec, axis: int = -1) -> torch.Tensor:
+    """QAT fake quantization: x quantized along ``axis`` by the converter
+    kernel (one launch of ``mx_quantize_2d`` over x widened to f32, with
+    ``axis`` moved last) and dequantized again; returns f32 in x's shape.
+    On a CPU tensor the converter is its plain version, so the round trip
+    is ``core.convert.quantize_dequantize``'s, and on the card its codes,
+    scales and values are those bits too.  x is detached first: as in
+    the reference, whose round trip runs on bitcast integers, no gradient
+    passes through (ROADMAP C9)."""
+    spec = as_spec(spec)
+    axis = axis % x.dim()
+    xm = x.detach().to(torch.float32).movedim(axis, -1)
+    n = xm.shape[-1]
+    codes, scales = mx_quantize_2d(xm.reshape(-1, n).contiguous(), spec)
+    pad = scales.shape[-1] * spec.block - n
+    if pad:
+        codes = F.pad(codes, (0, pad))
+    lead = xm.shape[:-1]
+    mx = MXArray.from_spec(codes.reshape(lead + (codes.shape[-1],)),
+                           scales.reshape(lead + (scales.shape[-1],)), spec,
+                           orig_len=n, axis=len(lead))
+    return mx_dequantize(mx).movedim(-1, axis)
 
 
 def mx_matmul_resident(a: torch.Tensor, w) -> torch.Tensor:

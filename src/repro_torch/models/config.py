@@ -48,6 +48,12 @@ class ModelConfig:
     # When set, ``mx`` mirrors the table's default.
     mx_table: Optional[PolicyTable] = None
     dtype: str = "bfloat16"        # compute and stored-parameter dtype
+    # the dtype AdamW casts its f32 master weights to after each step
+    # (training; the reference's ``param_dtype``)
+    param_dtype: str = "bfloat16"
+    # training: recompute each layer's activations in the backward pass
+    # (``torch.utils.checkpoint``) instead of keeping them
+    remat: bool = True
     # "dense" | "flash": "flash" sends MX decode attention (contiguous and
     # paged) and the causal fp prefill through their kernels; "dense"
     # attends in plain torch everywhere (the reference's default)
@@ -87,6 +93,10 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def torch_param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
 
 
 def apply_policy_table(cfg: ModelConfig, table) -> ModelConfig:

@@ -17,7 +17,9 @@ loop (``paged_decode_multi_step``, what a CPU tensor runs), on the card
 as one captured CUDA graph replayed once per step
 (``repro_torch.serve.graphs``).  Either way sampling keys, lengths,
 budgets and the health flag stay on the device, and nothing in a step
-waits for the host.
+waits for the host.  ``forward`` is the training forward (QAT through
+``fake_quant``; each layer recomputed in the backward under
+``cfg.remat``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.mx_weight import MXWeight
 from repro_torch.models import layers as L
@@ -158,33 +161,55 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.to(torch.int64)].to(cfg.torch_dtype)
 
 
+class _HeadMM(torch.autograd.Function):
+    """x (N, d) bf16 @ head (d, V) bf16 -> f32 logits as one GEMM on the
+    card.  Backward: the logits' f32 gradient is rounded to bf16 and both
+    products run as bf16 GEMMs with f32 accumulation (the reference's
+    transpose contracts that gradient in f32; the rounding is the usual
+    mixed-precision one, 2^-9 relative per element)."""
+
+    @staticmethod
+    def forward(ctx, x, head):
+        ctx.save_for_backward(x, head)
+        return torch.mm(x, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, head = ctx.saved_tensors
+        g = grad.to(torch.bfloat16)
+        dx = g @ head.T if ctx.needs_input_grad[0] else None
+        dh = x.T @ g if ctx.needs_input_grad[1] else None
+        return dx, dh
+
+
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head; f32 logits (the reference contracts in the
     activation dtype with an f32 accumulator and keeps f32 output).  A
     bf16 x bf16 head on the card is one bf16-input, f32-output GEMM that
-    reads the head's bf16 bytes once; elsewhere both sides widen to f32.
-    Products of bf16 values are exact in f32, so the two differ only in
-    summation order."""
+    reads the head's bf16 bytes once (``_HeadMM``); elsewhere both sides
+    widen to f32.  Products of bf16 values are exact in f32, so the two
+    differ only in summation order."""
     x = L.rms_norm(x, params["norm_f"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
     if x.device.type == "cuda" and x.dtype == head.dtype == torch.bfloat16:
         lead = x.shape[:-1]
-        out = torch.mm(x.reshape(-1, x.shape[-1]), head,
-                       out_dtype=torch.float32)
+        out = _HeadMM.apply(x.reshape(-1, x.shape[-1]), head)
         return out.reshape(lead + (head.shape[-1],))
     return torch.matmul(x.to(torch.float32), head.to(torch.float32))
 
 
 def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
-           cache_pos: int = 0, paged=None, paged_prefill=None, tap=None):
+           cache_pos: int = 0, paged=None, paged_prefill=None, tap=None,
+           fake_quant: bool = False):
     """Layer ``i`` under its config ``cfg``: attention (over the cache or
     pages given), then the MLP or, on an MoE layer, ``moe``.  Returns (x,
     cache, aux): ``aux`` the MoE load-balance loss (None on a dense
     layer).  ``tap`` (calibration) receives the post-RoPE k/v and, as
     ``activations``, the two post-norm matmul inputs along the sequence
-    axis."""
+    axis.  ``fake_quant`` (training, the full causal forward) goes to
+    every projection."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if paged_prefill is not None:
         block_tables, starts, prompt_lens = paged_prefill
@@ -198,15 +223,16 @@ def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
             lengths=lengths)
     else:
         a, cache = L.attention(lp["attn"], h, cfg, positions=positions,
-                               cache=cache, cache_pos=cache_pos, tap=tap)
+                               cache=cache, cache_pos=cache_pos, tap=tap,
+                               fake_quant=fake_quant)
     x = x + a
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if tap is not None:
         tap["activations"] = torch.cat([h, h2], dim=1)
     if cfg.moe_layer(i):
-        m, aux = L.moe(lp["moe"], h2, cfg)
+        m, aux = L.moe(lp["moe"], h2, cfg, fake_quant)
         return x + m, cache, aux
-    return x + L.mlp(lp["mlp"], h2, cfg), cache, None
+    return x + L.mlp(lp["mlp"], h2, cfg, fake_quant), cache, None
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
@@ -233,26 +259,45 @@ def _mean_aux(auxs, device) -> torch.Tensor:
                         if a is None else a for a in auxs]).mean()
 
 
-def _forward_with_aux(params, tokens: torch.Tensor, cfg: ModelConfig):
+def _forward_with_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                      fake_quant: bool = False, remat: bool = False):
     """Full causal forward over tokens (B, S) with no cache; returns
     (logits (B, S, Vp) f32, aux): the MoE load-balance loss averaged over
     the layers past the leading dense ones, as the reference's training
-    ``forward`` averages its scanned stack (0 for a dense config)."""
+    ``forward`` averages its scanned stack (0 for a dense config).  With
+    ``remat`` each of those layers runs under
+    ``torch.utils.checkpoint`` (non-reentrant; the reference's
+    ``jax.checkpoint`` of its scan step): a backward pass recomputes the
+    layer, kernel launches included, where it needs a saved tensor."""
     x = _embed(params, cfg, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     cfgs, auxs = layer_cfgs(cfg), []
     for i, lp in enumerate(params["layers"]):
-        x, _, aux = _block(i, lp, x, cfgs[i], positions=positions)
+        def layer(x, i=i, lp=lp):
+            y, _, aux = _block(i, lp, x, cfgs[i], positions=positions,
+                               fake_quant=fake_quant)
+            return y, aux
+
+        if remat and i >= cfg.n_dense_layers:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                layer, x, use_reentrant=False)
+        else:
+            x, aux = layer(x)
         if i >= cfg.n_dense_layers:
             auxs.append(aux)
     return _head(params, cfg, x), _mean_aux(auxs, x.device)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full causal forward over tokens (B, S) with no cache; returns
-    logits (B, S, Vp) f32."""
-    return _forward_with_aux(params, tokens, cfg)[0]
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            fake_quant: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward (the reference's ``forward``): tokens (B, S) ->
+    (logits (B, S, Vp) f32, aux), each layer recomputed in the backward
+    pass when ``cfg.remat``; ``fake_quant`` applies the policy's
+    ``weights`` / ``activations`` roles (QAT) through the converter
+    kernel, each layer under its own ``layer_cfg(i)``."""
+    return _forward_with_aux(params, tokens, cfg, fake_quant=fake_quant,
+                             remat=cfg.remat)
 
 
 def forward_calib(params, tokens: torch.Tensor, cfg: ModelConfig):

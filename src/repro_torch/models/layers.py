@@ -3,7 +3,10 @@ src/repro/models/layers.py).
 
 Every projection routes through ``dense()``: an ``MXWeight`` operand goes
 to the dequant x matmul kernel, an fp weight to ``torch.matmul``; an MoE
-layer's experts run one such launch per expert (``moe``).  KV
+layer's experts run one such launch per expert (``moe``).  In training
+(``fake_quant``, QAT) the policy's ``weights`` and ``activations`` roles
+fake-quantize the operands of each projection through the converter
+kernel, as the reference's ``dense`` does in plain jnp.  KV
 caches are quantized along the head dim per the ``kv_key``/``kv_value``
 policy roles and written, packed, in one launch of the fused KV-write
 kernel per layer (a prompt suffix over pages too).  Attention follows
@@ -44,7 +47,7 @@ import torch.nn.functional as F
 from repro_torch.core.convert import MXArray, mx_dequantize
 from repro_torch.core.mx_weight import MXWeight
 from repro_torch.core.pack import pack_codes, unpack_codes
-from repro_torch.core.spec import QuantSpec
+from repro_torch.core.spec import QuantPolicy, QuantSpec
 from repro_torch.kernels.flash_attn import flash_attention_vjp
 from repro_torch.kernels.mx_decode_attn import (decode_kernel_takes,
                                                 mx_decode_attention,
@@ -53,7 +56,7 @@ from repro_torch.kernels.mx_decode_attn import (decode_kernel_takes,
 from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
                                              mx_paged_kv_write,
                                              mx_paged_kv_write_tokens)
-from repro_torch.kernels.ops import mx_matmul_resident
+from repro_torch.kernels.ops import fake_quantize, mx_matmul_resident
 from repro_torch.kernels.ref import token_pages
 from repro_torch.models.config import ModelConfig
 
@@ -71,12 +74,26 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * w.to(torch.float32)).to(x.dtype)
 
 
-def dense(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w.  ``MXWeight``: the weight-resident route through the dequant
-    x matmul kernel (f32 accumulate); fp weight: ``torch.matmul`` in the
-    activation dtype (f32 accumulate on the card)."""
+def dense(x: torch.Tensor, w, mx: Optional[QuantPolicy] = None,
+          fake_quant: bool = False) -> torch.Tensor:
+    """x @ w, steered by the policy ``mx``'s ``weights`` / ``activations``
+    roles as the reference's ``dense`` is.  With ``fake_quant`` (QAT) the
+    ``activations`` role fake-quantizes x along its last axis and, for an
+    fp weight, the ``weights`` role fake-quantizes w along axis 0 (K),
+    each through the converter kernel (``ops.fake_quantize``; no
+    gradient passes, ROADMAP C9).  ``MXWeight``: the weight-resident
+    route through the dequant x matmul kernel (f32 accumulate);
+    ``MXArray`` (quantized along K): dequantized, then multiplied; fp
+    weight: ``torch.matmul`` in the activation dtype (f32 accumulate on
+    the card)."""
+    if fake_quant and mx is not None and mx.activations is not None:
+        x = fake_quantize(x, mx.activations, axis=-1).to(x.dtype)
     if isinstance(w, MXWeight):
         return mx_matmul_resident(x, w).to(x.dtype)
+    if isinstance(w, MXArray):
+        return torch.matmul(x, mx_dequantize(w).to(x.dtype))
+    if fake_quant and mx is not None and mx.weights is not None:
+        w = fake_quantize(w, mx.weights, axis=0)
     return torch.matmul(x, w.to(x.dtype))
 
 
@@ -202,7 +219,8 @@ def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, cache=None, cache_pos=0,
-              tap: Optional[dict] = None) -> Tuple[torch.Tensor, Any]:
+              tap: Optional[dict] = None,
+              fake_quant: bool = False) -> Tuple[torch.Tensor, Any]:
     """GQA self-attention over x (B, S, d), causal.  With a cache, k/v
     are first written at ``cache_pos`` (a host int, or at decode a
     one-element int32 tensor on x's device).  Decode (S == 1) attends the
@@ -215,14 +233,16 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``"flash"``, densely at ``"dense"`` (through ``flash_attention_vjp``,
     which a backward pass differentiates).  ``tap`` (calibration) receives
     the post-RoPE, pre-quantization k/v: what the ``kv_key`` /
-    ``kv_value`` roles quantize."""
+    ``kv_value`` roles quantize.  ``fake_quant`` (training) goes to each
+    projection's ``dense``."""
     b, s, d = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    mx_kv = cfg.mx.kv_key is not None
+    mx, fq = cfg.mx, fake_quant
+    mx_kv = mx.kv_key is not None
     flash = cfg.attn_impl == "flash"
-    q = dense(x, p["wq"]).reshape(b, s, nh, hd)
-    k = dense(x, p["wk"]).reshape(b, s, nkv, hd)
-    v = dense(x, p["wv"]).reshape(b, s, nkv, hd)
+    q = dense(x, p["wq"], mx, fq).reshape(b, s, nh, hd)
+    k = dense(x, p["wk"], mx, fq).reshape(b, s, nkv, hd)
+    v = dense(x, p["wv"], mx, fq).reshape(b, s, nkv, hd)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
@@ -239,7 +259,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 cache["v_codes"], cache["v_scales"], cache_pos,
                 key_spec=cfg.mx.kv_key, value_spec=cfg.mx.kv_value,
                 rep=nh // nkv)
-            return dense(out.reshape(b, s, nh * hd), p["wo"]), cache
+            return dense(out.reshape(b, s, nh * hd), p["wo"], mx, fq), cache
         if s == 1:
             k, v = cache_read(cache, cfg, x.dtype, hd)
             if isinstance(cache_pos, torch.Tensor):
@@ -256,7 +276,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         if mask is None:
             mask = _causal_mask(s, k.shape[1], x.device)
         out = _sdpa_gqa(q, k, v, mask)
-    out = dense(out.reshape(b, s, nh * hd), p["wo"])
+    out = dense(out.reshape(b, s, nh * hd), p["wo"], mx, fq)
     return out, cache
 
 
@@ -573,14 +593,16 @@ def any_fp_kv(cfg: ModelConfig) -> bool:
 # =============================================================================
 # MLP
 # =============================================================================
-def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = dense(x, p["w1"])
+def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
+        fake_quant: bool = False) -> torch.Tensor:
+    mx = cfg.mx
+    h = dense(x, p["w1"], mx, fake_quant)
     if cfg.gated_mlp:
-        g = dense(x, p["w3"])
+        g = dense(x, p["w3"], mx, fake_quant)
         h = F.silu(h.to(torch.float32)).to(x.dtype) * g
     else:
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return dense(h, p["w2"])
+    return dense(h, p["w2"], mx, fake_quant)
 
 
 # =============================================================================
@@ -623,20 +645,24 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
     return probs, topw, topi
 
 
-def _expert_mm(t: torch.Tensor, w) -> torch.Tensor:
+def _expert_mm(t: torch.Tensor, w, mx: Optional[QuantPolicy] = None,
+               fake_quant: bool = False) -> torch.Tensor:
     """Per-expert matmuls t (E, R, K) @ w (E, K, N) -> (E, R, N) in t's
     dtype.  An ``MXWeight`` stack: one dequant x matmul launch per expert
     over its rows ``t[i]`` (a contiguous slice) and its weight
     ``w.take(i)`` (views of the stack); an fp stack: one batched matmul
-    (f32 accumulate)."""
+    (f32 accumulate), under ``fake_quant`` over the stack fake-quantized
+    along K (axis 1) by the ``weights`` role, as the reference's."""
     if isinstance(w, MXWeight):
         return torch.stack([mx_matmul_resident(t[i], w.take(i))
                             for i in range(t.shape[0])]).to(t.dtype)
+    if fake_quant and mx is not None and mx.weights is not None:
+        w = fake_quantize(w, mx.weights, axis=1)
     return torch.matmul(t, w.to(t.dtype))
 
 
-def moe(p: Params, x: torch.Tensor,
-        cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+        fake_quant: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-factor top-k MoE over x (B, S, d); returns (out, aux) —
     the reference's function (ref layers.py:898-985).
 
@@ -647,8 +673,11 @@ def moe(p: Params, x: torch.Tensor,
     reaches its whole group there as here).  The dispatched tokens lie
     expert-major, (E, g * cap, d), so expert i's rows are one contiguous
     slice for its matmuls.  Shared experts run through ``mlp``; ``aux``
-    is the Switch load-balance loss.  Nothing here waits for the host,
-    so the layer captures into a decode graph."""
+    is the Switch load-balance loss.  Under ``fake_quant`` the
+    ``activations`` role fake-quantizes the dispatched expert inputs and
+    the hidden layer (along their last axis) and the ``weights`` role
+    the fp expert stacks.  Nothing here waits for the host, so the layer
+    captures into a decode graph."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_topk
     g, gs, cap = moe_groups(b * s, cfg)
@@ -667,14 +696,21 @@ def moe(p: Params, x: torch.Tensor,
     comb = torch.einsum("gsk,gskec->gsec", topw.to(x.dtype), capoh)
     xe = torch.einsum("gsec,gsd->egcd", disp, xt).contiguous()
     xe = xe.reshape(e, g * cap, d)
-    we = p["experts"]
-    h = _expert_mm(xe, we["w1"])
-    gte = _expert_mm(xe, we["w3"])
-    h = F.silu(h.to(torch.float32)).to(x.dtype) * gte
-    ye = _expert_mm(h, we["w2"]).reshape(e, g, cap, d)
+    we, mx = p["experts"], cfg.mx
+
+    def act_q(t):
+        if fake_quant and mx.activations is not None:
+            return fake_quantize(t, mx.activations, axis=-1).to(t.dtype)
+        return t
+
+    xe = act_q(xe)
+    h = _expert_mm(xe, we["w1"], mx, fake_quant)
+    gte = _expert_mm(xe, we["w3"], mx, fake_quant)
+    h = act_q(F.silu(h.to(torch.float32)).to(x.dtype) * gte)
+    ye = _expert_mm(h, we["w2"], mx, fake_quant).reshape(e, g, cap, d)
     out = torch.einsum("gsec,egcd->gsd", comb, ye).reshape(b, s, d)
     if cfg.n_shared_experts:
-        out = out + mlp(p["shared"], x, cfg)
+        out = out + mlp(p["shared"], x, cfg, fake_quant)
     # load-balance aux loss (Switch): e * sum_e f_e * P_e / k
     f_e = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
     p_e = torch.mean(probs, dim=(0, 1))

@@ -44,8 +44,10 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 _F32_KEYS = frozenset({"router"})
 
 
-def _leaf(leaf, i, cfg: ModelConfig, device, key: str = ""):
-    """Layer ``i``'s slice of one stacked leaf (``i`` None: unstacked)."""
+def _leaf(leaf, i, cfg: ModelConfig, device, key: str = "", dtype=None):
+    """Layer ``i``'s slice of one stacked leaf (``i`` None: unstacked); an
+    fp leaf in ``dtype`` when given, else in the config's dtype (f32 for
+    the router)."""
     if _is_mx(leaf):
         codes, scales = leaf["codes"], leaf["scales"]
         if i is not None:
@@ -57,17 +59,21 @@ def _leaf(leaf, i, cfg: ModelConfig, device, key: str = ""):
                         packed=bool(leaf["packed"]), k=int(leaf["k"]),
                         n=int(leaf["n"]))
     if isinstance(leaf, dict):
-        return {k: _leaf(v, i, cfg, device, k) for k, v in leaf.items()}
+        return {k: _leaf(v, i, cfg, device, k, dtype)
+                for k, v in leaf.items()}
     arr = np.asarray(leaf)
-    dtype = torch.float32 if key in _F32_KEYS else cfg.torch_dtype
+    if dtype is None:
+        dtype = torch.float32 if key in _F32_KEYS else cfg.torch_dtype
     return _tensor(arr if i is None else arr[i], dtype, device)
 
 
 def from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", dtype=None) -> Dict[str, Any]:
     """The reference's params (numpy leaves; ``dense_layers`` then the
     stacked ``layers``) -> the port's params (one per-layer list) on
-    ``device`` (the card unless the caller asks for ``"cpu"``)."""
+    ``device`` (the card unless the caller asks for ``"cpu"``); every fp
+    leaf in ``dtype`` when given (a gradient or optimizer-state tree of
+    the params' structure), else as the config stores it."""
     device = torch.device(device)
     dense = tree.get("dense_layers", [])
     stack = tree["layers"]
@@ -79,13 +85,22 @@ def from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         raise ValueError(f"params hold {len(dense)} dense + {n} stacked "
                          f"layers, config says {cfg.n_dense_layers} dense "
                          f"of {cfg.n_layers}")
-    out = {k: _leaf(tree[k], None, cfg, device)
+    out = {k: _leaf(tree[k], None, cfg, device, dtype=dtype)
            for k in ("embed", "norm_f", "lm_head") if k in tree}
-    out["layers"] = [_leaf(lp, None, cfg, device) for lp in dense] + (
-        [_leaf(lp, None, cfg, device) for lp in stack]
+    out["layers"] = [_leaf(lp, None, cfg, device, dtype=dtype)
+                     for lp in dense] + (
+        [_leaf(lp, None, cfg, device, dtype=dtype) for lp in stack]
         if isinstance(stack, (list, tuple))
-        else [_leaf(stack, i, cfg, device) for i in range(n)])
+        else [_leaf(stack, i, cfg, device, dtype=dtype) for i in range(n)])
     return out
+
+
+def opt_state_from_numpy(state: Dict[str, Any], cfg: ModelConfig,
+                         device="cuda") -> Dict[str, Any]:
+    """The reference's AdamW state (``master``, ``m``, ``v``, each a
+    numpy tree of the params' structure) -> the port's, all f32."""
+    return {k: from_numpy(state[k], cfg, device, dtype=torch.float32)
+            for k in ("master", "m", "v")}
 
 
 def _first_leaves(t):

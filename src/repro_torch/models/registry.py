@@ -24,6 +24,12 @@ NOT_PORTED = {
     "seamless_m4t_medium": "A10 (the encoder-decoder family)",
 }
 
+# batch inputs of the reference's other families
+_UNPORTED_INPUTS = {
+    "prefix_embeds": "A3 (the patch frontend and prefix_embeds)",
+    "frames": "A10 (the encoder-decoder family)",
+}
+
 
 def _config_module(arch: str):
     arch = arch.replace("-", "_").replace(".", "p")
@@ -74,8 +80,18 @@ class Model:
         return decoder.init_paged_cache(self.cfg, num_pages, page_size,
                                         self.device)
 
-    def forward(self, params, tokens):
-        return decoder.forward(params, tokens, self.cfg)
+    def forward(self, params, batch, *, fake_quant: bool = False):
+        """Training forward (the reference's): ``batch["tokens"]`` (B, S)
+        -> (logits (B, S, Vp) f32, MoE aux loss); see decoder.forward.
+        A batch of another family's inputs raises, naming the ROADMAP
+        item that ports it."""
+        for key, item in _UNPORTED_INPUTS.items():
+            if key in batch:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: batch input {key!r} needs ROADMAP "
+                    f"item {item}; the port trains the GQA decoder family")
+        return decoder.forward(params, batch["tokens"], self.cfg,
+                               fake_quant=fake_quant)
 
     def forward_calib(self, params, tokens):
         """Instrumented forward for ``repro_torch.calib``: (logits, aux,

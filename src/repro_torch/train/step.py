@@ -1,0 +1,139 @@
+"""The train step (mirrors src/repro/train/step.py's ``build_train_step``).
+
+``build_train_step(model, opt_cfg, microbatches=, fake_quant=)`` returns
+``train_step(params, opt_state, batch, step) -> (params, opt_state,
+metrics)``: the LM loss (cross-entropy + 0.01 x the MoE aux loss), its
+gradient by autograd over the param leaves, microbatches accumulated in
+f32 and averaged as the reference's ``scan`` does, then one AdamW
+update.  A leaf that the loss reaches only through a fake quantizer has
+no gradient (``None``; ROADMAP C9) and is updated as a zero gradient.
+
+Each step runs under ``deterministic()``: ``torch.use_deterministic_
+algorithms(True)`` (the embedding gather's backward accumulates by a
+sort, not by atomics), so a step on the same inputs gives the same bits
+and a resumed run the uninterrupted run's.  On the card that needs
+cuBLAS's fixed workspace, ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the
+environment before the process first uses cuBLAS; the training entry
+points set it.  The reference's multi-device
+``build_train_step_compressed_dp`` waits for ROADMAP A11.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.tree import leaves, tree_map, unflatten_like
+
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Mean CE over valid positions (labels in [0, vocab); -1 = masked), in
+    f32; the log-partition runs over every (padded-vocab) column, and a
+    padded column is never a valid label."""
+    logits = logits.to(torch.float32)
+    labels = labels.to(torch.int64)
+    valid = (labels >= 0) & (labels < vocab)
+    labs = torch.clamp(labels, 0, vocab - 1)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labs[..., None])[..., 0]
+    ce = (logz - gold) * valid
+    return torch.sum(ce) / torch.clamp(torch.sum(valid), min=1)
+
+
+def _loss_fn(model, params, batch, *, fake_quant: bool,
+             aux_weight: float = 0.01):
+    logits, aux = model.forward(params, batch, fake_quant=fake_quant)
+    labels = batch["labels"]
+    # the forward emits one logit per input position; labels are already
+    # next-token-shifted by the pipeline
+    s = min(logits.shape[1], labels.shape[1])
+    ce = cross_entropy(logits[:, :s], labels[:, :s], model.cfg.vocab)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms on for the block (restored after)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+def _check_cublas(device: torch.device) -> None:
+    if device.type == "cuda" and os.environ.get(
+            "CUBLAS_WORKSPACE_CONFIG") not in (CUBLAS_WORKSPACE, ":16:8"):
+        raise RuntimeError(
+            "a deterministic train step on the card needs cuBLAS's fixed "
+            f"workspace: set CUBLAS_WORKSPACE_CONFIG={CUBLAS_WORKSPACE} "
+            "before the process first uses cuBLAS")
+
+
+def _grads_of(model, params, batch, fake_quant: bool):
+    """(loss, {"ce", "aux"}, grads): grads a tree of the params' structure,
+    each leaf the gradient in its param's dtype or None where the loss
+    does not reach it."""
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    p = unflatten_like(params, flat)
+    with torch.enable_grad():
+        loss, met = _loss_fn(model, p, batch, fake_quant=fake_quant)
+        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+    met = {k: v.detach() for k, v in met.items()}
+    return loss.detach(), met, unflatten_like(params, list(gs))
+
+
+def build_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
+                     fake_quant: bool = False) -> Callable:
+    """Returns train_step(params, opt_state, batch, step) -> (params,
+    opt_state, metrics); metrics hold ``loss``, ``ce``, ``aux`` (the last
+    microbatch's), ``grad_norm`` and ``lr`` as 0-dim f32 tensors.  The
+    step updates ``params`` and ``opt_state`` in place and returns them,
+    as the reference's donating step does."""
+    param_dtype = model.cfg.torch_param_dtype
+    _check_cublas(model.device)
+
+    def train_step(params, opt_state, batch, step):
+        with deterministic():
+            if microbatches == 1:
+                loss, met, grads = _grads_of(model, params, batch,
+                                             fake_quant)
+            else:
+                grads, loss = None, 0.0
+                for j in range(microbatches):
+                    mb = {k: v.reshape((microbatches, v.shape[0]
+                                        // microbatches) + v.shape[1:])[j]
+                          for k, v in batch.items()}
+                    l_j, met, g = _grads_of(model, params, mb, fake_quant)
+                    if grads is None:
+                        grads = tree_map(
+                            lambda g, p: None if g is None else torch.zeros(
+                                p.shape, dtype=torch.float32,
+                                device=p.device), g, params)
+                    grads = tree_map(
+                        lambda a, b: None if b is None
+                        else a + b.to(torch.float32), grads, g)
+                    loss = loss + l_j
+                grads = tree_map(lambda g: None if g is None
+                                 else g / microbatches, grads)
+                loss = loss / microbatches
+            new_params, new_opt, omet = adamw_update(
+                opt_cfg, grads, opt_state, step, param_dtype, params)
+        return new_params, new_opt, {"loss": loss, **met, **omet}
+
+    return train_step
+
+
+def init_train_state(model, seed: int = 0) -> Tuple[Dict[str, Any], Any]:
+    """Random params (``model.init``, on the model's device) and their
+    AdamW state."""
+    params = model.init(seed=seed)
+    return params, adamw_init(params)

@@ -143,7 +143,8 @@ def test_forward_logits_agree(monkeypatch, arch, policy):
     tokens = np.random.default_rng(0).integers(
         0, tcfg.vocab, size=(2, 32)).astype(np.int32)
     jlog, _ = jm.forward(jp, {"tokens": tokens})
-    tlog = TModel(tcfg, "cpu").forward(tp, torch.from_numpy(tokens))
+    tlog, _ = TModel(tcfg, "cpu").forward(
+        tp, {"tokens": torch.from_numpy(tokens)})
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
                                atol=LOGITS_TOL, rtol=0)
 

@@ -6,6 +6,8 @@ jax nor the JAX package, so it also runs on a machine without them:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,9 @@ FMTS = [f.name for f in ALL_FORMATS]
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    # the deterministic train step needs cuBLAS's fixed workspace, set
+    # before the first test's cuBLAS call (repro_torch.train.step)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -1486,3 +1491,143 @@ def test_tensor_reduction_on_card_matches_cpu(dev, shape):
     np.testing.assert_array_equal(card.sample, cpu.sample)
     np.testing.assert_allclose(card.total, cpu.total, rtol=1e-5)
     np.testing.assert_allclose(card.sumsq, cpu.sumsq, rtol=1e-5)
+
+
+TRAIN_QUANT = "weights=e4m3@32:ocp,activations=e4m3@32:ocp"
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e2m1", "e2m3", "int8"])
+def test_fake_quant_route_matches_plain_round_trip(dev, fmt):
+    """QAT fake quantization on the card (``ops.fake_quantize``: the
+    converter kernel, then the port's dequantize) against the plain round
+    trip (``core.convert``, on the CPU) at every weight shape of a
+    chatglm3-6b layer along K: values bit for bit (NaN and Inf blocks
+    included), and one converter launch per call."""
+    from repro_torch.core import convert
+    from repro_torch.kernels.ops import fake_quantize
+    rng = np.random.default_rng(5)
+    spec = QuantSpec(fmt, "ocp")
+    for k, n in ((4096, 4096), (4096, 256), (4096, 13696), (13696, 4096)):
+        w = rng.normal(size=(k, n)).astype(np.float32) * 0.016
+        w[3, 9], w[40, 1], w[99, 2] = np.nan, np.inf, -np.inf
+        w = torch.from_numpy(w)
+        before = mx_quantize_2d.launches
+        got = fake_quantize(w.to(dev), spec, axis=0)
+        assert mx_quantize_2d.launches == before + 1
+        want = convert.quantize_dequantize(w, spec, axis=0)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+def _reduced_train(device, quant=TRAIN_QUANT, remat=True):
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.models import Model, load_reduced
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.tree import tree_map
+    cfg = load_reduced("chatglm3_6b", mx=QuantPolicy.parse(quant),
+                       attn_impl="flash", remat=remat)
+    params, _ = init_train_state(Model(cfg, "cpu"), seed=0)
+    params = tree_map(lambda t: t.to(device), params)
+    model = Model(cfg, device)
+    step = build_train_step(model, AdamWConfig(lr=2e-3, warmup_steps=1,
+                                               total_steps=3),
+                            fake_quant=quant != "none")
+    return model, params, adamw_init(params), step
+
+
+def test_reduced_qat_on_card_matches_cpu(dev):
+    """Three QAT steps (weights + activations, remat on) of the reduced
+    chatglm3-6b (f32) from the same params on the card and on the CPU:
+    losses and grad norms within rtol 1e-4, masters within the
+    reference's rtol 2e-3, atol 2e-5 (f32 sums in other orders)."""
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_for
+    from repro_torch.tree import leaves
+    runs = []
+    for device in (dev, "cpu"):
+        model, params, opt, step = _reduced_train(device)
+        data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=32,
+                                      global_batch=8, seed=3))
+        mets = []
+        for i in range(3):
+            params, opt, met = step(params, opt, make_batch_for(
+                model.cfg, data.batch(i), device=device), i)
+            mets.append((float(met["loss"]), float(met["grad_norm"])))
+        runs.append((mets, [t.cpu() for t in leaves(opt["master"])]))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-4)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-4),
+                                        ("bfloat16", 3e-2)])
+def test_train_grads_on_card_match_cpu(dev, dtype, rtol):
+    """Every leaf's gradient (``_grads_of``) and, after one step from zero
+    moments, its ``m`` on the card against the CPU, reduced chatglm3-6b
+    with no quant and remat on, within ``rtol`` in relative L2 norm, and
+    loss and grad norm within it.  f32: sums in other orders.  bf16: each
+    product rounds its output to bf16 on both devices where the f32 sums
+    before it differ, and the card's LM head (``_HeadMM``) rounds the
+    logits' gradient to bf16 (ROADMAP C10): a few ulps of bf16."""
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_for
+    from repro_torch.models import Model, load_reduced
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import build_train_step
+    from repro_torch.train.step import _grads_of
+    from repro_torch.tree import leaves, tree_map
+    cfg = load_reduced("chatglm3_6b", mx=QuantPolicy.parse("none"),
+                       attn_impl="flash", remat=True, dtype=dtype,
+                       param_dtype=dtype)
+    start = Model(cfg, "cpu").init(seed=0)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=8, seed=3))
+    runs = []
+    for device in (dev, "cpu"):
+        model = Model(cfg, device)
+        params = tree_map(lambda t: t.to(device, copy=True), start)
+        batch = make_batch_for(cfg, data.batch(0), device=device)
+        loss, _, grads = _grads_of(model, params, batch, False)
+        step = build_train_step(model, AdamWConfig(lr=2e-3, warmup_steps=1,
+                                                   total_steps=3))
+        _, opt, met = step(params, adamw_init(params), batch, 0)
+        runs.append(([float(loss), float(met["loss"]),
+                      float(met["grad_norm"])],
+                     [g.cpu().float() for g in leaves(grads)],
+                     [m.cpu() for m in leaves(opt["m"])]))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=rtol)
+    for k in (1, 2):
+        for a, b in zip(runs[0][k], runs[1][k]):
+            assert float((a - b).norm()) <= rtol * float(b.norm())
+
+
+def test_train_resume_on_card_is_bit_identical(dev, tmp_path):
+    """Six steps of weights-only QAT through ``train_loop`` on the card
+    (flash, remat, the converter in each forward and recompute), and a
+    run cut at a checkpoint at step 3 and resumed in a fresh state:
+    params and the AdamW state equal bit for bit."""
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_for
+    from repro_torch.train import LoopConfig, train_loop
+    from repro_torch.tree import leaves
+    quant = "weights=e4m3@32:ocp"
+    model, _, _, step = _reduced_train(dev, quant)
+    data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=32,
+                                  global_batch=8, seed=3))
+
+    def run(total, d, every):
+        _, p, o, _ = _reduced_train(dev, quant)
+        return train_loop(LoopConfig(total_steps=total, ckpt_dir=str(d),
+                                     ckpt_every=every, log_every=100),
+                          step, p, o, lambda i: make_batch_for(
+                              model.cfg, data.batch(i), device=dev),
+                          log=lambda *_: None)
+
+    a = run(6, tmp_path / "a", 0)
+    run(3, tmp_path / "b", 3)
+    b = run(6, tmp_path / "b", 0)
+    assert [h["loss"] for h in b["history"]] == [
+        h["loss"] for h in a["history"]][3:]
+    for x, y in zip(leaves({"p": a["params"], "o": a["opt"]}),
+                    leaves({"p": b["params"], "o": b["opt"]})):
+        assert torch.equal(x, y)

@@ -73,3 +73,26 @@ def test_every_arch_config_is_scanned():
     scanned = set(_modules())
     assert {f"repro_torch.configs.{a}" for a in archs} <= scanned
     assert "repro_torch.models.layers" in scanned
+
+
+def test_training_modules_are_scanned():
+    """The training path's modules (optimizer, train step and loop,
+    checkpoints, data pipeline, launcher, tree helpers) are modules of
+    the package, so the two scans above cover them, and importing them
+    in a fresh interpreter loads no jax or reference module."""
+    mods = ["repro_torch.optim.adamw", "repro_torch.train.step",
+            "repro_torch.train.loop", "repro_torch.ckpt.checkpoint",
+            "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.tree"]
+    assert set(mods) <= set(_modules())
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, cwd=str(ROOT))
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -303,7 +303,7 @@ def test_fp_kv_prefill_logits_match(einsum_matmul):
                                np.asarray(jcache["layers"]["k"]), atol=1e-5,
                                rtol=1e-5)
     np.testing.assert_allclose(
-        tdec.forward(tp, torch.from_numpy(tokens), tcfg).numpy(),
+        tdec.forward(tp, torch.from_numpy(tokens), tcfg)[0].numpy(),
         np.asarray(jlog), atol=1e-4, rtol=0)
 
 
@@ -477,7 +477,7 @@ def test_attn_impl_routes_match_reference(einsum_matmul, attn_impl):
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
                                rtol=0)
     np.testing.assert_allclose(
-        tdec.forward(tp, torch.from_numpy(tokens), tcfg).numpy(),
+        tdec.forward(tp, torch.from_numpy(tokens), tcfg)[0].numpy(),
         np.asarray(jlog), atol=1e-4, rtol=0)
     jcfg, tcfg, jp, tp = _pair(POLICY, attn_impl)
     cache = _random_cache(jcfg)

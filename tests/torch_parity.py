@@ -20,3 +20,22 @@ def params_to_numpy(tree):
     if isinstance(tree, (list, tuple)):       # an MoE config's dense_layers
         return [params_to_numpy(v) for v in tree]
     return np.asarray(tree)
+
+
+def random_moments(opt_state, seed: int = 0, scale: float = 1e-2):
+    """A reference AdamW state whose ``m`` and ``v`` are random (``v``
+    positive), ``master`` kept: a step from it is set by the moments, not
+    by the sign of gradient elements that sit at the two frameworks'
+    rounding noise (as a first step from zero moments is)."""
+    import jax
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+
+    ms = jax.tree_util.tree_map(
+        lambda x: rng.normal(size=x.shape).astype(np.float32) * scale,
+        opt_state["m"])
+    # |m| / sqrt(v) <= 1, as after steps of a steady gradient
+    vs = jax.tree_util.tree_map(lambda m: (np.abs(m) + scale) ** 2, ms)
+    return {"master": opt_state["master"],
+            "m": jax.tree_util.tree_map(jnp.asarray, ms),
+            "v": jax.tree_util.tree_map(jnp.asarray, vs)}
