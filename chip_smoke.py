@@ -1479,6 +1479,203 @@ def check_family_shapes(torch, flush):
             **attn}
 
 
+# the other families' new kernel shapes (serve_families): internvl2-76b's
+# w1 / w3, and MLA's compressed cache rows (c_kv 512, k_rope 64)
+INTERNVL_W1 = (8192, 28672)
+MLA_ROWS = {"c_kv": 512, "k_rope": 64}
+
+
+def check_other_family_shapes(torch, flush):
+    """The kernels at the shapes the other families give them: B4 at D 64
+    with zamba2-1.2b's heads (32 over 32) and seamless-m4t-medium's (16
+    over 16), bf16 q, INT8 K / E2M1 V, against the plain version and
+    timed beside SDPA; B2 at internvl2-76b's w1 (K 8192, N 28672) at M 8;
+    the converter on MLA's c_kv and k_rope rows (one decode step of 8,
+    and a prefill of 8 x 512) bit for bit against the plain converter,
+    timed; the fused contiguous KV write and flash attention at the
+    heads of zamba2, seamless and internvl2.  Rows keyed by the kernels
+    line's names."""
+    from repro_torch.core.mx_weight import MXWeight
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_decode_attn import mx_decode_attention
+    from repro_torch.kernels.mx_matmul import mx_matmul_2d
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    kv = "int8@32:ocp/e2m1@32:ocp"
+    kspec, vspec = (QuantSpec.parse(x) for x in kv.split("/"))
+    rows = {"mx_decode_attention": [], "mx_matmul_2d": [],
+            "mx_quantize_2d": []}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    b, s, d = 8, 576, 64
+    for hq in (32, 16):
+        kw = dict(key_spec=kspec, value_spec=vspec, rep=1)
+        cache = []
+        for spec in (kspec, vspec):
+            x = torch.randn(b * s * hq, d, generator=gen, device="cuda")
+            c, sc = mx_quantize_2d(x, spec)
+            cache += [c.reshape(b, s, hq, d), sc.reshape(b, s, hq, d // 32)]
+        q32 = torch.randn(b, 1, hq, d, generator=gen, device="cuda")
+        for q in (q32.to(torch.bfloat16), q32):
+            for pos in (0, 63, 543, 575):
+                lengths = torch.full((b,), pos, dtype=torch.int32,
+                                     device="cuda")
+                _attn_check(torch, mx_decode_attention(q, *cache, pos, **kw),
+                            ref.mx_decode_attention_ref(q, *cache, lengths,
+                                                        **kw), worst)
+        rows["mx_decode_attention"].append(_time_decode_attention(
+            torch, flush, q32.to(torch.bfloat16), cache, kw, kv, 543, s,
+            mx_decode_attention, ref))
+    for r in rows["mx_decode_attention"]:
+        r["max_abs_err"] = worst[torch.bfloat16]
+    emit("check", kernel="mx_decode_attention",
+         what="D 64: Hq 32 / Hkv 32 and 16 / 16", compared=16,
+         max_abs_err_bf16=worst[torch.bfloat16],
+         max_abs_err_f32=worst[torch.float32],
+         criterion=f"f32 within {ATTN_TOL_F32}; bf16 within torch's bf16 "
+                   f"defaults")
+    k, n = INTERNVL_W1
+    spec = QuantSpec.parse("e4m3@32:ocp")
+    w = (torch.randn(k, n, generator=gen, device="cuda")
+         / math.sqrt(k)).to(torch.bfloat16)
+    mw = MXWeight.quantize(w, spec)
+    del w
+    a = torch.randn(8, k, generator=gen, device="cuda").to(torch.bfloat16)
+    rows["mx_matmul_2d"].append(_matmul_row(
+        torch, ref, mx_matmul_2d, a, mw, mw.codes, spec,
+        "internvl2-76b w1/w3", flush))
+    del mw
+    spec = QuantSpec.parse("int8@32:ocp")
+    for name, width in MLA_ROWS.items():
+        for m in (8, 8 * 512):
+            x = torch.randn(m, width, generator=gen, device="cuda") * 0.5
+            c, sc = mx_quantize_2d(x, spec)
+            rc, rs = ref.mx_quantize_2d_ref(x, spec)
+            if not (torch.equal(c, rc) and torch.equal(sc, rs)):
+                raise AssertionError(f"converter on MLA {name} rows ({m} x "
+                                     f"{width}): kernel differs from the "
+                                     f"plain version")
+            nel = x.numel()
+            tb, by = bound(nel * (4 + 1 + 1 / 32),
+                           nel * CONVERTER_OPS_PER_ELEMENT,
+                           F32_CUDA_CORE_FLOPS)
+            row = dict(kernel="mx_quantize_2d",
+                       shape=f"MLA {name} cache write, {m} x {width}",
+                       spec=str(spec), max_abs_err=0.0,
+                       ms=time_ms(torch, lambda: mx_quantize_2d(x, spec),
+                                  flush=flush),
+                       graph_ms=graph_ms(torch, lambda: mx_quantize_2d(
+                           x, spec), flush=flush),
+                       plain_ms=time_ms(torch, lambda: ref.mx_quantize_2d_ref(
+                           x, spec), flush=flush),
+                       bound_ms=tb, bound_by=by, library_ms=None)
+            emit("time", **row)
+            rows["mx_quantize_2d"].append(row)
+    emit("check", kernel="mx_quantize_2d", what="MLA c_kv / k_rope rows",
+         compared=4, criterion="bit-identical codes and scales")
+    rows["mx_kv_write"] = _other_kv_write_rows(torch, flush, gen, kspec,
+                                               vspec)
+    rows["flash_attention"] = _other_flash_rows(torch, flush, gen)
+    return rows
+
+
+# (Hq, Hkv, D) of the other families' attention: zamba2's shared block,
+# seamless's decoder, internvl2's layers
+OTHER_HEADS = {"zamba2-1.2b": (32, 32, 64), "seamless-m4t-medium":
+               (16, 16, 64), "internvl2-76b": (64, 8, 128)}
+
+
+def _other_kv_write_rows(torch, flush, gen, kspec, vspec):
+    """The fused contiguous KV write of one decode step (8 rows, bf16,
+    INT8 K / E2M1 V, one code per byte) at the other families' heads,
+    at a host and a device position, bit for bit against its plain
+    version, timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_kv_write import mx_cache_kv_write
+    b, s, pos = 8, 576, 543
+    rows = []
+    for name, (_, hkv, d) in OTHER_HEADS.items():
+        cache = {n: torch.randint(0, 256, (b, s, hkv, w), generator=gen,
+                                  device="cuda", dtype=torch.uint8)
+                 for n, w in (("k_codes", d), ("k_scales", d // 32),
+                              ("v_codes", d), ("v_scales", d // 32))}
+        k, v = (_kv_rand(torch, gen, (b, 1, hkv, d), torch.bfloat16, False)
+                for _ in range(2))
+        plain = {n: t.clone() for n, t in cache.items()}
+        ref.mx_cache_kv_write_ref(plain, k, v, pos, kspec, vspec)
+        pos_d = torch.tensor([pos], dtype=torch.int32, device="cuda")
+        for at in (pos, pos_d):
+            mx_cache_kv_write(cache, k, v, at, kspec, vspec)
+            if not all(torch.equal(cache[n], plain[n]) for n in cache):
+                raise AssertionError(f"mx_cache_kv_write at {name}'s heads: "
+                                     f"the cache differs from the plain "
+                                     f"version")
+        nbytes = 2 * k.numel() * 2 + 2 * b * hkv * (d + d // 32)
+        tb, by = bound(nbytes, 2 * k.numel() * CONVERTER_OPS_PER_ELEMENT,
+                       F32_CUDA_CORE_FLOPS)
+
+        def write():
+            return mx_cache_kv_write(cache, k, v, pos_d, kspec, vspec)
+
+        row = dict(kernel="mx_kv_write",
+                   shape=f"contiguous decode write ({name}): 8 rows, Hkv "
+                         f"{hkv}, D {d}, bf16",
+                   spec="int8@32:ocp/e2m1@32:ocp", max_abs_err=0.0,
+                   ms=time_ms(torch, write, flush=flush),
+                   graph_ms=graph_ms(torch, write, flush=flush),
+                   plain_ms=time_ms(torch, lambda: ref.mx_cache_kv_write_ref(
+                       plain, k, v, pos, kspec, vspec), flush=flush),
+                   bound_ms=tb, bound_by=by, library_ms=None)
+        emit("time", **row)
+        rows.append(row)
+    emit("check", kernel="mx_kv_write", what="the other families' heads",
+         compared=6, criterion="bit-identical cache bytes, host and device "
+                               "position")
+    return rows
+
+
+def _other_flash_rows(torch, flush, gen):
+    """Flash attention of a bf16-KV prefill (8 x 512 positions, causal,
+    bf16) at the other families' heads, against its plain version within
+    the bf16 tolerance, timed beside SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention
+    b, s = 8, 512
+    rows, worst = [], 0.0
+    for name, (h, hkv, d) in OTHER_HEADS.items():
+        q, k, v = (torch.randn(b, s, nh, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for nh in (h, hkv, hkv))
+        got = flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v, True)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=FLASH_TOL_BF16, atol=FLASH_TOL_BF16)
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        tb, by = bound(nbytes, 4.0 * b * h * s * (s + 1) / 2 * d, BF16_FLOPS)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row = dict(kernel="flash_attention",
+                   shape=f"8 x 512 tokens, causal ({name}): H {h}, Hkv "
+                         f"{hkv}, D {d}", spec="bfloat16", max_abs_err=err,
+                   ms=time_ms(torch, lambda: flash_attention(q, k, v),
+                              flush=flush),
+                   plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
+                       q, k, v, True), flush=flush),
+                   library_ms=time_ms(torch, lambda: F
+                                      .scaled_dot_product_attention(
+                                          qt, kt, vt, is_causal=True,
+                                          enable_gqa=True), flush=flush),
+                   bound_ms=tb, bound_by=by)
+        emit("time", **row)
+        rows.append(row)
+    emit("check", kernel="flash_attention", what="the other families' "
+         "heads", compared=3, max_abs_err_bf16=worst,
+         criterion=f"|kernel - plain| <= tol + tol * |plain|, tol "
+                   f"{FLASH_TOL_BF16} (bf16)")
+    return rows
+
+
 # =============================================================================
 # phase 3: full-width serving
 # =============================================================================
@@ -3202,6 +3399,338 @@ def serve_yi(torch):
 
 
 # =============================================================================
+# serve_families: MLA, the patch frontend, the hybrid, RWKV6, enc-dec
+# =============================================================================
+KV_POLICY = "kv_key=int8@32:ocp,kv_value=e2m1@32:ocp"
+# (arch, depth overrides, weight-resident e4m3): published widths, depth
+# cut only where named
+SERVE_FAMILIES = (
+    ("deepseek_v2_236b", {"n_layers": 4}, False),   # layer 0 dense + 3 MoE
+    ("internvl2_76b", {"n_layers": 20}, True),
+    ("zamba2_1p2b", {}, False),
+    ("rwkv6_7b", {}, False),
+    ("seamless_m4t_medium", {}, False),
+)
+FAMILY_BATCH, FAMILY_POSITIONS, FAMILY_NEW = 8, 512, 32
+# the prediction written before the first run of serve_families: what one
+# replay of each config's captured decode step launches under the MX KV
+# cache (by wrapper); a prefill launches the same but for decode
+# attention.  internvl2: 7 B2, one fused KV write and one B4 per layer;
+# zamba2: one KV write and one B4 per site of its shared attention;
+# seamless: the same per decoder layer (cross-attention is plain);
+# deepseek-v2: the converter on c_kv and on k_rope per layer; rwkv: none
+FAMILY_STEP_LAUNCHES = {
+    "deepseek_v2_236b": {"mx_quantize_2d": 8},
+    "internvl2_76b": {"mx_matmul_2d": 140, "mx_cache_kv_write": 20,
+                      "mx_decode_attention": 20},
+    "zamba2_1p2b": {"mx_cache_kv_write": 19, "mx_decode_attention": 19},
+    "rwkv6_7b": {},
+    "seamless_m4t_medium": {"mx_cache_kv_write": 12,
+                            "mx_decode_attention": 12},
+}
+# flash launches per bf16-KV prefill: one per causal self-attention layer
+FAMILY_FLASH_PER_PREFILL = {"deepseek_v2_236b": 0, "internvl2_76b": 20,
+                            "zamba2_1p2b": 19, "seamless_m4t_medium": 12}
+# kernels line name of each wrapper
+WRAPPER_KERNEL = {"mx_quantize_2d": "mx_quantize_2d",
+                  "mx_matmul_2d": "mx_matmul_2d",
+                  "mx_cache_kv_write": "mx_kv_write",
+                  "mx_decode_attention": "mx_decode_attention",
+                  "flash_attention": "flash_attention"}
+CARD = ""       # nvidia-smi's name and power limit, set by main
+
+
+def _family_batch(cfg, b, positions, seed):
+    """The family's batch of ``positions`` per row: tokens; or the patch
+    frontend's prefix embeddings and the rest in tokens; or, for the
+    encoder-decoder, ``positions`` frames and as many decoder tokens."""
+    from repro_torch.models import make_concrete_batch
+    s = 2 * positions if cfg.family == "encdec" else positions
+    batch = make_concrete_batch(cfg, b, s, seed=seed)
+    batch.pop("labels")
+    return batch
+
+
+def _n_positions(batch) -> int:
+    pe = batch.get("prefix_embeds")
+    return batch["tokens"].shape[1] + (0 if pe is None else pe.shape[1])
+
+
+def _family_eager(torch, model, params, batch, new, max_len):
+    """The static decode loop, eagerly: prefill of the batch dict, then
+    ``decode_step`` at host positions with greedy sampling."""
+    import numpy as np
+    vocab = model.cfg.vocab
+    logits, cache, pos = model.prefill(params, batch, max_len=max_len)
+    tok = torch.argmax(logits[:, -1, :vocab], -1).to(torch.int32)
+    out = [tok]
+    del logits
+    for i in range(new - 1):
+        lg, cache = model.decode_step(params, tok, cache, pos + i)
+        tok = torch.argmax(lg[:, -1, :vocab], -1).to(torch.int32)
+        out.append(tok)
+    return np.asarray(torch.stack(out, dim=1).cpu())
+
+
+def _family_flips(torch, model, params, batch, got, want, tol=LOGITS_TOL):
+    """``_flips`` over a family's batch: row r's streams may differ only
+    from a step where the logits that chose the token (traced through
+    ``model`` on ``want``'s context, the row's frames or prefix kept)
+    have a top-2 gap below ``tol``."""
+    import numpy as np
+    vocab = model.cfg.vocab
+    flips = []
+    for r, (a, b) in enumerate(zip(got, want)):
+        a, b = list(a), list(b)
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        row = {k: v[r:r + 1] for k, v in batch.items()}
+        row["tokens"] = np.concatenate(
+            [row["tokens"], np.asarray([b[:i]], np.int32)], axis=1)
+        lg, _, _ = model.prefill(params, row,
+                                 max_len=_n_positions(row))
+        top2 = torch.topk(lg[0, -1, :vocab], 2).values
+        gap = float(top2[0] - top2[1])
+        if gap >= tol:
+            raise AssertionError(f"tokens differ at step {i} with a top-2 "
+                                 f"logit gap of {gap}")
+        flips.append({"row": r, "step": i, "top2_gap": gap})
+    return flips
+
+
+def _family_static(torch, arch, name, model, params, batch, per_step,
+                   prefill):
+    """One static run of a family: ``ServeEngine``'s first call captures
+    the decode step, the second, driven, replays it once per token; its
+    launches must be ``per_step`` x (new - 1) + ``prefill`` exactly, its
+    tokens the eager loop's, and one replay's launches are confirmed in
+    the graph and by the profiler.  Returns (tokens, launches by
+    kernel)."""
+    import numpy as np
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    cfg, new = model.cfg, FAMILY_NEW
+    max_len = _n_positions(batch) + new + 8
+    gen = GenerationConfig(max_new_tokens=new)
+    eng = ServeEngine(model, params, max_len=max_len)
+    eng.generate(batch, gen)                        # captures the step
+    out, launches, wall = _drive(torch, lambda: eng.generate(batch, gen))
+    path = f"{arch} static, {name}"
+    if eng.n_captures != 1:
+        raise AssertionError(f"{path}: captured {eng.n_captures} steps")
+    want = {}
+    for w, n in per_step.items():
+        k = WRAPPER_KERNEL[w]
+        want[k] = want.get(k, 0) + n * (new - 1)
+    for w, n in prefill.items():
+        k = WRAPPER_KERNEL[w]
+        want[k] = want.get(k, 0) + n
+    _check_launches(path, launches, want)
+    if out.shape != (FAMILY_BATCH, new) or out.min() < 0 \
+            or out.max() >= cfg.vocab:
+        raise AssertionError(f"{path}: bad output")
+    ph = eng.phase
+    emit("serve_families", path=path, config=cfg.name, kv=name,
+         layers=cfg.n_layers, batch=FAMILY_BATCH,
+         positions=_n_positions(batch), new_tokens=new, wall_s=wall,
+         prefill_s=ph["prefill"], decode_s=ph["decode"],
+         decode_tokens_per_s=FAMILY_BATCH * (new - 1) / ph["decode"],
+         step_wall_ms=ph["decode"] / (new - 1) * 1e3,
+         kv_cache_nbytes=eng.kv_cache_nbytes,
+         weight_pool_nbytes=eng.weight_pool_nbytes, launches=launches,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         card=CARD)
+    t0 = time.perf_counter()
+    eager = _family_eager(torch, model, params, batch, new, max_len)
+    eager_s = time.perf_counter() - t0
+    if not np.array_equal(out, eager):
+        raise AssertionError(f"{path}: graph and eager decode loops give "
+                             f"other tokens")
+    emit("graph_vs_eager", path=path, steps=new - 1, eager_s=eager_s,
+         graph_decode_s=ph["decode"], tokens=True)
+    graph = next(iter(eng._graphs.values()))
+    check_replay(torch, f"{path} decode step", graph.step, per_step)
+    del eng, graph
+    _free(torch)
+    return out, launches
+
+
+def _family_load(torch, arch, over, resident, **kw):
+    """Full-width ``arch`` (depth cut by ``over``) with random weights
+    from seed 0, under INT8 K / E2M1 V (and weight-resident e4m3 where
+    ``resident``), as a driven path: the converter's launches at load
+    are 7 per layer where resident, else 0."""
+    from repro_torch.launch.serve import build_model
+    quant = ("weights=e4m3@32:ocp," if resident else "") + KV_POLICY
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    (model, params), load, load_s = _drive(torch, lambda: build_model(
+        arch, reduced=False, quant=quant, weight_resident=resident,
+        device="cuda", seed=0, attn_impl="flash", **over, **kw))
+    cfg = model.cfg
+    _check_launches(f"{arch} load", load, {
+        "mx_quantize_2d": 7 * cfg.n_layers if resident else 0})
+    emit("serve_setup", config=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, family=cfg.family, policy=str(cfg.mx),
+         build_s=load_s, launches=load, weight_bytes=_weight_bytes(params),
+         device_mem_gib=torch.cuda.memory_allocated() / 2 ** 30, card=CARD)
+    return model, params
+
+
+def serve_families(torch):
+    """Each of the other families at its published width (depth cut only
+    where ``SERVE_FAMILIES`` names it), random weights from a seed,
+    through ``ServeEngine``: 8 rows of 512 positions (internvl2: 256 patch
+    embeddings + 256 tokens; seamless: 512 frames + 512 decoder tokens),
+    32 new tokens, greedy, over the MX KV cache (MLA's compressed cache
+    under ``kv_key``) and, where the family attends, over a bf16 cache
+    (flash prefill).  Each decode step is a replay of the captured graph,
+    with the eager loop's tokens and exactly the predicted launches; each
+    model is freed before the next loads.  Returns the launches of every
+    driven run by kernel."""
+    import dataclasses
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.models import Model
+    total = {}
+    for seed, (arch, over, resident) in enumerate(SERVE_FAMILIES):
+        model, params = _family_load(torch, arch, over, resident)
+        cfg = model.cfg
+        batch = _family_batch(cfg, FAMILY_BATCH, FAMILY_POSITIONS, 30 + seed)
+        step = FAMILY_STEP_LAUNCHES[arch]
+        runs = [("mx_kv", model, step,
+                 {w: n for w, n in step.items()
+                  if w != "mx_decode_attention"})]
+        if cfg.family != "rwkv":
+            fp = Model(dataclasses.replace(cfg, mx=QuantPolicy(
+                weights=cfg.mx.weights)), device=model.device)
+            b2 = {w: n for w, n in step.items() if w == "mx_matmul_2d"}
+            flash = FAMILY_FLASH_PER_PREFILL[arch]
+            runs.append(("bf16_kv", fp, b2, {
+                **b2, **({"flash_attention": flash} if flash else {})}))
+        for name, m, per_step, prefill in runs:
+            _, launches = _family_static(torch, arch, name, m, params,
+                                         batch, per_step, prefill)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+        emit("serve_families", path=f"{arch} peak memory", config=cfg.name,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             weight_bytes=_weight_bytes(params), card=CARD)
+        del params, model, runs
+        _free(torch)
+    return total
+
+
+def _byte_flips(torch, card_cache, cpu_cache):
+    """(differing, total) bytes of the MX code and scale leaves of two
+    caches of one layout (fp leaves left out)."""
+    from repro_torch.tree import leaves
+    diff = total = 0
+    for a, b in zip(leaves(card_cache), leaves(cpu_cache)):
+        if a.dtype == torch.uint8:
+            diff += int((a.cpu() != b).sum())
+            total += b.numel()
+    return diff, total
+
+
+def _dequantized_to_cpu(torch, params):
+    """``params`` on the CPU with every ``MXWeight`` dequantized once to
+    f32 on the card.  The CPU's plain MX matmul is exactly this: it
+    dequantizes the weight (the same f32 values) and multiplies in f32
+    (``ref.mx_matmul_2d_ref``), but once per call, which at internvl2's
+    widths is most of a CPU pass; the first weight's product is checked
+    bit for bit against the plain MX matmul on the card."""
+    from repro_torch.core.mx_weight import MXWeight
+    from repro_torch.kernels import ref
+    checked = []
+
+    def walk(t):
+        if isinstance(t, MXWeight):
+            w = t.dequantize()
+            if not checked:
+                x = torch.randn(4, t.k, device=w.device)
+                if not torch.equal(torch.matmul(x, w), ref.mx_matmul_2d_ref(
+                        x, t.unpacked_codes(), t.scales, t.spec)):
+                    raise AssertionError("a dequantized weight's product "
+                                         "differs from the plain MX matmul")
+                checked.append(True)
+            return w.cpu()
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return t.cpu()
+
+    return walk(params)
+
+
+def families_card_vs_cpu(torch):
+    """Two full-width f32 layers of each family (deepseek-v2: the dense
+    layer and one MoE layer of 160 experts; seamless: one encoder and one
+    decoder layer; zamba2: one site of the shared attention block before
+    two Mamba2 blocks; internvl2 weight-resident e4m3), on the card and on
+    the CPU, on a short batch of 2 rows: 16 positions for deepseek-v2 (its
+    MoE layer's CPU side reads 15 GB a pass), 64 elsewhere (internvl2:
+    its 256 patch embeddings and 2 tokens; seamless: 64 frames and 64
+    tokens; weight-resident weights reach the CPU dequantized,
+    ``_dequantized_to_cpu``).  Prefill logits within LOGITS_TOL over an
+    f32 KV cache;
+    under INT8 K / E2M1 V the caches' code and scale bytes equal but for
+    at most 1 in 1000 (an element at a rounding boundary takes the
+    neighbouring code on one device), and the logits within LOGITS_TOL
+    unless such a flip happened; ``ServeEngine``'s greedy tokens under
+    the MX cache equal (a flip only at a top-2 gap below LOGITS_TOL)."""
+    import dataclasses
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.models import Model
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    for seed, (arch, _, resident) in enumerate(SERVE_FAMILIES):
+        t0 = time.perf_counter()
+        over = {"n_layers": 2}
+        if arch == "seamless_m4t_medium":
+            over.update(n_enc_layers=1, n_dec_layers=1)
+        model, params = _family_load(torch, arch, over, resident,
+                                     dtype="float32")
+        cfg = model.cfg
+        cpu_model = Model(cfg, device="cpu")
+        cpu_params = _dequantized_to_cpu(torch, params)
+        fp_cfg = dataclasses.replace(cfg, mx=QuantPolicy(
+            weights=cfg.mx.weights))
+        positions = 16 if cfg.n_experts else 64
+        batch = _family_batch(cfg, 2, positions, 40 + seed)
+        row = {k: v[:1] for k, v in batch.items()}
+        max_len = _n_positions(row)
+        vocab = cfg.vocab
+        logits = {}
+        kvs = (("fp", Model(fp_cfg, model.device), Model(fp_cfg, "cpu")),
+               ("mx", model, cpu_model))
+        for kv, card, cpu in kvs[:1 if cfg.family == "rwkv" else 2]:
+            lg, cg, _ = card.prefill(params, row, max_len=max_len)
+            lc, cc, _ = cpu.prefill(cpu_params, row, max_len=max_len)
+            err = float((lg.cpu()[..., :vocab] - lc[..., :vocab])
+                        .abs().max())
+            diff, total = _byte_flips(torch, cg, cc)
+            logits[kv] = dict(max_abs_err=err, flipped_bytes=diff,
+                              cache_bytes=total)
+            if diff > total // 1000 or (err > LOGITS_TOL and not diff):
+                raise AssertionError(f"{arch}: card vs CPU prefill, {kv} KV:"
+                                     f" logits differ by {err}, {diff} of "
+                                     f"{total} cache bytes")
+            del lg, lc, cg, cc
+        gen = GenerationConfig(max_new_tokens=3)
+        outs = [ServeEngine(m, p, max_len=_n_positions(batch) + 3 + 8)
+                .generate(batch, gen).tolist()
+                for m, p in ((model, params), (cpu_model, cpu_params))]
+        flips = _family_flips(torch, model, params, batch, *outs)
+        emit("families_card_vs_cpu", config=cfg.name, layers=2,
+             dtype="float32", policy=str(cfg.mx), positions=positions,
+             prefill=logits, tolerance=LOGITS_TOL, tokens=outs[0],
+             cpu_tokens=outs[1], flips=flips,
+             seconds=time.perf_counter() - t0)
+        del params, model, cpu_params, cpu_model, kvs
+        _free(torch)
+
+
+# =============================================================================
 # phase 6: calibration and per-layer policy tables (serve_policy)
 # =============================================================================
 # the searches' budgets: 0.7 x the uniform INT8 KV cache of chatglm3-6b
@@ -4348,6 +4877,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.lib()
@@ -4366,6 +4897,8 @@ def main() -> int:
     f_row, f_err = check_flash(torch, flush)
     check_lm_head(torch, flush)
     family = check_family_shapes(torch, flush)
+    for name, rows in check_other_family_shapes(torch, flush).items():
+        family.setdefault(name, []).extend(rows)
     del flush
     torch.cuda.empty_cache()
     emit("phase_seconds", name="build and kernels",
@@ -4381,7 +4914,8 @@ def main() -> int:
     # the first of the process), each driven from 0: their launches join
     # the kernels line's
     family_launches = [timed(name, path, torch) for name, path in (
-        ("serve_moe", serve_moe), ("serve_yi", serve_yi))]
+        ("serve_moe", serve_moe), ("serve_yi", serve_yi),
+        ("serve_families", serve_families))]
     launches = timed("chatglm3-6b serving", serve_full_width, torch)
     policy_launches, policy_rows = timed("serve_policy", serve_policy, torch)
     family_launches.append(policy_launches)
@@ -4392,6 +4926,7 @@ def main() -> int:
     timed("card vs CPU", card_vs_cpu, torch)
     timed("static card vs CPU", static_card_vs_cpu, torch)
     timed("MoE card vs CPU", card_vs_cpu, torch, MOE_ARCH, new=2)
+    timed("families card vs CPU", families_card_vs_cpu, torch)
     train_launches, train_per_step, train_rows = timed("train", train_phase,
                                                        torch)
     for kernel, n in train_launches.items():

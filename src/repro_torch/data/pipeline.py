@@ -80,10 +80,14 @@ def make_batch_for(cfg: ModelConfig, data: Dict[str, np.ndarray], *,
     unless the caller asks for the CPU).  The reference also builds the
     modality stubs of its encoder-decoder and patch-frontend families
     (from its ``prefix_rng``); the port trains the GQA decoder family,
-    whose input is the tokens alone."""
-    if cfg.family != "decoder":
+    whose input is the tokens alone (its other families serve, and
+    training them is ROADMAP item A12)."""
+    if cfg.family != "decoder" or cfg.frontend != "none":
+        what = f"the {cfg.family!r} family"
+        if cfg.frontend != "none":
+            what += f" with a {cfg.frontend!r} frontend"
         raise NotImplementedError(
-            f"{cfg.name}: the port trains the GQA decoder family; "
-            f"{cfg.family!r} inputs need ROADMAP item A10")
+            f"{cfg.name}: the port trains the GQA decoder family (MLA "
+            f"included); training {what} is ROADMAP item A12")
     return {k: torch.as_tensor(np.asarray(data[k], np.int32), device=device)
             for k in ("tokens", "labels")}

@@ -5,8 +5,9 @@ cold and prefix-cache hit.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode [--arch ARCH]
 
-Builds a full-width config (``--arch``, any of ``ARCH_IDS``; default
-chatglm3-6b, all its layers; every batch below is a multiple of 256
+Builds a full-width config (``--arch``, any GQA decoder of
+``ARCH_IDS``, which the continuous engine takes; default chatglm3-6b,
+all its layers; every batch below is a multiple of 256
 tokens, so an MoE config's capacity groups split evenly) with 8-bit MX
 weights and
 traces ``SYNC_EVERY`` decode steps of each serving path with
@@ -56,7 +57,7 @@ import torch
 
 from repro_torch.core.spec import QuantPolicy
 from repro_torch.launch.serve import build_model
-from repro_torch.models import Model
+from repro_torch.models import Model, load_config
 from repro_torch.models.decoder import request_keys, sample_tokens
 from repro_torch.serve import ContinuousBatchingEngine
 from repro_torch.serve.graphs import StaticDecodeGraph
@@ -259,6 +260,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="chatglm3_6b")
     args = ap.parse_args(argv)
+    if not Model(load_config(args.arch), device="cpu").supports_paged():
+        ap.error(f"--arch {args.arch}: the continuous engine takes the GQA "
+                 f"decoders only (no MLA, frontend or other family)")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
     model, params = build_model(args.arch, reduced=False, quant=POLICY,

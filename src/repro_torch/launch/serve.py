@@ -13,11 +13,17 @@ continuous batching over the paged MX KV cache.
 Runs on the CUDA device, each decode step one replay of a captured CUDA
 graph; ``--device cpu`` computes every kernel's plain version instead
 (use it with ``--reduced``).  ``--arch`` takes every entry of
-``repro_torch.models.ARCH_IDS`` (the dense GQA decoders and the MoE
-``moonshot_v1_16b_a3b``).  Attention runs through the kernels
-(``attn_impl="flash"``, as the reference's serving cells set it), but
-for ``--prefix-cache`` over an fp KV pool, which serves at ``"dense"``
-as the reference's launcher does (its default ``attn_impl``).
+``repro_torch.models.ARCH_IDS``.  The GQA decoders (dense and MoE)
+serve through both paths; the other archs (MLA ``deepseek_v2_236b``,
+the patch frontend ``internvl2_76b``, the hybrid ``zamba2_1p2b``,
+``rwkv6_7b`` and the encoder-decoder ``seamless_m4t_medium``) through
+the static path only: ``--paged`` is refused for them, as the
+reference's continuous engine refuses them, and ``--weight-resident``
+is taken by ``internvl2_76b`` alone among them.  Attention runs
+through the kernels (``attn_impl="flash"``, as the reference's serving
+cells set it), but for ``--prefix-cache`` over an fp KV pool, which
+serves at ``"dense"`` as the reference's launcher does (its default
+``attn_impl``).
 ``--temperature`` /
 ``--seed`` sample as the reference's flags do; paged mode runs the
 numeric-health guards unless ``--no-health-checks``.  ``--prefix-cache``
@@ -91,7 +97,7 @@ import numpy as np
 
 from repro_torch.core.spec import PolicyTable, QuantPolicy
 from repro_torch.models import (Model, apply_policy_table, load_config,
-                                load_reduced)
+                                load_reduced, make_concrete_batch)
 from repro_torch.models.layers import any_fp_kv
 from repro_torch.obs import MetricsRegistry, Tracer, rate
 from repro_torch.serve import (AsyncServer, ContinuousBatchingEngine,
@@ -628,11 +634,15 @@ def _serve_async(args, model: Model, params, kind: str, aparams,
 
 
 def _serve_static(args, model: Model, params) -> None:
-    """Equal-length seeded prompts through ``ServeEngine``, twice: the
-    first call, then a steady one."""
+    """A seeded batch of equal-length prompts through ``ServeEngine``,
+    twice: the first call, then a steady one.  The batch is the
+    reference launcher's ``make_concrete_batch``: ``--prompt-len`` tokens,
+    or for the patch frontend its prefix embeddings and the rest in
+    tokens, or for the encoder-decoder half in frames and half in
+    decoder tokens."""
     cfg = model.cfg
-    tokens = np.stack(make_prompts(args.batch, args.prompt_len, False,
-                                   cfg.vocab))
+    batch = make_concrete_batch(cfg, args.batch, args.prompt_len)
+    batch.pop("labels")
     eng = ServeEngine(model, params,
                       max_len=args.prompt_len + args.new_tokens + 8)
     gen = GenerationConfig(max_new_tokens=args.new_tokens,
@@ -640,7 +650,7 @@ def _serve_static(args, model: Model, params) -> None:
     times = []
     for _ in range(2):
         t0 = time.perf_counter()
-        out = eng.generate({"tokens": tokens}, gen)
+        out = eng.generate(batch, gen)
         times.append(time.perf_counter() - t0)
     ph = eng.phase
     print(f"[serve] {cfg.name} quant={cfg.mx}: generated {out.size} tokens;"

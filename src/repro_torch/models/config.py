@@ -1,12 +1,13 @@
-"""Model configuration of the port's GQA decoder family (dense and MoE).
-
-Mirrors src/repro/models/config.py for the fields the decoder family
-uses (the MLA, SSM and encoder-decoder fields are not ported);
-quantization is a per-tensor-role ``QuantPolicy``
-(``repro_torch.core.spec``): weights, kv_key and kv_value each carry an
-optional ``QuantSpec``, so INT8 keys can pair with E2M1 values.  A
-per-layer ``PolicyTable`` (``apply_policy_table``) gives each layer its
-own policy: ``layer_cfg(i)`` is layer ``i``'s uniform view.
+"""Model configuration of every family the port serves (mirrors
+src/repro/models/config.py field for field, but for the reference's
+dry-run switch ``scan_unroll``): the GQA decoders, dense and MoE, with
+MLA (deepseek-v2) and a patch frontend's prefix (internvl2); the Mamba2
+hybrid (zamba2); RWKV6; the encoder-decoder (seamless). Quantization is
+a per-tensor-role ``QuantPolicy`` (``repro_torch.core.spec``): weights,
+kv_key and kv_value each carry an optional ``QuantSpec``, so INT8 keys
+can pair with E2M1 values. A per-layer ``PolicyTable``
+(``apply_policy_table``) gives each layer its own policy:
+``layer_cfg(i)`` is layer ``i``'s uniform view.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from repro_torch.core.spec import (PolicyTable, QuantPolicy,  # noqa: F401
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "decoder" (the only family ported)
+    family: str                    # decoder | encdec | hybrid | rwkv
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +43,24 @@ class ModelConfig:
     moe_d_ff: int = 0              # per-expert hidden dim
     n_dense_layers: int = 0        # leading dense layers before the MoE ones
     capacity_factor: float = 1.25
+    # --- MLA (deepseek-v2) ---
+    mla: bool = False
+    kv_lora: int = 0
+    q_lora: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    d_conv: int = 4
+    attn_every: int = 0            # zamba2: shared attn block period
+    # --- enc-dec ---
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
+    # --- modality frontend stubs ---
+    prefix_len: int = 0            # internvl2: ViT patch tokens (stub embeds)
+    frontend: str = "none"         # none | patch | frames
     mx: QuantPolicy = dataclasses.field(default_factory=QuantPolicy)
     # per-layer policy table; set only through ``apply_policy_table``, so
     # an all-layers-identical table collapses to ``mx`` (today's path).
@@ -89,6 +108,45 @@ class ModelConfig:
         every layer past the leading ``n_dense_layers`` of an MoE
         config."""
         return self.n_experts > 0 and i >= self.n_dense_layers
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's, branch for branch)."""
+        d, v = self.d_model, self.vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "rwkv":
+            per = 4 * d * d + 2 * d * self.d_ff + 10 * d  # tmix + cmix
+            return emb + self.n_layers * per
+        if self.family == "hybrid":
+            din = self.ssm_expand * d
+            per = d * (2 * din + 2 * self.ssm_state + din // 64) + din * d \
+                + din * self.d_conv
+            attn = 4 * d * d + 3 * d * self.d_ff
+            return emb + self.n_layers * per + attn  # shared attn once
+        hd, nh, nkv = self.hd, self.n_heads, self.n_kv_heads
+        if self.mla:
+            dq = self.q_lora or d
+            attn = d * dq + dq * nh * (self.qk_nope_dim + self.qk_rope_dim) \
+                + d * (self.kv_lora + self.qk_rope_dim) \
+                + self.kv_lora * nh * (self.qk_nope_dim + self.v_head_dim) \
+                + nh * self.v_head_dim * d
+        else:
+            attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+        mlp_mult = 3 if self.gated_mlp else 2
+        dense_mlp = mlp_mult * d * self.d_ff
+        if self.n_experts:
+            expert = mlp_mult * d * self.moe_d_ff
+            moe_mlp = self.n_experts * expert \
+                + self.n_shared_experts * expert + d * self.n_experts
+            n_moe = self.n_layers - self.n_dense_layers
+            mlp_total = self.n_dense_layers * dense_mlp + n_moe * moe_mlp
+        else:
+            mlp_total = self.n_layers * dense_mlp
+        n_l = self.n_layers if self.family != "encdec" \
+            else self.n_enc_layers + self.n_dec_layers
+        layers = n_l * attn + mlp_total
+        if self.family == "encdec":
+            layers += self.n_dec_layers * attn  # cross-attention
+        return emb + layers
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -1,4 +1,5 @@
-"""Decoder-only LM, the GQA family, dense and MoE (mirrors
+"""Decoder-only LM: dense GQA, MoE, MLA (deepseek-v2) and the patch
+frontend's prefix embeddings (internvl2) (mirrors
 src/repro/models/decoder.py).
 
 The reference stacks layers and drives them with ``lax.scan`` after a
@@ -49,7 +50,7 @@ def padded_vocab(cfg: ModelConfig) -> int:
 # =============================================================================
 # parameters
 # =============================================================================
-def _normal(gen: torch.Generator, shape, std: float, dtype, device):
+def normal_init(gen: torch.Generator, shape, std: float, dtype, device):
     """N(0, std^2) in f32 from ``gen``, stored in ``dtype`` (as the
     reference's ``dense_init``/``embed_init``)."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
@@ -58,17 +59,17 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device):
 
 def _layer_init(gen, cfg: ModelConfig, device,
                 moe_layer: bool) -> Dict[str, Any]:
-    """One layer's weights (the reference's ``_layer_init``): attention,
-    then an MLP of ``d_ff`` or, on an MoE layer, the reference's
-    ``moe_init``: an f32 router, (E, d, ff) / (E, ff, d) expert stacks of
-    ``moe_d_ff`` and gated shared experts of ``moe_d_ff *
-    n_shared_experts``."""
+    """One layer's weights (the reference's ``_layer_init``): attention
+    (GQA, or MLA's ``mla_init``), then an MLP of ``d_ff`` or, on an MoE
+    layer, the reference's ``moe_init``: an f32 router, (E, d, ff) /
+    (E, ff, d) expert stacks of ``moe_d_ff`` and gated shared experts of
+    ``moe_d_ff * n_shared_experts``."""
     d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = cfg.torch_dtype
 
     def dense_init(d_in, d_out, lead=(), dtype=dt):
-        return _normal(gen, lead + (d_in, d_out), 1.0 / np.sqrt(d_in),
-                       dtype, device)
+        return normal_init(gen, lead + (d_in, d_out),
+                           1.0 / np.sqrt(d_in), dtype, device)
 
     def mlp_init(ff, gated):
         w = {"w1": dense_init(d, ff)}
@@ -78,10 +79,25 @@ def _layer_init(gen, cfg: ModelConfig, device,
         return w
 
     p = {"ln1": torch.ones(d, dtype=dt, device=device),
-         "ln2": torch.ones(d, dtype=dt, device=device),
-         "attn": {"wq": dense_init(d, nh * hd), "wk": dense_init(d, nkv * hd),
-                  "wv": dense_init(d, nkv * hd),
-                  "wo": dense_init(nh * hd, d)}}
+         "ln2": torch.ones(d, dtype=dt, device=device)}
+    if cfg.mla:
+        dq, qk = cfg.q_lora or d, cfg.qk_nope_dim + cfg.qk_rope_dim
+        a = {"w_dkv": dense_init(d, cfg.kv_lora),
+             "w_kr": dense_init(d, cfg.qk_rope_dim),
+             "w_uk": dense_init(cfg.kv_lora, nh * cfg.qk_nope_dim),
+             "w_uv": dense_init(cfg.kv_lora, nh * cfg.v_head_dim),
+             "wo": dense_init(nh * cfg.v_head_dim, d),
+             "kv_norm": torch.ones(cfg.kv_lora, dtype=dt, device=device)}
+        if cfg.q_lora:
+            a["w_dq"] = dense_init(d, dq)
+            a["q_norm"] = torch.ones(dq, dtype=dt, device=device)
+        a["w_uq"] = dense_init(dq, nh * qk)
+        p["attn"] = a
+    else:
+        p["attn"] = {"wq": dense_init(d, nh * hd),
+                     "wk": dense_init(d, nkv * hd),
+                     "wv": dense_init(d, nkv * hd),
+                     "wo": dense_init(nh * hd, d)}
     if not moe_layer:
         p["mlp"] = mlp_init(cfg.d_ff, cfg.gated_mlp)
         return p
@@ -117,6 +133,13 @@ def layer_cfgs(cfg: ModelConfig) -> Tuple[ModelConfig, ...]:
     return tuple(cfg.layer_cfg(i) for i in range(cfg.n_layers))
 
 
+def _refuse_mla_weights(cfg: ModelConfig) -> None:
+    if cfg.mla:
+        raise NotImplementedError(
+            "weight-resident storage covers the GQA decoder family "
+            "(MLA projections are not routed through MXWeight yet)")
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
          quantize: bool = False) -> Dict[str, Any]:
     """Random weights on ``device`` from a seeded ``torch.Generator``,
@@ -125,13 +148,16 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     ``quantize`` each layer is converted to weight-resident MXWeight
     storage (its own policy's ``weights``; a layer without one stays fp)
     as soon as it is made, so the fp weights of only one layer exist at
-    a time."""
+    a time.  MLA refuses ``quantize``, as the reference's
+    ``quantize_weights`` does."""
+    if quantize:
+        _refuse_mla_weights(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     vp, d, dt = padded_vocab(cfg), cfg.d_model, cfg.torch_dtype
     params: Dict[str, Any] = {
-        "embed": _normal(gen, (vp, d), 0.02, dt, device), "layers": []}
+        "embed": normal_init(gen, (vp, d), 0.02, dt, device), "layers": []}
     for i in range(cfg.n_layers):
         lp = _layer_init(gen, cfg, device, cfg.moe_layer(i))
         if quantize:
@@ -139,15 +165,16 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         params["layers"].append(lp)
     params["norm_f"] = torch.ones(d, dtype=dt, device=device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(gen, (d, vp), 1.0 / np.sqrt(d), dt,
-                                    device)
+        params["lm_head"] = normal_init(gen, (d, vp), 1.0 / np.sqrt(d),
+                                        dt, device)
     return params
 
 
 def quantize_weights(params, cfg: ModelConfig):
     """Convert every layer's matmul weights to weight-resident MXWeight
     storage per its own policy's ``weights`` (a layer without one stays
-    fp)."""
+    fp); MLA raises, as in the reference."""
+    _refuse_mla_weights(cfg)
     out = dict(params)
     out["layers"] = [_quantize_layer_tree(lp, cfg.layer_policy(i).weights)
                      for i, lp in enumerate(params["layers"])]
@@ -157,8 +184,14 @@ def quantize_weights(params, cfg: ModelConfig):
 # =============================================================================
 # forward pieces
 # =============================================================================
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.to(torch.int64)].to(cfg.torch_dtype)
+def embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+          prefix_embeds=None) -> torch.Tensor:
+    """Token embeddings; ``prefix_embeds`` (B, P, d), the patch
+    frontend's precomputed embeddings, go before them."""
+    x = params["embed"][tokens.to(torch.int64)].to(cfg.torch_dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 class _HeadMM(torch.autograd.Function):
@@ -182,22 +215,28 @@ class _HeadMM(torch.autograd.Function):
         return dx, dh
 
 
-def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head; f32 logits (the reference contracts in the
     activation dtype with an f32 accumulator and keeps f32 output).  A
     bf16 x bf16 head on the card is one bf16-input, f32-output GEMM that
     reads the head's bf16 bytes once (``_HeadMM``); elsewhere both sides
     widen to f32.  Products of bf16 values are exact in f32, so the two
     differ only in summation order."""
-    x = L.rms_norm(x, params["norm_f"], cfg.norm_eps)
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
-    if x.device.type == "cuda" and x.dtype == head.dtype == torch.bfloat16:
+    return head_logits(params, L.rms_norm(x, params["norm_f"],
+                                          cfg.norm_eps))
+
+
+def head_logits(params, x: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ the LM head (the tied embedding without one) -> f32
+    logits (..., Vp); see ``head``."""
+    w = params.get("lm_head")
+    if w is None:
+        w = params["embed"].T
+    if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
         lead = x.shape[:-1]
-        out = _HeadMM.apply(x.reshape(-1, x.shape[-1]), head)
-        return out.reshape(lead + (head.shape[-1],))
-    return torch.matmul(x.to(torch.float32), head.to(torch.float32))
+        out = _HeadMM.apply(x.reshape(-1, x.shape[-1]), w)
+        return out.reshape(lead + (w.shape[-1],))
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
 def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
@@ -211,7 +250,17 @@ def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
     axis.  ``fake_quant`` (training, the full causal forward) goes to
     every projection."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if paged_prefill is not None:
+    if cfg.mla:
+        if cache is not None and x.shape[1] == 1:
+            a, cache = L.mla_decode(lp["attn"], h, cfg, cache=cache,
+                                    cache_pos=cache_pos,
+                                    fake_quant=fake_quant)
+        else:
+            a, cache = L.mla_attention(lp["attn"], h, cfg,
+                                       positions=positions, cache=cache,
+                                       cache_pos=cache_pos,
+                                       fake_quant=fake_quant)
+    elif paged_prefill is not None:
         block_tables, starts, prompt_lens = paged_prefill
         a, cache = L.attention_paged_prefill(
             lp["attn"], h, cfg, pool=cache, block_tables=block_tables,
@@ -237,7 +286,10 @@ def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     """Contiguous caches, one stack per KV group (L_g, B, max_len, n_kv,
-    X)."""
+    X); MLA's compressed caches (L_g, B, max_len, X)."""
+    if cfg.mla:
+        return L.grouped_kv(cfg, lambda c, ld: L.init_mla_cache(
+            c, batch, max_len, device, layers_dim=ld))
     return L.grouped_kv(cfg, lambda c, ld: L.init_kv_cache(
         c, batch, max_len, c.n_kv_heads, c.hd, device, layers_dim=ld))
 
@@ -245,7 +297,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device):
     """Page pools, one stack per KV group (L_g, num_pages, page_size,
-    n_kv, X), each sized by its group's specs."""
+    n_kv, X), each sized by its group's specs.  MLA keeps the contiguous
+    layout, as in the reference."""
+    if cfg.mla:
+        raise NotImplementedError(
+            "paged KV serving covers the GQA decoder family; the MLA "
+            "compressed cache keeps the contiguous layout")
     return L.grouped_kv(cfg, lambda c, ld: L.init_paged_kv_cache(
         c, num_pages, page_size, c.n_kv_heads, c.hd, device,
         layers_dim=ld))
@@ -260,7 +317,8 @@ def _mean_aux(auxs, device) -> torch.Tensor:
 
 
 def _forward_with_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-                      fake_quant: bool = False, remat: bool = False):
+                      prefix_embeds=None, fake_quant: bool = False,
+                      remat: bool = False):
     """Full causal forward over tokens (B, S) with no cache; returns
     (logits (B, S, Vp) f32, aux): the MoE load-balance loss averaged over
     the layers past the leading dense ones, as the reference's training
@@ -268,10 +326,11 @@ def _forward_with_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``remat`` each of those layers runs under
     ``torch.utils.checkpoint`` (non-reentrant; the reference's
     ``jax.checkpoint`` of its scan step): a backward pass recomputes the
-    layer, kernel launches included, where it needs a saved tensor."""
-    x = _embed(params, cfg, tokens)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    layer, kernel launches included, where it needs a saved tensor.
+    ``prefix_embeds`` (B, P, d) go before the tokens' embeddings (the
+    logits cover both)."""
+    x = embed(params, cfg, tokens, prefix_embeds)
+    positions = L.positions(*x.shape[:2], x.device)
     cfgs, auxs = layer_cfgs(cfg), []
     for i, lp in enumerate(params["layers"]):
         def layer(x, i=i, lp=lp):
@@ -286,21 +345,24 @@ def _forward_with_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             x, aux = layer(x)
         if i >= cfg.n_dense_layers:
             auxs.append(aux)
-    return _head(params, cfg, x), _mean_aux(auxs, x.device)
+    return head(params, cfg, x), _mean_aux(auxs, x.device)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            fake_quant: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            prefix_embeds=None, fake_quant: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward (the reference's ``forward``): tokens (B, S) ->
     (logits (B, S, Vp) f32, aux), each layer recomputed in the backward
     pass when ``cfg.remat``; ``fake_quant`` applies the policy's
     ``weights`` / ``activations`` roles (QAT) through the converter
     kernel, each layer under its own ``layer_cfg(i)``."""
-    return _forward_with_aux(params, tokens, cfg, fake_quant=fake_quant,
-                             remat=cfg.remat)
+    return _forward_with_aux(params, tokens, cfg,
+                             prefix_embeds=prefix_embeds,
+                             fake_quant=fake_quant, remat=cfg.remat)
 
 
-def forward_calib(params, tokens: torch.Tensor, cfg: ModelConfig):
+def forward_calib(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  prefix_embeds=None):
     """Instrumented forward for calibration (the reference's
     ``forward_calib``): per layer, the tensors each quantizable role
     would see, unquantized whatever ``cfg.mx`` says: ``activations`` (the
@@ -308,10 +370,14 @@ def forward_calib(params, tokens: torch.Tensor, cfg: ModelConfig):
     and the post-RoPE ``kv_key`` / ``kv_value`` projections.  Returns
     (logits, aux, taps) with ``taps[role][layer]``; aux is averaged over
     every layer, dense ones included, as the reference's ``forward_calib``
-    averages it (its training ``forward`` skips them)."""
-    x = _embed(params, cfg, tokens)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    averages it (its training ``forward`` skips them).  MLA raises, as
+    in the reference: its compressed cache has no per-head K/V."""
+    if cfg.mla:
+        raise NotImplementedError(
+            "forward_calib covers the GQA decoder family; the MLA "
+            "compressed cache has no per-head K/V tensors to calibrate")
+    x = embed(params, cfg, tokens, prefix_embeds)
+    positions = L.positions(*x.shape[:2], x.device)
     taps = {"activations": [], "kv_key": [], "kv_value": []}
     cfgs, auxs = layer_cfgs(cfg), []
     for i, lp in enumerate(params["layers"]):
@@ -321,18 +387,19 @@ def forward_calib(params, tokens: torch.Tensor, cfg: ModelConfig):
         taps["kv_key"].append(tap["k"])
         taps["kv_value"].append(tap["v"])
         auxs.append(aux)
-    return _head(params, cfg, x), _mean_aux(auxs, x.device), taps
+    return head(params, cfg, x), _mean_aux(auxs, x.device), taps
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-            max_len: int, cache=None):
+            max_len: int, prefix_embeds=None, cache=None):
     """Process the prompts, fill a contiguous cache at [0, S); returns
-    (logits (B, S, Vp) f32, cache, S).  ``cache`` (``init_cache``'s
-    layout for this batch and ``max_len``) is zeroed and filled in place
-    instead of a fresh one: a captured decode step keeps reading the same
-    buffers."""
-    x = _embed(params, cfg, tokens)
-    b, s = tokens.shape
+    (logits (B, S, Vp) f32, cache, S).  ``prefix_embeds`` (B, P, d) go
+    before the tokens (S counts both: decode starts at P + tokens).
+    ``cache`` (``init_cache``'s layout for this batch and ``max_len``) is
+    zeroed and filled in place instead of a fresh one: a captured decode
+    step keeps reading the same buffers."""
+    x = embed(params, cfg, tokens, prefix_embeds)
+    b, s = x.shape[:2]
     if cache is None:
         cache = init_cache(cfg, b, max_len, x.device)
     else:
@@ -342,12 +409,12 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                  f" is not for batch {b} and max_len "
                                  f"{max_len}")
             leaf.zero_()
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    positions = L.positions(b, s, x.device)
     cfgs = layer_cfgs(cfg)
     for i, lp in enumerate(params["layers"]):
         x, _, _ = _block(i, lp, x, cfgs[i], positions=positions,
                          cache=L.kv_layer_view(cache, cfg, i))
-    return _head(params, cfg, x), cache, s
+    return head(params, cfg, x), cache, s
 
 
 def decode_step(params, token: torch.Tensor, cache, pos,
@@ -359,18 +426,14 @@ def decode_step(params, token: torch.Tensor, cache, pos,
     advances on the device; the two give the same logits bit for bit.
     Returns (logits (B, 1, Vp) f32, cache) — the cache is updated in
     place."""
-    x = _embed(params, cfg, token[:, None])
-    if isinstance(pos, torch.Tensor):
-        positions = pos.reshape(1, 1).expand(x.shape[0], 1)
-    else:
-        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                               device=x.device)
+    x = embed(params, cfg, token[:, None])
+    positions = L.positions(x.shape[0], 1, x.device, pos)
     cfgs = layer_cfgs(cfg)
     for i, lp in enumerate(params["layers"]):
         x, _, _ = _block(i, lp, x, cfgs[i], positions=positions,
                          cache=L.kv_layer_view(cache, cfg, i),
                          cache_pos=pos)
-    return _head(params, cfg, x), cache
+    return head(params, cfg, x), cache
 
 
 def scatter_prefill(cfg: ModelConfig, pool, cache, page_ids):
@@ -408,14 +471,14 @@ def paged_prefill_suffix(params, tokens: torch.Tensor, starts: torch.Tensor,
     fork applied.  Returns (logits (G, S, Vp) f32, pool), the pool
     written in place; logits row i of request g is prompt position
     starts[g] + i (the engine samples at prompt_lens - starts - 1)."""
-    x = _embed(params, cfg, tokens)
+    x = embed(params, cfg, tokens)
     paged_prefill = (block_tables, starts, prompt_lens)
     cfgs = layer_cfgs(cfg)
     for i, lp in enumerate(params["layers"]):
         x, _, _ = _block(i, lp, x, cfgs[i],
                          cache=L.kv_layer_view(pool, cfg, i),
                          paged_prefill=paged_prefill)
-    return _head(params, cfg, x), pool
+    return head(params, cfg, x), pool
 
 
 def paged_decode_step(params, token: torch.Tensor, pool, block_tables,
@@ -424,13 +487,13 @@ def paged_decode_step(params, token: torch.Tensor, pool, block_tables,
     token (B,) int32; block_tables (B, max_pages) int32; lengths (B,)
     int32 (slot b's token sits at position lengths[b]).  Returns (logits
     (B, 1, Vp) f32, pool) — the pool is updated in place."""
-    x = _embed(params, cfg, token[:, None])
+    x = embed(params, cfg, token[:, None])
     paged = (block_tables, lengths)
     cfgs = layer_cfgs(cfg)
     for i, lp in enumerate(params["layers"]):
         x, _, _ = _block(i, lp, x, cfgs[i],
                          cache=L.kv_layer_view(pool, cfg, i), paged=paged)
-    return _head(params, cfg, x), pool
+    return head(params, cfg, x), pool
 
 
 # =============================================================================

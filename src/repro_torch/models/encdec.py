@@ -1,0 +1,177 @@
+"""Encoder-decoder transformer, the seamless-m4t family (mirrors
+src/repro/models/encdec.py).
+
+The speech frontend is a stub: the encoder consumes precomputed frame
+embeddings (B, S_enc, d).  The decoder is a causal LM with
+cross-attention; its cache holds the decoder's self-attention KV
+(``self``, MX or fp per the policy) and the cross-attention K/V of the
+encoder output (``cross``, fp, S_enc long), computed once at prefill.
+``params["enc_layers"]`` / ``params["dec_layers"]`` are lists of
+per-layer dicts (the reference stacks them for its scans).  Prefill
+fills a given cache in place and decode writes only ``self``, so a
+captured decode step reads and writes the same buffers every replay.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.decoder import (embed, head, normal_init,
+                                        padded_vocab)
+
+
+def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"
+         ) -> Dict[str, Any]:
+    """Random weights on ``device`` from a seeded ``torch.Generator``, at
+    the reference's shapes, dtypes and scales."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, dt, vp = cfg.d_model, cfg.torch_dtype, padded_vocab(cfg)
+    hd, nh, nkv, ff = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+
+    def dense_init(d_in, d_out):
+        return normal_init(gen, (d_in, d_out), 1.0 / np.sqrt(d_in), dt,
+                           device)
+
+    def ones():
+        return torch.ones(d, dtype=dt, device=device)
+
+    def attn():
+        return {"wq": dense_init(d, nh * hd), "wk": dense_init(d, nkv * hd),
+                "wv": dense_init(d, nkv * hd), "wo": dense_init(nh * hd, d)}
+
+    def mlp():
+        w = {"w1": dense_init(d, ff)}
+        if cfg.gated_mlp:
+            w["w3"] = dense_init(d, ff)
+        w["w2"] = dense_init(ff, d)
+        return w
+
+    enc = [{"ln1": ones(), "attn": attn(), "ln2": ones(), "mlp": mlp()}
+           for _ in range(cfg.n_enc_layers)]
+    dec = [{"ln1": ones(), "attn": attn(), "lnx": ones(), "xattn": attn(),
+            "ln2": ones(), "mlp": mlp()} for _ in range(cfg.n_dec_layers)]
+    return {"embed": normal_init(gen, (vp, d), 0.02, dt, device),
+            "enc_layers": enc, "dec_layers": dec, "enc_norm": ones(),
+            "norm_f": ones(), "lm_head": dense_init(d, vp)}
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig,
+           fake_quant: bool = False) -> torch.Tensor:
+    """frames (B, S_enc, d), the frontend's precomputed embeddings ->
+    the encoder output (B, S_enc, d): non-causal self-attention layers
+    (dense at either ``attn_impl``, as in the reference)."""
+    x = frames.to(cfg.torch_dtype)
+    b, s, _ = x.shape
+    positions = L.positions(b, s, x.device)
+    for lp in params["enc_layers"]:
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = L.attention(lp["attn"], h, cfg, positions=positions,
+                           causal=False, fake_quant=fake_quant)
+        x = x + a
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.mlp(lp["mlp"], h, cfg, fake_quant)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_kv(lp, enc_out: torch.Tensor, cfg: ModelConfig,
+              fake_quant: bool):
+    b, se, _ = enc_out.shape
+    nkv, hd = cfg.n_kv_heads, cfg.hd
+    k = L.dense(enc_out, lp["xattn"]["wk"], cfg.mx, fake_quant)
+    v = L.dense(enc_out, lp["xattn"]["wv"], cfg.mx, fake_quant)
+    return k.reshape(b, se, nkv, hd), v.reshape(b, se, nkv, hd)
+
+
+def _dec_block(lp, x, cfg: ModelConfig, *, positions, cross_kv, cache=None,
+               cache_pos=0, fake_quant=False):
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, _ = L.attention(lp["attn"], h, cfg, positions=positions, cache=cache,
+                       cache_pos=cache_pos, fake_quant=fake_quant)
+    x = x + a
+    h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
+    xa, _ = L.attention(lp["xattn"], h, cfg, positions=positions,
+                        causal=False, kv_override=cross_kv,
+                        fake_quant=fake_quant)
+    x = x + xa
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp(lp["mlp"], h, cfg, fake_quant)
+
+
+def forward(params, frames: torch.Tensor, tokens: torch.Tensor,
+            cfg: ModelConfig, *, fake_quant: bool = False):
+    """Training forward: frames (B, S_enc, d) + decoder tokens (B, S) ->
+    (logits (B, S, Vp) f32, a zero aux loss)."""
+    enc_out = encode(params, frames, cfg, fake_quant)
+    x = embed(params, cfg, tokens)
+    positions = L.positions(*tokens.shape, x.device)
+    for lp in params["dec_layers"]:
+        x = _dec_block(lp, x, cfg, positions=positions,
+                       cross_kv=_cross_kv(lp, enc_out, cfg, fake_quant),
+                       fake_quant=fake_quant)
+    return head(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                               device=x.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, s_enc: int,
+               device):
+    """``self``: the decoder layers' KV caches (n_dec, B, max_len, n_kv,
+    X); ``cross``: their cross-attention K/V (n_dec, B, s_enc, n_kv, hd)
+    in the compute dtype."""
+    nd, dt = cfg.n_dec_layers, cfg.torch_dtype
+    shape = (nd, batch, s_enc, cfg.n_kv_heads, cfg.hd)
+    return {"self": L.init_kv_cache(cfg, batch, max_len, cfg.n_kv_heads,
+                                    cfg.hd, device, layers_dim=(nd,)),
+            "cross": {"k": torch.zeros(shape, dtype=dt, device=device),
+                      "v": torch.zeros(shape, dtype=dt, device=device)}}
+
+
+def prefill(params, frames: torch.Tensor, tokens: torch.Tensor,
+            cfg: ModelConfig, *, max_len: int, cache=None):
+    """Encode the frames, compute each decoder layer's cross K/V into
+    the cache and consume the decoder prompt; returns (logits, cache,
+    S).  ``cache`` (``init_cache``'s layout for this batch, ``max_len``
+    and S_enc), when given, is zeroed and filled in place."""
+    enc_out = encode(params, frames, cfg)
+    x = embed(params, cfg, tokens)
+    b, s = tokens.shape
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, enc_out.shape[1], x.device)
+    else:
+        want = {"self": (b, max_len), "cross": (b, enc_out.shape[1])}
+        for part, dims in want.items():
+            for leaf in cache[part].values():
+                if leaf.shape[1:3] != dims:
+                    raise ValueError(f"prefill: a {part} cache leaf "
+                                     f"{tuple(leaf.shape)} is not for "
+                                     f"{dims}")
+                leaf.zero_()
+    positions = L.positions(b, s, x.device)
+    for i, lp in enumerate(params["dec_layers"]):
+        ck, cv = _cross_kv(lp, enc_out, cfg, False)
+        cache["cross"]["k"][i].copy_(ck)
+        cache["cross"]["v"][i].copy_(cv)
+        x = _dec_block(lp, x, cfg, positions=positions, cross_kv=(ck, cv),
+                       cache={n: t[i] for n, t in cache["self"].items()})
+    return head(params, cfg, x), cache, s
+
+
+def decode_step(params, token: torch.Tensor, cache, pos,
+                cfg: ModelConfig):
+    """One decoder step at ``pos`` (a host int or a one-element int32
+    tensor on the device) over the cached cross K/V; the self cache is
+    updated in place."""
+    x = embed(params, cfg, token[:, None])
+    positions = L.positions(x.shape[0], 1, x.device, pos)
+    for i, lp in enumerate(params["dec_layers"]):
+        x = _dec_block(lp, x, cfg, positions=positions,
+                       cross_kv=(cache["cross"]["k"][i],
+                                 cache["cross"]["v"][i]),
+                       cache={n: t[i] for n, t in cache["self"].items()},
+                       cache_pos=pos)
+    return head(params, cfg, x), cache

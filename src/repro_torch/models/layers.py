@@ -1,5 +1,5 @@
-"""Layers of the GQA decoder, dense and MoE (mirrors
-src/repro/models/layers.py).
+"""Layers of the decoders, dense, MoE and MLA, and the attention the
+other families share (mirrors src/repro/models/layers.py).
 
 Every projection routes through ``dense()``: an ``MXWeight`` operand goes
 to the dequant x matmul kernel, an fp weight to ``torch.matmul``; an MoE
@@ -20,7 +20,12 @@ codes padded past it), attention is dense at ``"flash"`` too, as the
 reference's dispatch goes dense there; the choice is made from the
 shapes before any launch.  A quantized prefill and the paged suffix
 prefill are dense at either value: prefix sharing promises identical
-tokens, and both attend the same dequantized bytes.
+tokens, and both attend the same dequantized bytes.  Non-causal
+attention (an encoder) and cross-attention over an encoder's k/v are
+dense, as the reference's are.  MLA (deepseek-v2) caches the compressed
+c_kv and k_rope, each quantized under the ``kv_key`` role by one launch
+of the converter kernel, and decodes with W_uk / W_uv absorbed; its
+einsums are plain torch, as the reference computes them outside Pallas.
 
 Unlike the functional reference, cache and page-pool writes update the
 given tensors in place (the pools are the largest serving allocation;
@@ -56,7 +61,8 @@ from repro_torch.kernels.mx_decode_attn import (decode_kernel_takes,
 from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
                                              mx_paged_kv_write,
                                              mx_paged_kv_write_tokens)
-from repro_torch.kernels.ops import fake_quantize, mx_matmul_resident
+from repro_torch.kernels.ops import (fake_quantize, mx_matmul_resident,
+                                     mx_quantize)
 from repro_torch.kernels.ref import token_pages
 from repro_torch.models.config import ModelConfig
 
@@ -95,6 +101,17 @@ def dense(x: torch.Tensor, w, mx: Optional[QuantPolicy] = None,
     if fake_quant and mx is not None and mx.weights is not None:
         w = fake_quantize(w, mx.weights, axis=0)
     return torch.matmul(x, w.to(x.dtype))
+
+
+def positions(b: int, s: int, device, pos=None) -> torch.Tensor:
+    """Positions (B, S): 0..S-1 for a prompt, or ``pos`` for one decode
+    token, a host int or a one-element int32 tensor on the device (which
+    a captured decode step advances on the device)."""
+    if pos is None:
+        return torch.arange(s, device=device)[None, :].expand(b, s)
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1, 1).expand(b, s)
+    return torch.full((b, s), pos, dtype=torch.int32, device=device)
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float):
@@ -218,11 +235,17 @@ def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, cache=None, cache_pos=0,
-              tap: Optional[dict] = None,
+              positions: torch.Tensor, causal: bool = True, cache=None,
+              cache_pos=0, tap: Optional[dict] = None,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               fake_quant: bool = False) -> Tuple[torch.Tensor, Any]:
-    """GQA self-attention over x (B, S, d), causal.  With a cache, k/v
-    are first written at ``cache_pos`` (a host int, or at decode a
+    """GQA attention over x (B, S, d): self-attention, causal unless
+    ``causal=False`` (an encoder), or cross-attention over
+    ``kv_override`` = (k, v) (B, S_enc, n_kv, hd) from the encoder, which
+    takes no RoPE and no cache.  Non-causal attention and
+    cross-attention are dense at either ``attn_impl``, as in the
+    reference, which sends only causal self-attention to flash.  With a
+    cache, k/v are first written at ``cache_pos`` (a host int, or at decode a
     one-element int32 tensor on x's device).  Decode (S == 1) attends the
     cache's positions <= cache_pos: at ``attn_impl="flash"`` under an MX
     policy through the contiguous MX decode kernel, else densely.  An MX
@@ -241,6 +264,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     mx_kv = mx.kv_key is not None
     flash = cfg.attn_impl == "flash"
     q = dense(x, p["wq"], mx, fq).reshape(b, s, nh, hd)
+    if kv_override is not None:
+        k, v = kv_override
+        mask = torch.ones((1, 1, 1, s, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa_gqa(q, k, v, mask)
+        return dense(out.reshape(b, s, nh * hd), p["wo"], mx, fq), cache
     k = dense(x, p["wk"], mx, fq).reshape(b, s, nkv, hd)
     v = dense(x, p["wv"], mx, fq).reshape(b, s, nkv, hd)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
@@ -249,6 +278,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if tap is not None:
         tap["k"], tap["v"] = k, v
     mask = None
+    if not causal:
+        if cache is not None:
+            raise ValueError("attention: a non-causal layer takes no cache")
+        mask = torch.ones((1, 1, 1, s, s), dtype=torch.bool,
+                          device=x.device)
     if cache is not None:
         cache = cache_write(cache, k, v, cache_pos, cfg)
         if s == 1 and mx_kv and flash and decode_kernel_takes(
@@ -277,6 +311,167 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             mask = _causal_mask(s, k.shape[1], x.device)
         out = _sdpa_gqa(q, k, v, mask)
     out = dense(out.reshape(b, s, nh * hd), p["wo"], mx, fq)
+    return out, cache
+
+
+# =============================================================================
+# MLA attention (deepseek-v2): compressed KV cache + absorbed decode
+# =============================================================================
+def _ein(spec: str, *ops, dtype) -> torch.Tensor:
+    """An einsum in f32 (the reference's ``preferred_element_type``),
+    cast to ``dtype``."""
+    return torch.einsum(spec, *(t.to(torch.float32) for t in ops)).to(dtype)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                   layers_dim: Tuple[int, ...] = ()):
+    """MLA caches the compressed c_kv (``kv_lora``) and the shared k_rope
+    (``qk_rope_dim``) per token instead of per-head K/V; under an MX
+    policy both follow the ``kv_key`` role (codes zero-padded to a block
+    multiple, E8M0 scales)."""
+    lead = layers_dim + (batch, max_len)
+    spec = cfg.mx.kv_key
+    if spec is None:
+        dt = cfg.torch_dtype
+        return {"ckv": torch.zeros(lead + (cfg.kv_lora,), dtype=dt,
+                                   device=device),
+                "kr": torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dt,
+                                  device=device)}
+    out = {}
+    for name, dim in (("ckv", cfg.kv_lora), ("kr", cfg.qk_rope_dim)):
+        cl = _code_len(dim, spec.block)
+        out[name + "_codes"] = torch.zeros(lead + (cl,), dtype=torch.uint8,
+                                           device=device)
+        out[name + "_scales"] = torch.zeros(lead + (cl // spec.block,),
+                                            dtype=torch.uint8, device=device)
+    return out
+
+
+def _q_heads(p, x, cfg: ModelConfig, fake_quant: bool) -> torch.Tensor:
+    b, s, _ = x.shape
+    mx = cfg.mx
+    if cfg.q_lora:
+        cq = rms_norm(dense(x, p["w_dq"], mx, fake_quant), p["q_norm"],
+                      cfg.norm_eps)
+        q = dense(cq, p["w_uq"], mx, fake_quant)
+    else:
+        q = dense(x, p["w_uq"], mx, fake_quant)
+    return q.reshape(b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def _mla_cache_write(cache, ckv: torch.Tensor, kr: torch.Tensor, pos,
+                     cfg: ModelConfig):
+    """Write ckv (B, s, kv_lora) and kr (B, s, qk_rope_dim) at positions
+    [pos, pos + s) of one layer's MLA cache, in place.  Under an MX
+    ``kv_key`` each is quantized by one launch of the paper's converter
+    kernel (``ops.mx_quantize``; its codes and scales are the plain
+    converter's bits).  ``pos`` is a host int or a one-element int32
+    tensor on the device (the static decode step)."""
+    s = ckv.shape[1]
+    spec = cfg.mx.kv_key
+    if spec is None:
+        vals = {"ckv": ckv, "kr": kr}
+    else:
+        vals = {}
+        for name, t in (("ckv", ckv), ("kr", kr)):
+            q = mx_quantize(t, spec, axis=-1)
+            vals[name + "_codes"], vals[name + "_scales"] = q.codes, q.scales
+    if isinstance(pos, torch.Tensor):
+        idx = pos.reshape(1).to(torch.int64) \
+            + torch.arange(s, device=ckv.device)
+        for name, val in vals.items():
+            cache[name].index_copy_(1, idx, val.to(cache[name].dtype))
+    else:
+        for name, val in vals.items():
+            cache[name][:, pos:pos + s] = val.to(cache[name].dtype)
+    return cache
+
+
+def _mla_cache_read(cache, cfg: ModelConfig, dtype):
+    spec = cfg.mx.kv_key
+    if spec is None:
+        return cache["ckv"].to(dtype), cache["kr"].to(dtype)
+    return (_kv_dequant(cache["ckv_codes"], cache["ckv_scales"], spec, dtype,
+                        cfg.kv_lora),
+            _kv_dequant(cache["kr_codes"], cache["kr_scales"], spec, dtype,
+                        cfg.qk_rope_dim))
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  positions: torch.Tensor, cache=None, cache_pos=0,
+                  fake_quant: bool = False) -> Tuple[torch.Tensor, Any]:
+    """Full (train / prefill) MLA over x (B, S, d), causal: per-head k/v
+    materialized from c_kv, scores and values as the reference's f32
+    einsums (no kernel: the reference computes MLA outside Pallas).  With
+    a cache, the compressed c_kv and k_rope are written at
+    ``cache_pos``."""
+    b, s, _ = x.shape
+    nh, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                      cfg.v_head_dim)
+    mx, dt = cfg.mx, x.dtype
+    q = _q_heads(p, x, cfg, fake_quant)
+    qn, qr = q[..., :dn], q[..., dn:]
+    ckv = rms_norm(dense(x, p["w_dkv"], mx, fake_quant), p["kv_norm"],
+                   cfg.norm_eps)
+    kr = dense(x, p["w_kr"], mx, fake_quant).reshape(b, s, 1, dr)
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    qr = apply_rope(qr, cos, sin)
+    kr = apply_rope(kr, cos, sin)
+    kn = dense(ckv, p["w_uk"], mx, fake_quant).reshape(b, s, nh, dn)
+    v = dense(ckv, p["w_uv"], mx, fake_quant).reshape(b, s, nh, dv)
+    scores = (torch.einsum("bqhd,bkhd->bhqk", qn.to(torch.float32),
+                           kn.to(torch.float32))
+              + torch.einsum("bqhd,bkd->bhqk", qr.to(torch.float32),
+                             kr[:, :, 0, :].to(torch.float32))) \
+        * (1.0 / np.sqrt(dn + dr))
+    scores = torch.where(_causal_mask(s, s, x.device)[0], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    out = _ein("bhqk,bkhd->bqhd", probs, v, dtype=dt)
+    out = dense(out.reshape(b, s, nh * dv), p["wo"], mx, fake_quant)
+    if cache is not None:
+        cache = _mla_cache_write(cache, ckv, kr[:, :, 0, :], cache_pos, cfg)
+    return out, cache
+
+
+def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *, cache,
+               cache_pos, fake_quant: bool = False
+               ) -> Tuple[torch.Tensor, Any]:
+    """Absorbed MLA decode of x (B, 1, d) at ``cache_pos`` (a host int or
+    a one-element int32 tensor on the device): the new c_kv / k_rope are
+    written into the cache first, then scores and outputs are computed
+    against the compressed cache directly, W_uk absorbed into q and W_uv
+    applied after (per-head K/V of past tokens are never made)."""
+    b, s, _ = x.shape                      # s == 1
+    nh, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                      cfg.v_head_dim)
+    mx, dt = cfg.mx, x.dtype
+    q = _q_heads(p, x, cfg, fake_quant)
+    qn, qr = q[..., :dn], q[..., dn:]
+    ckv_new = rms_norm(dense(x, p["w_dkv"], mx, fake_quant), p["kv_norm"],
+                       cfg.norm_eps)
+    kr_new = dense(x, p["w_kr"], mx, fake_quant)
+    cos, sin = rope_tables(positions(b, s, x.device, cache_pos), dr,
+                           cfg.rope_theta)
+    qr = apply_rope(qr, cos, sin)
+    kr_new = apply_rope(kr_new.reshape(b, s, 1, dr), cos, sin)[:, :, 0, :]
+    cache = _mla_cache_write(cache, ckv_new, kr_new, cache_pos, cfg)
+    ckv, kr = _mla_cache_read(cache, cfg, dt)       # (B,S,L), (B,S,dr)
+    wuk = p["w_uk"].to(dt).reshape(cfg.kv_lora, nh, dn)
+    qc = _ein("bqhd,lhd->bqhl", qn, wuk, dtype=dt)
+    scores = (torch.einsum("bqhl,bkl->bhqk", qc.to(torch.float32),
+                           ckv.to(torch.float32))
+              + torch.einsum("bqhd,bkd->bhqk", qr.to(torch.float32),
+                             kr.to(torch.float32))) \
+        * (1.0 / np.sqrt(dn + dr))
+    if isinstance(cache_pos, torch.Tensor):
+        cache_pos = cache_pos.reshape(())
+    mask = torch.arange(ckv.shape[1], device=x.device) <= cache_pos
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF),
+                          dim=-1).to(dt)
+    ctx = _ein("bhqk,bkl->bqhl", probs, ckv, dtype=dt)
+    wuv = p["w_uv"].to(dt).reshape(cfg.kv_lora, nh, dv)
+    out = _ein("bqhl,lhd->bqhd", ctx, wuv, dtype=dt)
+    out = dense(out.reshape(b, s, nh * dv), p["wo"], mx, fake_quant)
     return out, cache
 
 

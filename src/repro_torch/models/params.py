@@ -15,6 +15,13 @@ rebuilt byte for byte, so both sides compute with identical weights.
 Under a per-layer policy table the reference's quantized ``layers`` are
 a list of per-layer trees (each at its own weight format) instead of a
 stack; both are taken.
+
+The other families stack their layers too, and the port keeps each as a
+list: the hybrid's Mamba2 ``blocks`` (its ``shared_attn`` block is one
+tree), RWKV's ``blocks``, the encoder-decoder's ``enc_layers`` and
+``dec_layers`` (each decoder layer with its ``xattn``).  MLA layers
+carry their own keys (``w_dkv``, ``w_kr``, ``w_uk``, ``w_uv``, ``w_dq``,
+``w_uq``, the two norms) through the decoder's path.
 """
 from __future__ import annotations
 
@@ -40,8 +47,12 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-# fp leaves kept in f32 whatever the config's dtype (ref layers.py:881)
-_F32_KEYS = frozenset({"router"})
+# fp leaves kept in f32 whatever the config's dtype: the MoE router (ref
+# layers.py:881), Mamba2's decay, step bias and skip (ref ssm.py:40-42),
+# RWKV's decay base and bonus (ref rwkv.py:41-47)
+_F32_KEYS = frozenset({"router", "a_log", "dt_bias", "d_skip", "w0", "u"})
+# the layer stacks of the other families, one list each in the port
+_STACKS = ("blocks", "enc_layers", "dec_layers")
 
 
 def _leaf(leaf, i, cfg: ModelConfig, device, key: str = "", dtype=None):
@@ -69,18 +80,21 @@ def _leaf(leaf, i, cfg: ModelConfig, device, key: str = "", dtype=None):
 
 def from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                device="cuda", dtype=None) -> Dict[str, Any]:
-    """The reference's params (numpy leaves; ``dense_layers`` then the
-    stacked ``layers``) -> the port's params (one per-layer list) on
+    """The reference's params (numpy leaves; a decoder's ``dense_layers``
+    then its stacked ``layers``, another family's stacks) -> the port's
+    params (per-layer lists) on
     ``device`` (the card unless the caller asks for ``"cpu"``); every fp
     leaf in ``dtype`` when given (a gradient or optimizer-state tree of
     the params' structure), else as the config stores it."""
     device = torch.device(device)
+    if cfg.family != "decoder":
+        return {k: [_leaf(v, i, cfg, device, dtype=dtype)
+                    for i in range(_depth(v))] if k in _STACKS
+                else _leaf(v, None, cfg, device, dtype=dtype)
+                for k, v in tree.items()}
     dense = tree.get("dense_layers", [])
     stack = tree["layers"]
-    if isinstance(stack, (list, tuple)):      # per-layer (a policy table)
-        n = len(stack)
-    else:
-        n = next(v for v in _first_leaves(stack)).shape[0]
+    n = _depth(stack)
     if len(dense) != cfg.n_dense_layers or len(dense) + n != cfg.n_layers:
         raise ValueError(f"params hold {len(dense)} dense + {n} stacked "
                          f"layers, config says {cfg.n_dense_layers} dense "
@@ -101,6 +115,13 @@ def opt_state_from_numpy(state: Dict[str, Any], cfg: ModelConfig,
     numpy tree of the params' structure) -> the port's, all f32."""
     return {k: from_numpy(state[k], cfg, device, dtype=torch.float32)
             for k in ("master", "m", "v")}
+
+
+def _depth(stack) -> int:
+    """Layers of a stacked tree (or of a per-layer list)."""
+    if isinstance(stack, (list, tuple)):
+        return len(stack)
+    return next(v for v in _first_leaves(stack)).shape[0]
 
 
 def _first_leaves(t):

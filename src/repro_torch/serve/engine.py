@@ -80,6 +80,7 @@ from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
 from repro_torch.serve.swap import (HostSwapStore, SwapData,
                                     concat_snapshots, gather_pages,
                                     scatter_pages, sync, to_host)
+from repro_torch.tree import leaves as tree_leaves
 
 
 KERNEL_FAIL_REFUSED = (
@@ -111,10 +112,12 @@ def _stream_keys(seed: int, ids, device) -> torch.Tensor:
 
 class ServeEngine:
     """Static-batch serving over a contiguous KV cache of ``max_len``
-    positions: one prefill, then decode steps with the position kept on
-    the device — on the card one replay of a captured step per token (no
-    host sync inside the decode loop), one graph per batch size and
-    temperature.  Row b samples from the stream of request id b under
+    positions (a recurrent state for RWKV, KV caches and Mamba2 states
+    for the hybrid, self and cross caches for the encoder-decoder): one
+    prefill, then decode steps with the position kept on the device — on
+    the card one replay of a captured step per token (no host sync inside
+    the decode loop), one graph per batch size, temperature and encoder
+    length.  Row b samples from the stream of request id b under
     ``gen.seed``."""
 
     def __init__(self, model: Model, params, max_len: int):
@@ -125,7 +128,7 @@ class ServeEngine:
         self.n_captures = 0          # decode steps captured so far
         # last call, seconds; "capture" is nonzero on a new shape only
         self.phase = {"capture": 0.0, "prefill": 0.0, "decode": 0.0}
-        self._graphs: Dict[Tuple[int, float], StaticDecodeGraph] = {}
+        self._graphs: Dict[tuple, StaticDecodeGraph] = {}
 
     @property
     def weight_pool_nbytes(self) -> int:
@@ -133,33 +136,41 @@ class ServeEngine:
         codes + E8M0 scales, fp params their dtype width)."""
         return params_nbytes(self.params)
 
-    def _graph(self, batch: int, temperature: float) -> StaticDecodeGraph:
-        key = (batch, float(temperature))
+    def _graph(self, batch: int, temperature: float,
+               s_enc: int = 0) -> StaticDecodeGraph:
+        # an encoder-decoder's step is also keyed by its encoder length
+        key = (batch, float(temperature)) + ((s_enc,) if s_enc else ())
         if key not in self._graphs:
             self._graphs[key] = StaticDecodeGraph(
                 self.model, self.params, batch=batch, max_len=self.max_len,
-                temperature=temperature)
+                temperature=temperature, s_enc=s_enc)
             self.n_captures += self.model.device.type == "cuda"
         return self._graphs[key]
 
     def generate(self, batch: Dict[str, np.ndarray],
                  gen: GenerationConfig = GenerationConfig()) -> np.ndarray:
-        """batch: {"tokens": (B, S) int32} of equal-length prompts.
-        Returns (B, max_new_tokens) int32 tokens."""
-        tokens = torch.as_tensor(np.asarray(batch["tokens"], np.int32))
-        b, s = tokens.shape
-        if s + gen.max_new_tokens - 1 > self.max_len:
-            raise ValueError(f"prompt {s} + {gen.max_new_tokens} new tokens "
-                             f"do not fit max_len={self.max_len}")
+        """batch: the reference's input dict of equal-length prompts,
+        {"tokens": (B, S) int32} and, for its family, ``prefix_embeds``
+        (B, P, d) (decode then starts at P + S) or ``frames`` (B, S_enc,
+        d).  Returns (B, max_new_tokens) int32 tokens."""
+        batch = dict(batch)
+        batch["tokens"] = np.asarray(batch["tokens"], np.int32)
+        b, s = batch["tokens"].shape
+        cfg = self.model.cfg
+        pe = batch.get("prefix_embeds")
+        n_pos = s + (0 if pe is None else np.shape(pe)[1])
+        if n_pos + gen.max_new_tokens - 1 > self.max_len:
+            raise ValueError(f"prompt {n_pos} + {gen.max_new_tokens} new "
+                             f"tokens do not fit max_len={self.max_len}")
+        s_enc = np.shape(batch["frames"])[1] if cfg.family == "encdec" \
+            else 0
         dev = self.model.device
-        vocab = self.model.cfg.vocab
         t0 = time.perf_counter()
-        graph = self._graph(b, gen.temperature)
+        graph = self._graph(b, gen.temperature, s_enc)
         t1 = time.perf_counter()
         logits, cache, pos = self.model.prefill(
-            self.params, tokens.to(dev), max_len=self.max_len,
-            cache=graph.cache)
-        keys, tok = sample_tokens(logits[:, -1, :vocab],
+            self.params, batch, max_len=self.max_len, cache=graph.cache)
+        keys, tok = sample_tokens(logits[:, -1, :cfg.vocab],
                                   _stream_keys(gen.seed, range(b), dev),
                                   gen.temperature)
         out = [tok.cpu()[:, None]]        # ends the prefill phase
@@ -170,7 +181,7 @@ class ServeEngine:
         self.phase = {"capture": t1 - t0, "prefill": t2 - t1,
                       "decode": time.perf_counter() - t2}
         self.kv_cache_nbytes = int(sum(t.numel() * t.element_size()
-                                       for t in cache.values()))
+                                       for t in tree_leaves(cache)))
         return torch.cat(out, dim=1).numpy()
 
 
@@ -260,7 +271,8 @@ class ContinuousBatchingEngine:
                  tracer: Optional[Tracer] = None, obs_interval: int = 0):
         if not model.supports_paged():
             raise NotImplementedError(
-                f"{model.cfg.name}: continuous batching needs a GQA decoder")
+                f"{model.cfg.name}: continuous batching needs a GQA "
+                f"decoder (no MLA / modality frontend)")
         if sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every}")
         if faults is not None and any(f.site == "kernel_fail"

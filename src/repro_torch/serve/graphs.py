@@ -22,9 +22,9 @@ nothing) is taken back off.
 its captured step (``decoder.paged_decode_window_step``); a window of n
 steps is n replays, so the power-of-two windows of
 ``Scheduler.plan_window`` share one graph.  ``StaticDecodeGraph`` holds
-the static engine's contiguous cache and its captured step
-(``decoder.decode_step`` at a position kept on the device, then
-sampling), one per batch size and temperature.
+the static engine's cache and its captured step (the family's
+``decode_step`` at a position kept on the device, then sampling), one per
+batch size, temperature and encoder length.
 """
 from __future__ import annotations
 
@@ -177,18 +177,21 @@ class PagedDecodeGraph:
 
 class StaticDecodeGraph:
     """The static engine's decode step over a contiguous cache of
-    ``max_len`` positions for ``batch`` rows, at one temperature.
+    ``max_len`` positions for ``batch`` rows, at one temperature (and,
+    for an encoder-decoder, one encoder length ``s_enc``: the cache's
+    cross K/V, which its prefill fills).
 
-    ``cache`` is the static cache (``prefill(..., cache=)`` fills it);
+    ``cache`` is the static cache (``prefill(..., cache=)`` fills it in
+    place: KV caches, recurrent states and cross K/V alike);
     ``token`` (batch,) int32, ``pos`` (1,) int32 and ``keys`` (batch, 2)
     int64 advance on the device with every step, and ``tokens`` (max_len,
     batch) int32 collects what each step samples."""
 
     def __init__(self, model, params, *, batch: int, max_len: int,
-                 temperature: float = 0.0):
+                 temperature: float = 0.0, s_enc: int = 0):
         dev = model.device
         vocab = model.cfg.vocab
-        self.cache = model.init_cache(batch, max_len)
+        self.cache = model.init_cache(batch, max_len, s_enc)
         self.token = torch.zeros(batch, dtype=torch.int32, device=dev)
         self.pos = torch.zeros(1, dtype=torch.int32, device=dev)
         self.keys = torch.zeros((batch, 2), dtype=torch.int64, device=dev)
@@ -207,8 +210,8 @@ class StaticDecodeGraph:
             self.tokens.index_copy_(0, self._step_idx, nxt[None])
             self._step_idx += 1
 
-        # the warm-up writes position 0 of the cache, which every prefill
-        # zeroes and rewrites
+        # the warm-up writes position 0 of the cache (and steps a
+        # recurrent state), which every prefill zeroes and rewrites
         self.step = CapturedStep(step, dev)
 
     def run(self, token: torch.Tensor, keys: torch.Tensor, pos: int,

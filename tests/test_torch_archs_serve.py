@@ -1,5 +1,5 @@
-"""Both engines of the port against the JAX engines on every reduced
-config of ``repro_torch.models.ARCH_IDS``: greedy tokens, and the
+"""Both engines of the port against the JAX engines on every reduced GQA
+decoder config of ``repro_torch.models.ARCH_IDS``: greedy tokens, and the
 batch-dependence of MoE capacity routing.
 
 Weight-resident e4m3 weights with INT8-key / E2M1-value MX KV at
@@ -83,7 +83,11 @@ def _continuous(jm, jp, tm, tp, prompts, news, sync_every, **kw):
     return want, _serve(TEngine(tm, tp, **kw), prompts, news)
 
 
-CASES = [(a, {}) for a in ARCH_IDS] + [(MOE, {"capacity_factor": 64.0})]
+# the GQA decoders (the other families' static engine:
+# tests/test_torch_families_serve.py; they have no continuous engine)
+GQA = tuple(a for a in ARCH_IDS if TModel(t_load_reduced(a), "cpu")
+            .supports_paged())
+CASES = [(a, {}) for a in GQA] + [(MOE, {"capacity_factor": 64.0})]
 
 
 @pytest.mark.parametrize("arch,over", CASES,

@@ -15,7 +15,7 @@ import torch
 from repro_torch.core import MXWeight
 from repro_torch.core.formats import ALL_FORMATS
 from repro_torch.core.pack import pack_codes, packed_nbytes
-from repro_torch.core.spec import QuantSpec
+from repro_torch.core.spec import QuantPolicy, QuantSpec
 from repro_torch.kernels import mx_decode_attn, ref
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.mx_decode_attn import (mx_decode_attention,
@@ -557,7 +557,9 @@ def test_decode_attention_kernel_matches_plain(dev, kv):
 # 32 (two m-tiles), D 64 and 128, positions at tile (16), split (64) and
 # page edges; held to torch's bf16 defaults against the plain version
 TC_SHAPES = [(16, 2, 128), (7, 2, 64), (1, 2, 64), (32, 1, 128),
-             (16, 1, 64), (1, 16, 128), (7, 8, 128)]   # moonshot, yi-34b
+             (16, 1, 64), (1, 16, 128), (7, 8, 128),   # moonshot, yi-34b
+             (1, 32, 64), (1, 16, 64), (8, 8, 128)]    # zamba2, seamless,
+#                                                        internvl2
 TC_POSITIONS = (0, 1, 15, 16, 17, 63, 64, 65, 127, 128, 575, 639)
 
 
@@ -1631,3 +1633,111 @@ def test_train_resume_on_card_is_bit_identical(dev, tmp_path):
     for x, y in zip(leaves({"p": a["params"], "o": a["opt"]}),
                     leaves({"p": b["params"], "o": b["opt"]})):
         assert torch.equal(x, y)
+
+
+# =============================================================================
+# the other families: MLA, the patch frontend, the hybrid, RWKV6, enc-dec
+# =============================================================================
+def test_matmul_bf16_at_internvl2_w1(dev):
+    """internvl2-76b's w1 shape (K 8192, N 28672) at a decode batch of 8,
+    bf16 activations, e4m3, against the plain version on the card;
+    rtol/atol 1e-5 relative to the output scale, as above."""
+    rng = np.random.default_rng(24)
+    k, n = 8192, 28672
+    a = torch.from_numpy(rng.normal(size=(8, k)).astype(np.float32))
+    w = torch.randn(k, n, device=dev) / np.sqrt(k)
+    mw = MXWeight.quantize(w, QuantSpec.parse("e4m3@32:ocp"))
+    del w
+    a = a.to(dev).to(torch.bfloat16)
+    got = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
+    want = ref.mx_matmul_2d_ref(a, mw.codes, mw.scales, mw.spec)
+    tol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=tol)
+
+
+@pytest.mark.parametrize("width", [512, 64])
+def test_converter_on_mla_rows_bit_identical(dev, width):
+    """MLA's compressed cache rows (c_kv 512, k_rope 64), a decode step's
+    8 and a prefill's 4096, INT8 and E4M3, special values in: codes and
+    scales bit for bit the plain converter's; and the layer's cache
+    write on the card, at a device position, equals its CPU run."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import load_reduced
+    rng = np.random.default_rng(width)
+    for spec in ("int8@32:ocp", "e4m3@32:ocp"):
+        spec = QuantSpec.parse(spec)
+        for m in (8, 4096):
+            x = rng.normal(size=(m, width)).astype(np.float32)
+            x[:8] = _special_rows(rng, width)
+            x = torch.from_numpy(x)
+            c, sc = mx_quantize_2d(x.to(dev), spec)
+            rc, rs = mx_quantize_2d(x, spec)
+            torch.cuda.synchronize()
+            assert torch.equal(c.cpu(), rc) and torch.equal(sc.cpu(), rs)
+    cfg = load_reduced("deepseek_v2_236b", mx=QuantPolicy.parse(
+        "kv=int8@32:ocp"), kv_lora=512, qk_rope_dim=64)
+    ckv = torch.from_numpy(rng.normal(size=(3, 1, 512)).astype(np.float32))
+    kr = torch.from_numpy(rng.normal(size=(3, 1, 64)).astype(np.float32))
+    caches = []
+    for d, pos in ((torch.device("cpu"), 5),
+                   (dev, torch.tensor([5], dtype=torch.int32, device=dev))):
+        cache = L.init_mla_cache(cfg, 3, 8, d)
+        L._mla_cache_write(cache, ckv.to(d), kr.to(d), pos, cfg)
+        caches.append({k: v.cpu() for k, v in cache.items()})
+    assert all(torch.equal(caches[0][k], caches[1][k]) for k in caches[0])
+    assert caches[0]["ckv_codes"][:, 5].any()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "rwkv6_7b",
+                                  "seamless_m4t_medium", "deepseek_v2_236b",
+                                  "internvl2_76b"])
+def test_captured_family_step_matches_eager(dev, arch):
+    """The reduced config in bf16 under INT8 K / E2M1 V at
+    ``attn_impl="flash"`` (internvl2 weight-resident e4m3) through
+    ``ServeEngine`` on the card: the captured decode step, replayed once
+    per token, gives the eager loop's tokens, and the graph's cache and
+    recurrent states after the run are byte-identical to the eager
+    loop's (KV caches, Mamba2 conv / ssm states, RWKV shift and WKV
+    states, the cross K/V, MLA's compressed cache); a second call gives
+    the same tokens."""
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models import make_concrete_batch
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    resident = arch == "internvl2_76b"
+    quant = ("weights=e4m3@32:ocp," if resident else "") \
+        + "kv_key=int8@32:ocp,kv_value=e2m1@32:ocp"
+    model, params = build_model(arch, reduced=True, quant=quant,
+                                weight_resident=resident, device=str(dev),
+                                seed=0, attn_impl="flash",
+                                dtype="bfloat16")
+    batch = make_concrete_batch(model.cfg, 3, 40, seed=2)
+    batch.pop("labels")
+    new, max_len = 9, 64
+    eng = ServeEngine(model, params, max_len=max_len)
+    gen = GenerationConfig(max_new_tokens=new)
+    first = eng.generate(batch, gen)
+    again = eng.generate(batch, gen)
+    assert eng.n_captures == 1 and np.array_equal(first, again)
+    graph = next(iter(eng._graphs.values()))
+    vocab = model.cfg.vocab
+    logits, cache, pos = model.prefill(params, batch, max_len=max_len)
+    tok = torch.argmax(logits[:, -1, :vocab], -1).to(torch.int32)
+    eager = [tok]
+    for i in range(new - 1):
+        lg, cache = model.decode_step(params, tok, cache, pos + i)
+        tok = torch.argmax(lg[:, -1, :vocab], -1).to(torch.int32)
+        eager.append(tok)
+    torch.cuda.synchronize()
+    assert np.array_equal(first, torch.stack(eager, 1).cpu().numpy())
+    got, want = list(_leaves(graph.cache)), list(_leaves(cache))
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)

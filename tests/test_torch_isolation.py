@@ -53,8 +53,9 @@ def test_sources_import_no_jax_or_reference():
 
 
 def test_every_arch_config_is_scanned():
-    """The scans above cover each config of ``ARCH_IDS`` and the MoE
-    layer's module: each is a module of the package, imported in the
+    """The scans above cover each config of ``ARCH_IDS`` (all ten of the
+    reference's) and the MoE layer's module: each is a module of the
+    package, imported in the
     fresh interpreter and parsed for imports, and none of them pulls in
     jax or the reference."""
     code = (
@@ -69,7 +70,7 @@ def test_every_arch_config_is_scanned():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, cwd=str(ROOT))
     archs, bad = json.loads(out.stdout.strip().splitlines()[-1])
-    assert bad == [] and len(archs) == 5
+    assert bad == [] and len(archs) == 10
     scanned = set(_modules())
     assert {f"repro_torch.configs.{a}" for a in archs} <= scanned
     assert "repro_torch.models.layers" in scanned
