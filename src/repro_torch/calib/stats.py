@@ -37,6 +37,18 @@ ALL_ROLES = ("weights", "activations", "kv_key", "kv_value", "grads")
 # outside the quantized matmuls
 _WEIGHT_EXCLUDE = ("router",)
 
+# where the reference's collect_model_stats stops on the other families:
+# it walks the decoder's layer stack, and its grads-role loss runs the
+# model on tokens alone
+_REFERENCE_LIMIT = {
+    "hybrid": "KeyError: 'layers' (src/repro/calib/stats.py:183, the "
+              "decoder's layer stack)",
+    "rwkv": "KeyError: 'layers' (src/repro/calib/stats.py:183, the "
+            "decoder's layer stack)",
+    "encdec": "KeyError: 'frames' (src/repro/calib/stats.py:192 runs the "
+              "model on tokens alone; src/repro/models/registry.py:64)",
+}
+
 
 # =============================================================================
 # TensorStats: one (role, layer)'s streaming accumulator
@@ -228,7 +240,8 @@ def collect_model_stats(model, params, batches: Iterable[np.ndarray], *,
                         sample_rows: int = 4096) -> CalibStats:
     """Collect per-(role, layer) statistics from calibration batches.
 
-    ``model`` is a ``models.registry.Model`` over fp ``params``;
+    ``model`` is a ``models.registry.Model`` of the decoder family (the
+    others raise where the reference's stops) over fp ``params``;
     ``batches`` yields (B, S) int32 token arrays.  The weights role reads
     the params (no forward); ``grads`` runs one LM-loss backward per
     batch (attention through ``flash_attention_vjp`` at ``"flash"``).
@@ -238,6 +251,12 @@ def collect_model_stats(model, params, batches: Iterable[np.ndarray], *,
         if r not in ALL_ROLES:
             raise ValueError(f"unknown tensor role {r!r}; choose from "
                              f"{list(ALL_ROLES)}")
+    family = model.cfg.family
+    if family != "decoder":
+        raise NotImplementedError(
+            f"{model.cfg.name}: calibration covers the decoder family, as "
+            f"the reference's does: its collect_model_stats stops on the "
+            f"{family!r} family with {_REFERENCE_LIMIT[family]}")
     acc: Dict[str, Dict[int, TensorStats]] = {r: {} for r in roles}
     fwd_roles = tuple(r for r in roles if r in ROLES_FORWARD)
     red = functools.partial(tensor_reduction, block=block,

@@ -301,8 +301,17 @@ def mx_quantize(x: torch.Tensor, spec=None, mode: Optional[str] = None,
 
 def decode_elements(codes: torch.Tensor, fmt: MXFormat,
                     mode: str) -> torch.Tensor:
-    """Element code -> f32 value relative to the scale (no scale applied)."""
-    c = codes.to(_I32)
+    """Element code -> f32 value relative to the scale (no scale applied).
+    The value is a function of the code byte alone, so the 256 bytes are
+    decoded (``_decode_bytes``) and each code looks its value up: the
+    same bits as decoding every element, at one gather's cost."""
+    table = _decode_bytes(torch.arange(256, dtype=_I32, device=codes.device),
+                          fmt, mode)
+    return table[codes.long()]
+
+
+def _decode_bytes(c: torch.Tensor, fmt: MXFormat, mode: str) -> torch.Tensor:
+    """``decode_elements`` by arithmetic on int32 codes ``c``."""
     if fmt.is_int:
         if mode == "paper":                      # sign-magnitude 1.6
             mag = (c & 0x7F).to(torch.float32) / 64.0

@@ -7,12 +7,13 @@ cursor is just the step number, so a restart from a checkpoint replays
 the same batches.  ``token_file_reader`` is the file-backed path (a
 memmap of uint16/uint32 tokens) with the same cursor semantics.
 ``make_batch_for`` puts a batch on the model's device (int32, as the
-reference's).
+reference's), with the encoder-decoder's and the patch frontend's
+modality stubs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -74,20 +75,28 @@ def token_file_reader(path: str, seq_len: int, global_batch: int,
     return batch, n_steps
 
 
-def make_batch_for(cfg: ModelConfig, data: Dict[str, np.ndarray], *,
+def make_batch_for(cfg: ModelConfig, data: Dict[str, np.ndarray],
+                   prefix_rng: Optional[np.random.Generator] = None, *,
                    device="cuda") -> Dict[str, torch.Tensor]:
-    """A raw token batch as the model's input dict on ``device`` (the card
-    unless the caller asks for the CPU).  The reference also builds the
-    modality stubs of its encoder-decoder and patch-frontend families
-    (from its ``prefix_rng``); the port trains the GQA decoder family,
-    whose input is the tokens alone (its other families serve, and
-    training them is ROADMAP item A12)."""
-    if cfg.family != "decoder" or cfg.frontend != "none":
-        what = f"the {cfg.family!r} family"
-        if cfg.frontend != "none":
-            what += f" with a {cfg.frontend!r} frontend"
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains the GQA decoder family (MLA "
-            f"included); training {what} is ROADMAP item A12")
-    return {k: torch.as_tensor(np.asarray(data[k], np.int32), device=device)
-            for k in ("tokens", "labels")}
+    """A raw token batch as the arch's input dict on ``device`` (the card
+    unless the caller asks for the CPU), with the reference's modality
+    stubs: an encoder-decoder gets ``frames`` (B, S, d_model) and a patch
+    frontend ``prefix_embeds`` (B, prefix_len, d_model), N(0, 1) x 0.02 in
+    f32 drawn from ``prefix_rng`` (a fresh ``default_rng(0)`` when none is
+    given, so every batch then carries the same stub, as in the
+    reference), the patch frontend's labels prefixed by ``prefix_len``
+    entries of -1.  Tokens and labels are int32."""
+    b, s = data["tokens"].shape
+    out = {k: np.asarray(data[k], np.int32) for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        rng = prefix_rng or np.random.default_rng(0)
+        out["frames"] = rng.normal(size=(b, s, cfg.d_model)).astype(
+            np.float32) * 0.02
+    elif cfg.frontend == "patch" and cfg.prefix_len:
+        rng = prefix_rng or np.random.default_rng(0)
+        out["prefix_embeds"] = rng.normal(
+            size=(b, cfg.prefix_len, cfg.d_model)).astype(np.float32) * 0.02
+        out["labels"] = np.concatenate(
+            [np.full((b, cfg.prefix_len), -1, np.int32), out["labels"]],
+            axis=1)
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}

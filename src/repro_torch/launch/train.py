@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3_6b \\
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ck
 
-Trains on the CUDA device (``--device cpu`` computes every kernel's plain
-version instead; use it with ``--reduced``): random weights from seed 0,
-synthetic batches from ``data.SyntheticLM``, the resumable loop of
+Trains any arch of ``models.ARCH_IDS`` on the CUDA device (``--device
+cpu`` computes every kernel's plain version instead; use it with
+``--reduced``): random weights from seed 0, synthetic batches from
+``data.SyntheticLM`` (an encoder-decoder's frames and a patch frontend's
+embeddings are ``data.make_batch_for``'s fixed stubs, the same every
+step, as in the reference: ROADMAP C12), the resumable loop of
 ``train.loop`` (atomic checkpoints every ``--ckpt-every`` steps, resumed
 from the latest one in ``--ckpt-dir``; without it, a new directory under
 the temp dir).  The step is deterministic: this
@@ -27,7 +30,11 @@ tokens from numpy seed 1), then ``calib.search_weights_policy`` gives
 each layer its own ``weights`` spec under the average bytes-per-param
 budget, and one uniform ``grads`` spec is the best aggregate-gradient
 SQNR within the same budget; the per-layer table trains with QAT and
-``--save-policy`` writes its JSON.  ``--compressed-dp`` and
+``--save-policy`` writes its JSON.  Calibration covers the decoder
+family (MLA and the patch frontend included), as the reference's: the
+hybrid, RWKV and the encoder-decoder stop where the reference's
+``collect_model_stats`` does, with a message naming that limit.
+``--compressed-dp`` and
 ``--devices`` (the reference's multi-device data parallelism) stop with
 a message naming ROADMAP A11.
 """
@@ -60,6 +67,23 @@ def grads_role_spec(stats, budget: float):
         return None, None
     best = max(in_budget, key=in_budget.get)
     return best, in_budget[best]
+
+
+def auto_table(stats, budget: float, cfg):
+    """The reference launcher's ``--quant auto:<budget>`` table from
+    calibration ``stats``: ``search_weights_policy``'s per-layer weights
+    table with the uniform ``grads_role_spec`` in every layer.  Returns
+    (table, the search's result, the grads spec, its mean SQNR)."""
+    from repro_torch.calib import search_weights_policy
+    res = search_weights_policy(stats, budget, cfg)
+    table = res.table
+    gspec, gsqnr = grads_role_spec(stats, budget)
+    if gspec is not None:
+        table = table.replace(
+            default=table.default.replace(grads=gspec),
+            overrides=tuple((i, p.replace(grads=gspec))
+                            for i, p in table.overrides))
+    return table, res, gspec, gsqnr
 
 
 def main(argv=None) -> None:
@@ -133,22 +157,15 @@ def main(argv=None) -> None:
     if auto_budget is not None:
         from pathlib import Path
 
-        from repro_torch.calib import (collect_model_stats,
-                                       search_weights_policy)
+        from repro_torch.calib import collect_model_stats
         rng = np.random.default_rng(1)
         batches = [rng.integers(0, cfg.vocab, size=(args.batch, args.seq)
                                 ).astype(np.int32)
                    for _ in range(max(1, args.calib_batches))]
         stats = collect_model_stats(model, params, batches,
                                     roles=("weights", "grads"))
-        res = search_weights_policy(stats, auto_budget, cfg)
-        table = res.table
-        gspec, gsqnr = grads_role_spec(stats, auto_budget)
+        table, res, gspec, gsqnr = auto_table(stats, auto_budget, cfg)
         if gspec is not None:
-            table = table.replace(
-                default=table.default.replace(grads=gspec),
-                overrides=tuple((i, p.replace(grads=gspec))
-                                for i, p in table.overrides))
             print(f"[train] grads role -> {gspec} "
                   f"({gsqnr:.1f}dB aggregate SQNR)")
         print("[train] " + res.describe().replace("\n", "\n[train] "))
@@ -172,6 +189,8 @@ def main(argv=None) -> None:
                                   global_batch=args.batch))
 
     def batch_fn(i):
+        # no prefix_rng, as the reference's launcher: every step's frames
+        # or patch embeddings are the same stub (ROADMAP C12)
         return make_batch_for(cfg, data.batch(i), device=model.device)
 
     if args.ckpt_dir is None:

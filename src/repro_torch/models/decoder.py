@@ -29,7 +29,6 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.core.mx_weight import MXWeight
 from repro_torch.models import layers as L
@@ -324,9 +323,8 @@ def _forward_with_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     the layers past the leading dense ones, as the reference's training
     ``forward`` averages its scanned stack (0 for a dense config).  With
     ``remat`` each of those layers runs under
-    ``torch.utils.checkpoint`` (non-reentrant; the reference's
-    ``jax.checkpoint`` of its scan step): a backward pass recomputes the
-    layer, kernel launches included, where it needs a saved tensor.
+    ``L.checkpointed`` (the reference checkpoints its scan step, and its
+    leading dense layers run outside the scan).
     ``prefix_embeds`` (B, P, d) go before the tokens' embeddings (the
     logits cover both)."""
     x = embed(params, cfg, tokens, prefix_embeds)
@@ -338,11 +336,8 @@ def _forward_with_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                                fake_quant=fake_quant)
             return y, aux
 
-        if remat and i >= cfg.n_dense_layers:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                layer, x, use_reentrant=False)
-        else:
-            x, aux = layer(x)
+        x, aux = L.checkpointed(layer, x,
+                                remat and i >= cfg.n_dense_layers)
         if i >= cfg.n_dense_layers:
             auxs.append(aux)
     return head(params, cfg, x), _mean_aux(auxs, x.device)

@@ -65,17 +65,21 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
            fake_quant: bool = False) -> torch.Tensor:
     """frames (B, S_enc, d), the frontend's precomputed embeddings ->
     the encoder output (B, S_enc, d): non-causal self-attention layers
-    (dense at either ``attn_impl``, as in the reference)."""
+    (dense at either ``attn_impl``, as in the reference), each recomputed
+    in the backward pass with ``cfg.remat``."""
     x = frames.to(cfg.torch_dtype)
     b, s, _ = x.shape
     positions = L.positions(b, s, x.device)
     for lp in params["enc_layers"]:
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = L.attention(lp["attn"], h, cfg, positions=positions,
-                           causal=False, fake_quant=fake_quant)
-        x = x + a
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], h, cfg, fake_quant)
+        def layer(x, lp=lp):
+            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a, _ = L.attention(lp["attn"], h, cfg, positions=positions,
+                               causal=False, fake_quant=fake_quant)
+            x = x + a
+            h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            return x + L.mlp(lp["mlp"], h, cfg, fake_quant)
+
+        x = L.checkpointed(layer, x, cfg.remat)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -106,14 +110,22 @@ def _dec_block(lp, x, cfg: ModelConfig, *, positions, cross_kv, cache=None,
 def forward(params, frames: torch.Tensor, tokens: torch.Tensor,
             cfg: ModelConfig, *, fake_quant: bool = False):
     """Training forward: frames (B, S_enc, d) + decoder tokens (B, S) ->
-    (logits (B, S, Vp) f32, a zero aux loss)."""
+    (logits (B, S, Vp) f32, a zero aux loss).  With ``cfg.remat`` each
+    encoder layer and each decoder layer (its cross K/V from the encoder
+    output included, as in the reference's checkpointed scan step) is
+    recomputed in the backward pass; the decoder's gradient reaches the
+    encoder through the cross K/V."""
     enc_out = encode(params, frames, cfg, fake_quant)
     x = embed(params, cfg, tokens)
     positions = L.positions(*tokens.shape, x.device)
     for lp in params["dec_layers"]:
-        x = _dec_block(lp, x, cfg, positions=positions,
-                       cross_kv=_cross_kv(lp, enc_out, cfg, fake_quant),
-                       fake_quant=fake_quant)
+        def layer(x, lp=lp):
+            return _dec_block(lp, x, cfg, positions=positions,
+                              cross_kv=_cross_kv(lp, enc_out, cfg,
+                                                 fake_quant),
+                              fake_quant=fake_quant)
+
+        x = L.checkpointed(layer, x, cfg.remat)
     return head(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                device=x.device)
 

@@ -77,36 +77,45 @@ def _shared_block(sp, x, cfg: ModelConfig, *, positions, cache=None,
     return x + L.mlp(sp["mlp"], h, cfg, fake_quant), cache
 
 
-def _run(params, x, cfg: ModelConfig, *, positions, cache=None,
-         cache_pos=0, decode: bool = False, fake_quant: bool = False):
-    """The G groups: the shared block (site g's cache), then the group's
-    ``attn_every`` Mamba2 blocks (each its own state)."""
+def _run(params, x, cfg: ModelConfig, *, positions, cache, cache_pos=0,
+         decode: bool = False):
+    """Prefill or decode through the G groups: the shared block (site g's
+    cache), then the group's ``attn_every`` Mamba2 blocks (each its own
+    state), every cache written in place."""
     k, sp = cfg.attn_every, params["shared_attn"]
     for g in range(n_groups(cfg)):
-        site = None if cache is None else \
-            {n: t[g] for n, t in cache["attn"].items()}
+        site = {n: t[g] for n, t in cache["attn"].items()}
         x, _ = _shared_block(sp, x, cfg, positions=positions, cache=site,
-                             cache_pos=cache_pos, fake_quant=fake_quant)
+                             cache_pos=cache_pos)
         for j in range(k):
             lp = params["blocks"][g * k + j]
-            st = None if cache is None else \
-                {n: t[g, j] for n, t in cache["mamba"].items()}
+            st = {n: t[g, j] for n, t in cache["mamba"].items()}
             if decode:
-                x, _ = ssm.mamba_decode(lp, x, cfg, st,
-                                        fake_quant=fake_quant)
+                x, _ = ssm.mamba_decode(lp, x, cfg, st)
             else:
-                x, _ = ssm.mamba_block(lp, x, cfg, cache=st,
-                                       fake_quant=fake_quant)
+                x, _ = ssm.mamba_block(lp, x, cfg, cache=st)
     return x
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             fake_quant: bool = False):
-    """Full causal forward: tokens (B, S) -> (logits (B, S, Vp) f32, a
-    zero aux loss)."""
+    """Training forward: tokens (B, S) -> (logits (B, S, Vp) f32, a zero
+    aux loss).  With ``cfg.remat`` each group (the shared block and its
+    ``attn_every`` Mamba2 blocks, the reference's checkpointed scan step)
+    is recomputed in the backward pass.  The shared block's gradient is
+    the sum over its sites, accumulated by autograd."""
     x = embed(params, cfg, tokens)
-    x = _run(params, x, cfg, positions=L.positions(*x.shape[:2], x.device),
-             fake_quant=fake_quant)
+    positions = L.positions(*x.shape[:2], x.device)
+    k, sp = cfg.attn_every, params["shared_attn"]
+    for g in range(n_groups(cfg)):
+        def group(x, g=g):
+            x, _ = _shared_block(sp, x, cfg, positions=positions,
+                                 fake_quant=fake_quant)
+            for lp in params["blocks"][g * k:(g + 1) * k]:
+                x, _ = ssm.mamba_block(lp, x, cfg, fake_quant=fake_quant)
+            return x
+
+        x = L.checkpointed(group, x, cfg.remat)
     return head(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                device=x.device)
 

@@ -48,6 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core.convert import MXArray, mx_dequantize
 from repro_torch.core.mx_weight import MXWeight
@@ -78,6 +79,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def checkpointed(fn, x: torch.Tensor, on: bool):
+    """``fn(x)``; with ``on`` and gradients enabled under
+    ``torch.utils.checkpoint`` (non-reentrant; the reference's
+    ``jax.checkpoint`` of a scan step), so that the backward pass
+    recomputes ``fn``, kernel launches included, where it needs a tensor
+    that ``fn`` saved."""
+    if not (on and torch.is_grad_enabled()):
+        return fn(x)
+    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
 
 
 def dense(x: torch.Tensor, w, mx: Optional[QuantPolicy] = None,

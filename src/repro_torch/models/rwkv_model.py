@@ -8,11 +8,13 @@ decode step reads and writes the same buffers every replay.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models import rwkv
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import (embed, head_logits,
@@ -74,10 +76,17 @@ def _block(lp, x, cfg: ModelConfig, *, state=None, fake_quant=False):
 
 
 def _run(params, x, cfg: ModelConfig, cache=None, fake_quant=False):
+    """The input LayerNorm, then every block: from the state ``cache``
+    (written in place) or, for training, from a zero state, each block
+    recomputed in the backward pass when ``cfg.remat`` (the reference's
+    checkpointed scan step)."""
     x = _layer_norm(x, params["ln_in"], cfg.norm_eps)
     for i, lp in enumerate(params["blocks"]):
-        st = None if cache is None else {n: t[i] for n, t in cache.items()}
-        x = _block(lp, x, cfg, state=st, fake_quant=fake_quant)
+        if cache is None:
+            x = L.checkpointed(functools.partial(
+                _block, lp, cfg=cfg, fake_quant=fake_quant), x, cfg.remat)
+        else:
+            x = _block(lp, x, cfg, state={n: t[i] for n, t in cache.items()})
     return x
 
 
@@ -89,8 +98,8 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             fake_quant: bool = False):
-    """Full forward from a zero state: tokens (B, S) -> (logits (B, S,
-    Vp) f32, a zero aux loss)."""
+    """Training forward from a zero state: tokens (B, S) -> (logits (B,
+    S, Vp) f32, a zero aux loss)."""
     x = _run(params, embed(params, cfg, tokens), cfg,
              fake_quant=fake_quant)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,

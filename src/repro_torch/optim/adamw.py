@@ -96,6 +96,14 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(sq[1:], sq[0]))
 
 
+# elements of a leaf updated at once: on the card 64 MiB per f32
+# temporary (an internvl2-76b embedding's update in one piece holds ~24
+# GiB of them) in few launches; on the CPU 4 MiB, so that a slice's
+# arithmetic runs in cache
+UPDATE_SLICE = 1 << 24
+UPDATE_SLICE_CPU = 1 << 20
+
+
 def adamw_update(cfg: AdamWConfig, grads, state, step, param_dtype, params
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step, in place, as the reference's jitted step donates
@@ -104,9 +112,10 @@ def adamw_update(cfg: AdamWConfig, grads, state, step, param_dtype, params
     ``param_dtype``) into ``params``'s, a leaf stored wider (the MoE
     router in f32) taking the cast value; returns (params, state,
     metrics).  Leaves
-    are updated one at a time, so the extra memory is a few times the
-    largest leaf, not the state.  A caller that needs the old values
-    clones them first."""
+    are updated one at a time, a large one in slices of
+    ``UPDATE_SLICE`` elements (``UPDATE_SLICE_CPU`` on the CPU), so the
+    extra memory is a few of those slices, not the state.  A caller that
+    needs the old values clones them first."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = _lr(cfg, step)
@@ -116,18 +125,23 @@ def adamw_update(cfg: AdamWConfig, grads, state, step, param_dtype, params
     lr_f, bc1_f, bc2_f = float(lr), float(bc1), float(bc2)
 
     def upd(g, m, v, mast):
-        if g is None:                         # a zero gradient
-            m2 = cfg.b1 * m
-            v2 = cfg.b2 * v
-        else:
+        """The reference's update, its operations in its order, written
+        into m, v and mast: m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g
+        g, mast = mast - lr (m / bc1 / (sqrt(v / bc2) + eps) + wd mast)."""
+        m.mul_(cfg.b1)
+        v.mul_(cfg.b2)
+        if g is not None:                     # else a zero gradient
             g = g.to(_F32) * scale
-            m2 = cfg.b1 * m + (1.0 - cfg.b1) * g
-            v2 = cfg.b2 * v + (1.0 - cfg.b2) * g * g
-        mhat = m2 / bc1_f
-        vhat = v2 / bc2_f
-        step_dir = mhat / (torch.sqrt(vhat) + cfg.eps)
-        mast2 = mast - lr_f * (step_dir + cfg.weight_decay * mast)
-        return m2, v2, mast2
+            m.add_(g * (1.0 - cfg.b1))
+            gg = g * (1.0 - cfg.b2)
+            v.add_(gg.mul_(g))
+            del g, gg
+        step_dir = m / bc1_f
+        den = v / bc2_f
+        step_dir.div_(den.sqrt_().add_(cfg.eps))
+        del den
+        step_dir.add_(mast * cfg.weight_decay)
+        mast.sub_(step_dir.mul_(lr_f))
 
     flat = [leaves(grads), leaves(state["m"]), leaves(state["v"]),
             leaves(state["master"]), leaves(params)]
@@ -135,10 +149,15 @@ def adamw_update(cfg: AdamWConfig, grads, state, step, param_dtype, params
         raise ValueError("adamw_update: grads, state and params trees "
                          "differ")
     for g, m, v, w, p in zip(*flat):
-        m2, v2, w2 = upd(g, m, v, w)
-        m.copy_(m2)
-        v.copy_(v2)
-        w.copy_(w2)
-        p.copy_(w2.to(param_dtype))
-        del m2, v2, w2
+        # in slices (element-wise arithmetic: the same bits), so that a
+        # large leaf's f32 temporaries stay small beside the state; the
+        # state and params are contiguous (view raises otherwise), a
+        # gradient is flattened once
+        g = None if g is None else g.reshape(-1)
+        m, v, w, p = (t.view(-1) for t in (m, v, w, p))
+        step_n = UPDATE_SLICE if w.is_cuda else UPDATE_SLICE_CPU
+        for a in range(0, w.numel(), step_n):
+            part = slice(a, a + step_n)
+            upd(None if g is None else g[part], m[part], v[part], w[part])
+            p[part].copy_(w[part].to(param_dtype))
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -39,3 +39,17 @@ def random_moments(opt_state, seed: int = 0, scale: float = 1e-2):
     return {"master": opt_state["master"],
             "m": jax.tree_util.tree_map(jnp.asarray, ms),
             "v": jax.tree_util.tree_map(jnp.asarray, vs)}
+
+
+class LogitsTap:
+    """A reference ``Model`` whose forward keeps its last logits, so that
+    one ``jax.value_and_grad`` of the reference's ``_loss_fn`` can return
+    them as aux (the logits are of that trace)."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.logits = model, model.cfg, None
+
+    def forward(self, params, batch, *, fake_quant=False):
+        out = self.model.forward(params, batch, fake_quant=fake_quant)
+        self.logits = out[0]
+        return out
