@@ -161,6 +161,33 @@ failure (the script then exits non-zero and prints no result line):
    held to the f32 ones of the same params: the card's no further from
    them than the CPU's.
 
+9. MX-compressed data-parallel training (``train_dp``, last): the
+   kernels at the shapes one rank gives them, each against its plain
+   version and timed beside its bound: the converter's launch on the
+   rank's shard of chatglm3-6b's w1 gradient at world 2 (28,049,408 f32;
+   as (1, L) and as (L/32, 32) rows, bit for bit), the converter on the
+   rank's QAT activations (2048 rows of 4096 and of 13696 bf16, codes,
+   scales and values bit for bit) and flash attention at the rank's
+   batch (4 x 512, H 32, Hkv 2, D 128, bf16, beside SDPA); then two
+   ranks on the one card (``dist.spawn``; gloo, staged through pinned
+   host memory, so no wire speed is measured): the exchange
+   (``mx_allreduce_mean``) of the w1 gradient and of a ragged leaf in
+   every format x mode, each rank's output bit for bit against the same
+   exchange on the CPU (the plain converter), its wall ms and
+   ``exchanged_bytes``; then ``build_train_step_compressed_dp`` on
+   full-width chatglm3-6b cut to 2 layers, bf16, flash, remat, global
+   batches of 8 x 512 split over the ranks, 3 baseline and 2 QAT steps
+   (weights and activations E4M3), each driven from 0 in each rank: the
+   converter's launches per step exactly the exchanged leaves plus the
+   QAT launches, flash's exact, losses finite, ms per step and peak
+   memory per rank, and every leaf of params and AdamW state the same on
+   both ranks after each step (64-bit digests); then world one through
+   NCCL, in this process: the wire's reduce-scatter and all-gathers on
+   the card through NCCL (the identity at world one), and the step bit
+   for bit against ``build_train_step``,
+   beside the launcher's ``--compressed-dp --devices 2`` on the reduced
+   config.
+
 Every model here runs at ``attn_impl="flash"`` (attention through the
 kernels), as the reference's serving cells do.  The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -1662,45 +1689,48 @@ OTHER_FLASH = tuple((name, 512) for name in OTHER_HEADS) + (
     ("internvl2-76b", 768),)
 
 
+def _flash_row(torch, flush, gen, b, s, h, hkv, d, label):
+    """Flash attention at b sequences of s positions, causal, bf16, with
+    H ``h``, Hkv ``hkv`` and D ``d``, against its plain version within the
+    bf16 tolerance, timed beside SDPA and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention
+    q, k, v = (torch.randn(b, s, nh, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for nh in (h, hkv, hkv))
+    got = flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FLASH_TOL_BF16, atol=FLASH_TOL_BF16)
+    err = float((got.float() - want.float()).abs().max())
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    tb, by = bound(nbytes, 4.0 * b * h * s * (s + 1) / 2 * d, BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row = dict(kernel="flash_attention",
+               shape=f"{b} x {s} tokens, causal ({label}): H {h}, Hkv "
+                     f"{hkv}, D {d}", spec="bfloat16", max_abs_err=err,
+               ms=time_ms(torch, lambda: flash_attention(q, k, v),
+                          flush=flush),
+               plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
+                   q, k, v, True), flush=flush),
+               library_ms=time_ms(torch, lambda: F
+                                  .scaled_dot_product_attention(
+                                      qt, kt, vt, is_causal=True,
+                                      enable_gqa=True), flush=flush),
+               bound_ms=tb, bound_by=by)
+    emit("time", **row)
+    return row
+
+
 def _other_flash_rows(torch, flush, gen):
     """Flash attention at the other families' prefill and training
     shapes (OTHER_FLASH: 8 sequences, causal, bf16), against its plain
     version within the bf16 tolerance, timed beside SDPA."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attn import flash_attention
-    b = 8
-    rows, worst = [], 0.0
-    for name, s in OTHER_FLASH:
-        h, hkv, d = OTHER_HEADS[name]
-        q, k, v = (torch.randn(b, s, nh, d, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for nh in (h, hkv, hkv))
-        got = flash_attention(q, k, v)
-        want = ref.flash_attention_ref(q, k, v, True)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=FLASH_TOL_BF16, atol=FLASH_TOL_BF16)
-        err = float((got.float() - want.float()).abs().max())
-        worst = max(worst, err)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        tb, by = bound(nbytes, 4.0 * b * h * s * (s + 1) / 2 * d, BF16_FLOPS)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        row = dict(kernel="flash_attention",
-                   shape=f"8 x {s} tokens, causal ({name}): H {h}, Hkv "
-                         f"{hkv}, D {d}", spec="bfloat16", max_abs_err=err,
-                   ms=time_ms(torch, lambda: flash_attention(q, k, v),
-                              flush=flush),
-                   plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
-                       q, k, v, True), flush=flush),
-                   library_ms=time_ms(torch, lambda: F
-                                      .scaled_dot_product_attention(
-                                          qt, kt, vt, is_causal=True,
-                                          enable_gqa=True), flush=flush),
-                   bound_ms=tb, bound_by=by)
-        emit("time", **row)
-        rows.append(row)
+    rows = [_flash_row(torch, flush, gen, 8, s, *OTHER_HEADS[name], name)
+            for name, s in OTHER_FLASH]
     emit("check", kernel="flash_attention", what="the other families' "
          "prefill and training shapes", compared=len(OTHER_FLASH),
-         max_abs_err_bf16=worst,
+         max_abs_err_bf16=max(r["max_abs_err"] for r in rows),
          criterion=f"|kernel - plain| <= tol + tol * |plain|, tol "
                    f"{FLASH_TOL_BF16} (bf16)")
     return rows
@@ -5043,6 +5073,446 @@ def train_families_phase(torch, flush_bytes=256 * 2 ** 20):
     return launches, per_step, fq_rows
 
 
+# =============================================================================
+# phase 9: MX-compressed data-parallel training (train_dp)
+# =============================================================================
+DP_WORLD = 2            # ranks of the exchange and the step, both on one
+#                         card through gloo (staged through host memory)
+DP_LAYERS = 2           # chatglm3-6b cut to 2 of 28 layers: 0.93 G params,
+#                         ~19 GB of bf16 params, f32 master, m, v and the
+#                         exchange's f32 buffer per rank, so that two ranks
+#                         fit one card beside their activations
+DP_RUNS = (("baseline", "none", 3), ("qat", TRAIN_QUANT, 2))
+DP_GRAD = ("w1 gradient (13696 x 4096)", (13696, 4096))
+DP_RAGGED = ("ragged leaf (1,000,003)", (1_000_003,))
+DP_TIMEOUT = 300        # seconds for the ranks (~90 measured); a hung
+#                         collective fails the phase
+
+
+def leaf_digest(torch, t) -> int:
+    """A position-weighted 64-bit sum of a tensor's bits: sum over i of
+    word_i x (i x 0x9E3779B97F4A7C15 | 1) mod 2^64, the words being the
+    tensor's 2- or 4-byte elements.  Each weight is odd, so two tensors
+    that differ in a single element always have other digests."""
+    words = t.detach().contiguous().view(-1)
+    words = words.view(torch.int16 if words.element_size() == 2
+                       else torch.int32)
+    acc = torch.zeros((), dtype=torch.int64, device=words.device)
+    chunk = 1 << 24
+    for a in range(0, words.numel(), chunk):
+        part = words[a:a + chunk].to(torch.int64)
+        w = torch.arange(a, a + part.numel(), dtype=torch.int64,
+                         device=words.device)
+        w.mul_(-7046029254386353131).bitwise_or_(1)   # 0x9E37...7C15
+        acc += (part * w).sum()
+    return int(acc)
+
+
+def _dp_digests(torch, params, opt):
+    from repro_torch.tree import leaves
+    return [leaf_digest(torch, t) for t in leaves((params, opt))]
+
+
+def _dp_exchange(torch, groups):
+    """On each rank: the exchange of a leaf of its own (seeded by rank) in
+    every format x mode, on the card (the converter kernel, gloo staged
+    through host memory) and on the CPU (the plain converter, the same
+    gloo groups), bit for bit; the card's wall ms and the analytic
+    ``exchanged_bytes``."""
+    import dataclasses
+    from repro_torch.core.grad_compress import (exchanged_bytes,
+                                                mx_allreduce_mean)
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    dev = groups.device
+    cpu = dataclasses.replace(groups, device=torch.device("cpu"))
+    gen = torch.Generator(device=dev).manual_seed(100 + groups.rank)
+    rows = []
+    for leaf, shape in (DP_GRAD, DP_RAGGED):
+        g = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        g_cpu = g.cpu()
+        for fmt in FMTS:
+            for mode in MODES:
+                spec = QuantSpec(fmt, mode)
+                before = mx_quantize_2d.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = mx_allreduce_mean(g, groups, spec)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                want = mx_allreduce_mean(g_cpu, cpu, spec)
+                if not torch.equal(out.cpu(), want):
+                    raise AssertionError(
+                        f"rank {groups.rank}: exchange of the {leaf} in "
+                        f"{spec}: the card's output differs from the CPU's")
+                rows.append(dict(
+                    what="exchange", leaf=leaf, spec=str(spec),
+                    elements=g.numel(), wall_ms=ms,
+                    converter_launches=mx_quantize_2d.launches - before,
+                    exchanged_bytes=exchanged_bytes(g.numel(), groups.world,
+                                                    spec),
+                    f32_allreduce_bytes=exchanged_bytes(
+                        g.numel(), groups.world, spec, compressed=False),
+                    digest=leaf_digest(torch, out),
+                    bit_equal_cpu=True))
+                if rows[-1]["converter_launches"] != 1:
+                    raise AssertionError(f"exchange of the {leaf}: "
+                                         f"{rows[-1]['converter_launches']} "
+                                         f"converter launches, expected 1")
+        del g, g_cpu, out, want
+    return rows
+
+
+def _dp_train(torch, groups):
+    """On each rank: DP_RUNS of ``build_train_step_compressed_dp`` at
+    full width, DP_LAYERS layers, bf16, flash, remat, global batches of
+    TRAIN_SHAPE split over the ranks, each driven from 0: losses and
+    grad norms finite, the params' and AdamW state's digests after each
+    step, ms per step and peak memory, and the converter's and flash's
+    launches per step exactly the exchanged leaves (one converter launch
+    each) plus the QAT launches, and the flash launches, of
+    ``_train_run``'s rule."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.train import (build_train_step_compressed_dp,
+                                   init_train_state)
+    from repro_torch.tree import leaves
+    rows = []
+    for name, quant, steps in DP_RUNS:
+        _free(torch)
+        model = _train_model(torch, quant, n_layers=DP_LAYERS)
+        cfg = model.cfg
+        fq = quant != "none"
+        params, opt = init_train_state(model, seed=0)
+        step_fn = build_train_step_compressed_dp(
+            model, _train_opt(steps), groups=groups, fake_quant=fq)
+        data = _train_data(cfg)
+        batches = [make_batch_for(cfg, data.batch(i), device=model.device)
+                   for i in range(steps)]
+        # a leaf the loss reaches only through a fake quantizer has no
+        # gradient (C9): under weights + activations every layer leaf
+        exchanged = len(leaves(params)) - (
+            len(leaves(params["layers"])) if fq else 0)
+        recompute = cfg.remat and not (fq and cfg.mx.activations is not None)
+        passes = 2 if recompute else 1
+        per_step = {"mx_quantize_2d": exchanged
+                    + FQ_PER_LAYER[quant] * cfg.n_layers * passes,
+                    "flash_attention": cfg.n_layers * passes}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, ms, digests = [], [], [], []
+
+        def run():
+            nonlocal params, opt
+            for i in range(steps):
+                t0 = time.perf_counter()
+                params, opt, met = step_fn(params, opt, batches[i], i)
+                losses.append(float(met["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                norms.append(float(met["grad_norm"]))
+                digests.append(_dp_digests(torch, params, opt))
+
+        _, launches, wall = _drive(torch, run)
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"train_dp {name} rank {groups.rank}: "
+                                 f"losses {losses}, grad norms {norms}")
+        _check_launches(f"train_dp {name} rank {groups.rank}", launches,
+                        {k: n * steps for k, n in per_step.items()})
+        rows.append(dict(
+            what="train", path=name, config=cfg.name, layers=cfg.n_layers,
+            batch=TRAIN_SHAPE[0], rank_batch=TRAIN_SHAPE[0] // groups.world,
+            seq=TRAIN_SHAPE[1], dtype=cfg.dtype, remat=cfg.remat,
+            quant=quant, steps=steps, losses=losses, grad_norms=norms,
+            step_ms_all=ms, step_ms=statistics.median(ms[1:]),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            params=sum(p.numel() for p in leaves(params)),
+            exchanged_leaves=exchanged, launches=launches,
+            launches_per_step={k: v / steps for k, v in launches.items()
+                               if v},
+            predicted_per_step=per_step, digests=digests, wall_s=wall))
+        del params, opt, model, batches, step_fn
+    _free(torch)
+    return rows
+
+
+def _dp_rank(rank, world, store, out, card):
+    """One rank process of the ``train_dp`` phase (``dist.spawn``): the
+    exchange checks, then the driven train runs; its rows go to
+    ``out``/rank<r>.json."""
+    import torch
+    global CARD
+    CARD = card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, 8 // world))
+    from repro_torch.dist import close_dp, init_dp, rank_device
+    groups = init_dp(rank, (world,), rank_device("cuda", rank), store)
+    try:
+        if groups.backend != "gloo" or not groups.staged:
+            raise AssertionError(f"{world} ranks on one card: backend "
+                                 f"{groups.backend}, expected gloo, staged")
+        rows = _dp_exchange(torch, groups) + _dp_train(torch, groups)
+    finally:
+        close_dp()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(rows))
+
+
+def _dp_kernel_rows(torch, flush_bytes=256 * 2 ** 20):
+    """The kernels at the shapes the ``train_dp`` path gives them on one
+    rank: the converter on its exchange shard (``_dp_shard_row``) and on
+    its QAT activations (``_dp_act_rows``), flash attention at its batch
+    (TRAIN_SHAPE split over DP_WORLD ranks, chatglm3-6b's heads), each
+    against its plain version and timed.  Returns {kernel: rows}."""
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    quant = [_dp_shard_row(torch, flush)] + _dp_act_rows(torch, flush, gen)
+    b, s = TRAIN_SHAPE[0] // DP_WORLD, TRAIN_SHAPE[1]
+    flash = _flash_row(torch, flush, gen, b, s, 32, 2, 128,
+                       "chatglm3-6b, one rank's batch of train_dp")
+    emit("check", kernel="flash_attention", what="train_dp's rank batch",
+         compared=1, max_abs_err_bf16=flash["max_abs_err"],
+         criterion=f"|kernel - plain| <= tol + tol * |plain|, tol "
+                   f"{FLASH_TOL_BF16} (bf16)")
+    return {"mx_quantize_2d": quant, "flash_attention": [flash]}
+
+
+def _dp_shard_row(torch, flush):
+    """The converter's launch on one rank's shard of the w1 gradient at
+    world 2 (28,049,408 f32), e4m3: as the exchange makes it, (1, L), and
+    as (L/32, 32) rows, bit-identical to each other and to the plain
+    version, timed beside the byte bound and the plain version."""
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    n = DP_GRAD[1][0] * DP_GRAD[1][1] // DP_WORLD
+    x = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(
+        5), device="cuda") * 1e-3
+    spec = QuantSpec("e4m3", "ocp")
+    one, rows32 = x.view(1, n), x.view(n // 32, 32)
+    c1, s1 = mx_quantize_2d(one, spec)
+    c2, s2 = mx_quantize_2d(rows32, spec)
+    rc, rs = ref.mx_quantize_2d_ref(one, spec)
+    if not (torch.equal(c1, rc) and torch.equal(s1, rs)
+            and torch.equal(c2.view(1, n), rc)
+            and torch.equal(s2.view(1, -1), rs)):
+        raise AssertionError("converter on the exchange shard: the (1, L) "
+                             "and (L/32, 32) launches and the plain version "
+                             "disagree")
+    tb, by = bound(n * (4 + 1 + 1 / 32), n * CONVERTER_OPS_PER_ELEMENT,
+                   F32_CUDA_CORE_FLOPS)
+    row = dict(kernel="mx_quantize_2d",
+               shape=f"exchange shard of the w1 gradient at world "
+                     f"{DP_WORLD}: (1, {n})", spec=str(spec),
+               max_abs_err=0.0,
+               ms=time_ms(torch, lambda: mx_quantize_2d(one, spec),
+                          flush=flush),
+               rows32_ms=time_ms(torch, lambda: mx_quantize_2d(rows32, spec),
+                                 flush=flush),
+               plain_ms=time_ms(torch, lambda: ref.mx_quantize_2d_ref(
+                   one, spec), flush=flush),
+               bound_ms=tb, bound_by=by, library_ms=None, card=CARD)
+    emit("time", **row)
+    return row
+
+
+def _dp_act_rows(torch, flush, gen):
+    """QAT's activation fake-quant at one rank's rows (TRAIN_SHAPE split
+    over DP_WORLD ranks) of bf16 matmul inputs, along K = 4096 (wq, wk,
+    wv, wo, w1, w3) and 13696 (w2): the route (``ops.fake_quantize``,
+    one converter launch over the input widened to f32) against the plain
+    round trip, codes, scales and values bit for bit in TRAIN_FQ_FMTS
+    (NaN and Inf blocks included); the launch timed in e4m3 beside its
+    bound, the round trip and the plain version."""
+    from repro_torch.core import convert
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_quant import mx_quantize_2d
+    from repro_torch.kernels.ops import fake_quantize
+    m = TRAIN_SHAPE[0] // DP_WORLD * TRAIN_SHAPE[1]
+    rows = []
+    for k in (4096, 13696):
+        x = torch.randn(m, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        x[5, 7] = float("nan")
+        x[40, 33] = float("inf")
+        xf = x.float()                          # the launch's input
+        for fmt in TRAIN_FQ_FMTS:
+            spec = QuantSpec(fmt, "ocp")
+            codes, scales = mx_quantize_2d(xf, spec)
+            want = convert.mx_quantize(xf, spec, axis=-1)
+            got_v = fake_quantize(x, spec, axis=-1)
+            want_v = convert.quantize_dequantize(xf, spec, axis=-1)
+            if not (torch.equal(codes, want.codes)
+                    and torch.equal(scales, want.scales)
+                    and torch.equal(got_v.view(torch.int32),
+                                    want_v.view(torch.int32))):
+                raise AssertionError(f"activation fake quant ({m}, {k}) "
+                                     f"{spec}: the kernel route differs "
+                                     f"from the plain round trip")
+        spec = QuantSpec("e4m3", "ocp")
+        tb, by = bound(m * k * (4 + 1 + 1 / 32),
+                       m * k * CONVERTER_OPS_PER_ELEMENT, F32_CUDA_CORE_FLOPS)
+        rows.append(dict(
+            kernel="mx_quantize_2d",
+            shape=f"activation fake-quant of train_dp's rank batch: "
+                  f"({m}, {k}) bf16 along K", spec=str(spec), max_abs_err=0.0,
+            ms=time_ms(torch, lambda: mx_quantize_2d(xf, spec), flush=flush),
+            round_trip_ms=time_ms(torch, lambda: fake_quantize(x, spec,
+                                                               axis=-1),
+                                  flush=flush),
+            plain_ms=time_ms(torch, lambda: ref.mx_quantize_2d_ref(xf, spec),
+                             flush=flush),
+            bound_ms=tb, bound_by=by, library_ms=None, card=CARD))
+        emit("time", **rows[-1])
+        del x, xf
+    emit("check", kernel="fake_quantize", what="train_dp's rank "
+         "activations", compared=2 * len(TRAIN_FQ_FMTS),
+         criterion="codes, scales and dequantized values bit-identical to "
+                   "core.convert (NaN/Inf blocks included)")
+    return rows
+
+
+def _dp_world_one(torch, tmp):
+    """World one through NCCL in this process: ``init_dp`` picks NCCL for
+    one rank with a card of its own; the exchange's wire methods run
+    through it on the card (reduce-scatter of f32, all-gather of f32 and
+    of code bytes, each the identity at world one); and two steps of
+    ``build_train_step_compressed_dp`` (which exchanges nothing at world
+    one, as the reference's mesh of one device) equal two of
+    ``build_train_step`` from the same start, bit for bit: metrics, and
+    every leaf's digest of params and AdamW state."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.dist import close_dp, init_dp
+    from repro_torch.train import (build_train_step,
+                                   build_train_step_compressed_dp,
+                                   init_train_state)
+    groups = init_dp(0, (1,), torch.device("cuda", 0), str(tmp / "store1"))
+    try:
+        if groups.backend != "nccl" or groups.staged:
+            raise AssertionError(f"world one: backend {groups.backend}")
+        x = torch.randn(1 << 20, generator=torch.Generator(
+            device="cuda").manual_seed(13), device="cuda")
+        codes = (x * 64).to(torch.int32).to(torch.uint8)
+        for axis in groups.axes:
+            scattered = groups.reduce_scatter(groups.to_wire(x), axis)
+            gathered = groups.from_wire(groups.all_gather(scattered, axis))
+            gathered_codes = groups.all_gather(codes, axis)
+            if not (scattered.is_cuda and torch.equal(scattered, x)
+                    and torch.equal(gathered, x)
+                    and torch.equal(gathered_codes, codes)):
+                raise AssertionError("world one: NCCL's reduce-scatter or "
+                                     "all-gather is not the identity")
+        runs = []
+        for build in (build_train_step, build_train_step_compressed_dp):
+            _free(torch)
+            model = _train_model(torch, "none", n_layers=DP_LAYERS)
+            params, opt = init_train_state(model, seed=0)
+            kw = {} if build is build_train_step else {"groups": groups}
+            step_fn = build(model, _train_opt(2), **kw)
+            data = _train_data(model.cfg)
+            mets = []
+            for i in range(2):
+                params, opt, met = step_fn(params, opt, make_batch_for(
+                    model.cfg, data.batch(i), device=model.device), i)
+                mets.append({k: float(v) for k, v in met.items()})
+            runs.append((mets, _dp_digests(torch, params, opt)))
+            del params, opt, model, step_fn
+        if runs[0] != runs[1]:
+            raise AssertionError("world one: the compressed-DP step differs "
+                                 "from build_train_step")
+    finally:
+        close_dp()
+        _free(torch)
+    emit("train_dp", what="world one", backend=groups.backend, steps=2,
+         layers=DP_LAYERS, nccl_collectives="reduce-scatter (f32) and "
+         "all-gather (f32, uint8) of 2^20 elements on the card: identity", losses=[m["loss"] for m in runs[0][0]],
+         criterion="metrics and every leaf's digest equal to "
+                   "build_train_step's", card=CARD)
+
+
+def _dp_launcher(tmp):
+    """The launcher as a user runs it on the card: ``--compressed-dp
+    --devices 2`` over reduced chatglm3-6b (two ranks on the card, gloo);
+    starts now, the returned function waits: exit 0, the backend printed,
+    a falling loss."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "chatglm3_6b", "--reduced", "--compressed-dp", "--devices",
+           str(DP_WORLD), "--steps", "4", "--batch", "8", "--seq", "32",
+           "--ckpt-dir", str(tmp / "dpl")]
+    log = tmp / "dpl"
+    proc, t0 = _spawn(cmd, log, env=env), time.perf_counter()
+
+    def finish():
+        import re
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            finish.stop()
+        stdout = Path(f"{log}.out").read_text()
+        if rc != 0:
+            raise AssertionError(f"launcher --compressed-dp exited {rc}:\n"
+                                 f"{stdout[-2000:]}\n"
+                                 f"{Path(f'{log}.err').read_text()[-4000:]}")
+        m = re.search(r"done: loss ([\d.]+) -> ([\d.]+)", stdout)
+        if ("over gloo (staged through host memory)" not in stdout or not m
+                or float(m.group(2)) >= float(m.group(1))):
+            raise AssertionError(f"launcher --compressed-dp:\n"
+                                 f"{stdout[-2000:]}")
+        emit("train_dp", what="launcher", args=" ".join(cmd[3:]),
+             loss_first=float(m.group(1)), loss_last=float(m.group(2)),
+             seconds=time.perf_counter() - t0, card=CARD)
+
+    finish.stop = lambda: _stop([proc])
+    return finish
+
+
+def train_dp_phase(torch):
+    """Phase 9 (see the module docstring).  Returns (the driven runs'
+    launches summed over the ranks, launches per step per rank by run,
+    {kernel: its rows at the path's shapes})."""
+    import tempfile
+    from repro_torch.dist import spawn
+    kernel_rows = _dp_kernel_rows(torch)
+    _free(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        tmp = Path(d)
+        spawn(_dp_rank, DP_WORLD, (DP_WORLD, str(tmp / "store"), d, CARD),
+              timeout=DP_TIMEOUT)
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(DP_WORLD)]
+        # the launcher's run (reduced, mostly start-up) beside world one,
+        # so that the ranks' step times share the host with nothing
+        launcher = _dp_launcher(tmp)
+        try:
+            _dp_world_one(torch, tmp)
+            launcher()
+        finally:
+            launcher.stop()
+    launches, per_step = {}, {}
+    for i, row in enumerate(ranks[0]):
+        others = [r[i] for r in ranks[1:]]
+        if any(o["digest" if row["what"] == "exchange" else "digests"]
+               != row["digest" if row["what"] == "exchange" else "digests"]
+               for o in others):
+            raise AssertionError(f"train_dp: the ranks differ after "
+                                 f"{row['what']} {row.get('path', '')} "
+                                 f"{row.get('spec', '')}")
+        if row["what"] == "train":
+            for r in [row] + others:
+                for k, n in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+            per_step[row["path"]] = row["launches_per_step"]
+            row = dict(row, ranks_identical=True,
+                       step_ms_by_rank=[r["step_ms"] for r in [row] + others],
+                       peak_gib_by_rank=[r["peak_gib"]
+                                         for r in [row] + others])
+            row.pop("digests")
+        emit("train_dp", world=DP_WORLD, backend="gloo (staged)", card=CARD,
+             **row)
+    return launches, per_step, kernel_rows
+
+
 def _to_cpu(tree):
     import dataclasses
     from repro_torch.core.mx_weight import MXWeight
@@ -5226,7 +5696,9 @@ def main() -> int:
                                                        torch)
     fam_launches, fam_per_step, fam_rows = timed(
         "train_families", train_families_phase, torch)
-    for counts in (train_launches, fam_launches):
+    dp_launches, dp_per_step, dp_rows = timed("train_dp", train_dp_phase,
+                                              torch)
+    for counts in (train_launches, fam_launches, dp_launches):
         for kernel, n in counts.items():
             launches[kernel] = launches.get(kernel, 0) + n
 
@@ -5287,15 +5759,20 @@ def main() -> int:
         kernels[-1]["train_families_launches_per_step"] = {
             run: counts.get(name, 0) for run, counts in
             fam_per_step.items()}
+        # phase 9: each rank's launches per step of the compressed-DP runs
+        kernels[-1]["train_dp_launches_per_step"] = {
+            run: counts.get(name, 0) for run, counts in dp_per_step.items()}
+        shape_keys = ("shape", "spec", "max_abs_err", "ms", "round_trip_ms",
+                      "rows32_ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms")
         if name == "mx_quantize_2d":
             for key, rows in (("train_shapes", train_rows),
                               ("train_families_shapes", fam_rows)):
-                kernels[-1][key] = [
-                    {k: r.get(k) for k in (
-                        "shape", "spec", "max_abs_err", "ms",
-                        "round_trip_ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")}
-                    for r in rows]
+                kernels[-1][key] = [{k: r.get(k) for k in shape_keys}
+                                    for r in rows]
+        # phase 9: the kernels at the shapes of one rank of train_dp
+        kernels[-1]["train_dp_shapes"] = [{k: r.get(k) for k in shape_keys}
+                                          for r in dp_rows.get(name, ())]
         if "multi_token" in row:    # the KV write's suffix-prefill mode,
             mt = row["multi_token"]  # launched on the prefix path
             kernels[-1]["multi_token"] = {

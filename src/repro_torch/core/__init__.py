@@ -1,7 +1,8 @@
 """MX formats, specs, the converter and bit-packing, in plain PyTorch."""
-from repro_torch.core.convert import (MXArray, decode_elements,  # noqa: F401
-                                      mx_dequantize, mx_error_bound,
-                                      mx_quantize, pow2_f32,
+from repro_torch.core.convert import (MXArray,  # noqa: F401
+                                      block_max_exponent, decode_elements,
+                                      max_exponent_tree, mx_dequantize,
+                                      mx_error_bound, mx_quantize, pow2_f32,
                                       quantize_dequantize, scale_to_f32)
 from repro_torch.core.formats import (ALL_FORMATS, FORMATS,  # noqa: F401
                                       MXFormat, get_format)

@@ -150,6 +150,26 @@ def _shl1(shift: torch.Tensor) -> torch.Tensor:
 
 
 # =============================================================================
+# Step 1 — largest power of two among the block (comparator tree)
+# =============================================================================
+def max_exponent_tree(exp_eff: torch.Tensor) -> torch.Tensor:
+    """Pairwise max tree over the trailing (block) axis: the paper's
+    5-level ``comp`` tree for block 32, one level per halving.
+    Non-finite exclusion is the caller's (pass exponents already masked
+    to 0).  ``quantize_blocks`` takes the same maximum with ``amax``."""
+    x = exp_eff
+    while x.shape[-1] > 1:
+        x = torch.maximum(x[..., 0::2], x[..., 1::2])
+    return x[..., 0]
+
+
+def block_max_exponent(exp: torch.Tensor,
+                       finite: torch.Tensor) -> torch.Tensor:
+    """EV_max per block with non-finite inputs excluded (paper ``comp``)."""
+    return max_exponent_tree(torch.where(finite, exp, 0))
+
+
+# =============================================================================
 # Step 2 — shared scale X
 # =============================================================================
 def shared_scale(ev_max: torch.Tensor, fmt: MXFormat, mode: str,

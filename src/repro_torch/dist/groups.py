@@ -1,0 +1,253 @@
+"""The data-parallel mesh as torch.distributed process groups.
+
+The port's counterpart of the reference's DP mesh axes: the
+``("pod", "data")`` part of ``launch/mesh.py``'s meshes and the manual
+``shard_map`` axes of ``core/grad_compress.py`` and
+``train/step.py::build_train_step_compressed_dp``.
+
+A mesh of ``sizes`` over ``axes`` (a suffix of ``DP_AXES``, outermost
+first: ``("pod", "data")`` or ``("data",)``) is ``prod(sizes)`` ranks,
+one process each.  Rank ``r`` sits at the coordinates of ``r`` in
+row-major order, ``r = pod * |data| + data``.  For each axis the ranks
+that differ only in that coordinate form one subgroup (``new_group``
+over their sorted ranks), so a rank's index inside its "pod" group is
+its pod coordinate and inside its "data" group its data coordinate.  A
+reduce-scatter over "pod" and then over "data" therefore leaves rank
+``r`` with flat shard ``r`` of ``L / n`` elements, the shard that device
+(p, d) owns after the reference's hierarchical ``psum_scatter`` (which
+reshapes ``(k, -1)`` per axis), and all-gathers in the reverse order
+rebuild the whole in rank order.
+
+Backend, chosen from the device (``backend_for``), never by trying one:
+
+* NCCL where every rank has a CUDA card of its own;
+* gloo on the CPU, and where ranks share a card (NCCL does not run two
+  ranks of one communicator on one device).
+
+Gloo on CUDA tensors is "staged": ``to_wire`` copies a tensor into
+pinned host memory, the collectives run on the host, and ``from_wire``
+copies the result back to the card.  The exchange stages its f32
+buffer once before the reduce-scatters and the code and scale bytes
+once before the all-gathers; the converter still runs on the card.
+Ranks that share one card move their bytes through host memory and
+loopback TCP, so a run of them gives no wire speed.
+
+Each wire method runs in a ``torch.profiler.record_function`` span
+("dp.to_wire", "dp.reduce_scatter", "dp.all_gather", "dp.from_wire",
+"dp.mean"), which ``tests/profile_dp_exchange.py`` reads; outside a
+profiler a span costs a few microseconds.
+
+Rendezvous goes through a ``FileStore`` at a path the caller names (a
+fresh temporary directory per run), never through a fixed port, so
+concurrent runs cannot collide.  ``spawn`` starts the rank processes,
+and one failed rank stops them all.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.profiler import record_function
+
+from repro_torch.dist.sharding import DP_AXES
+
+# torch renamed the tensor-in, tensor-out collectives (the old names warn
+# where the new ones exist); take whichever this torch has
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def mesh_axes(sizes: Sequence[int]) -> Tuple[str, ...]:
+    """The DP axes of a mesh of ``sizes``: the innermost ``len(sizes)`` of
+    ``DP_AXES`` (one size: ``("data",)``)."""
+    if not 1 <= len(sizes) <= len(DP_AXES):
+        raise ValueError(f"a DP mesh has 1 or {len(DP_AXES)} axes "
+                         f"{DP_AXES}, got sizes {tuple(sizes)}")
+    return DP_AXES[len(DP_AXES) - len(sizes):]
+
+
+def rank_device(device: str, rank: int) -> torch.device:
+    """Rank ``rank``'s device: ``cuda:(rank % cards)`` on CUDA (ranks past
+    the card count share cards), else the CPU."""
+    if torch.device(device).type == "cuda":
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cpu")
+
+
+def backend_for(device: torch.device, world: int, cards: int) -> str:
+    """NCCL when every one of ``world`` ranks has a CUDA card of its own
+    (``cards`` of them), else gloo (the CPU, or ranks sharing a card)."""
+    if torch.device(device).type == "cuda" and world <= cards:
+        return "nccl"
+    return "gloo"
+
+
+@dataclasses.dataclass
+class DPGroups:
+    """One rank's view of the DP mesh: its coordinates, the subgroup of
+    each axis it belongs to, the backend and whether gloo stages CUDA
+    tensors through host memory."""
+
+    axes: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    rank: int
+    device: torch.device
+    backend: str
+    groups: Dict[str, Any]
+
+    @property
+    def world(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def size(self, axis: str) -> int:
+        return self.sizes[self.axes.index(axis)]
+
+    def batch_rows(self, batch: int) -> slice:
+        """This rank's rows of a global batch of ``batch``: the
+        reference's ``P(dp)`` split of dim 0, ranks in order."""
+        if batch % self.world:
+            raise ValueError(f"a global batch of {batch} does not split "
+                             f"over {self.world} ranks")
+        b = batch // self.world
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+    # -- collectives over host or device tensors ("the wire") ------------
+    def to_wire(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` where this backend's collectives take it: a pinned host
+        copy when staged, else ``x`` itself."""
+        if not self.staged:
+            return x
+        with record_function("dp.to_wire"):
+            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            h.copy_(x)
+        return h
+
+    def from_wire(self, x: torch.Tensor) -> torch.Tensor:
+        """A collective's result back on this rank's device."""
+        if not self.staged:
+            return x
+        with record_function("dp.from_wire"):
+            return x.to(self.device)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum of ``x`` (1-D, on the wire) over ``axis``; returns this
+        rank's chunk (chunk ``index(axis)`` of ``size(axis)``)."""
+        k = self.size(axis)
+        out = torch.empty(x.numel() // k, dtype=x.dtype, device=x.device)
+        with record_function("dp.reduce_scatter"):
+            _reduce_scatter(out, x, op=dist.ReduceOp.SUM,
+                            group=self.groups[axis])
+        return out
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ``size(axis)`` chunks of ``axis``'s ranks, concatenated in
+        their coordinate order."""
+        out = torch.empty(x.numel() * self.size(axis), dtype=x.dtype,
+                          device=x.device)
+        with record_function("dp.all_gather"):
+            _all_gather(out, x.contiguous(), group=self.groups[axis])
+        return out
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean of ``x`` over every rank (the reference's ``pmean`` over
+        the DP axes); the sum runs on the wire.  A world of one returns
+        ``x``."""
+        if self.world == 1:
+            return x
+        w = self.to_wire(x.detach().clone())
+        with record_function("dp.mean"):
+            dist.all_reduce(w, op=dist.ReduceOp.SUM)
+        return self.from_wire(w) / self.world
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank (``x`` at a world of one)."""
+        if self.world == 1:
+            return x
+        w = self.to_wire(x.detach().clone())
+        dist.broadcast(w, src=src)
+        return self.from_wire(w)
+
+
+def init_dp(rank: int, sizes: Sequence[int], device,
+            store_path: str) -> DPGroups:
+    """Join the process group of ``prod(sizes)`` ranks as ``rank`` through
+    a FileStore at ``store_path`` (every rank names the same, fresh path)
+    and build the axis subgroups.  ``device`` is this rank's device
+    (``rank_device``); the backend follows from it (``backend_for``).
+    Every rank must call this, in any order."""
+    sizes = tuple(int(s) for s in sizes)
+    axes = mesh_axes(sizes)
+    world = math.prod(sizes)
+    device = torch.device(device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = backend_for(device, world, cards)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    groups: Dict[str, Any] = {}
+    for i, axis in enumerate(axes):
+        if sizes[i] == 1:
+            groups[axis] = None
+            continue
+        others = [range(s) if j != i else (0,) for j, s in enumerate(sizes)]
+        for base in itertools.product(*others):
+            members = []
+            for c in range(sizes[i]):
+                coord = list(base)
+                coord[i] = c
+                members.append(sum(x * math.prod(sizes[j + 1:])
+                                   for j, x in enumerate(coord)))
+            # every rank creates every group, in the same order
+            g = dist.new_group(members)
+            if rank in members:
+                groups[axis] = g
+    return DPGroups(axes, sizes, rank, device, backend, groups)
+
+
+def close_dp() -> None:
+    """Leave the process group (after the last collective)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+class RankFailed(RuntimeError):
+    """A rank process raised or died; the message holds its traceback."""
+
+
+def spawn(fn: Callable, world: int, args: Tuple = (),
+          timeout: Optional[float] = None) -> None:
+    """Run ``fn(rank, *args)`` in ``world`` fresh processes (the "spawn"
+    start method: nothing of this process's CUDA or thread state is
+    inherited) and wait for all of them.  The first rank that raises or
+    dies stops the others, and ``RankFailed`` carries its traceback; past
+    ``timeout`` seconds every rank is killed and ``TimeoutError`` raised,
+    so a hung collective cannot hang the caller.  ``fn`` must be a
+    module-level function (the children import it)."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False,
+                             daemon=True, start_method="spawn")
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=0.2):
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks still running after "
+                                   f"{timeout} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise RankFailed(str(e)) from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()

@@ -33,6 +33,8 @@ the effective pool beside the allocated one; the tokens are those of a
 run without it (for a dense config; MoE capacity routing depends on
 which tokens share a prefill, ROADMAP C8).  ``--mx-kv`` / ``--mx-mode``
 are the reference's deprecated aliases for ``--quant kv=<fmt>@32:<mode>``.
+``--shard`` / ``--shard-pool`` (the reference's sharded decode) stop
+with a message naming ROADMAP A11.2.
 Weights are random, made on the device from seed 0; with
 ``--weight-resident`` each layer is quantized to MX storage as soon as
 it is made.
@@ -108,6 +110,10 @@ from repro_torch.serve import (AsyncServer, ContinuousBatchingEngine,
 from repro_torch.serve.engine import KERNEL_FAIL_REFUSED
 
 
+SHARD_REFUSED = (
+    "{} (the reference's sharded decode over a device mesh, with its "
+    "page pool optionally sharded over the data axes) is not ported yet: "
+    "ROADMAP item A11.2; the port serves on one device")
 WEIGHTS_ROLE_NEEDED = ("--weight-resident needs a 'weights' role in the "
                        "policy, e.g. --quant weights=e4m3@32:ocp")
 
@@ -397,7 +403,16 @@ def main(argv=None) -> None:
                          "rates, poison markers, per KV role) every N "
                          "sync windows (0 = never; each sample is one "
                          "device reduction and one host transfer)")
+    ap.add_argument("--shard", action="store_true",
+                    help="not ported: sharded decode over a device mesh "
+                         "(ROADMAP A11.2)")
+    ap.add_argument("--shard-pool", action="store_true",
+                    help="not ported: the page pool sharded over the data "
+                         "axes (ROADMAP A11.2)")
     args = ap.parse_args(argv)
+    if args.shard or args.shard_pool:
+        ap.error(SHARD_REFUSED.format(
+            "--shard" if args.shard else "--shard-pool"))
     try:
         arrival = parse_arrival(args.arrival)
     except ValueError as e:

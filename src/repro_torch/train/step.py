@@ -1,4 +1,4 @@
-"""The train step (mirrors src/repro/train/step.py's ``build_train_step``).
+"""The train steps (mirror src/repro/train/step.py).
 
 ``build_train_step(model, opt_cfg, microbatches=, fake_quant=)`` returns
 ``train_step(params, opt_state, batch, step) -> (params, opt_state,
@@ -14,8 +14,18 @@ sort, not by atomics), so a step on the same inputs gives the same bits
 and a resumed run the uninterrupted run's.  On the card that needs
 cuBLAS's fixed workspace, ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the
 environment before the process first uses cuBLAS; the training entry
-points set it.  The reference's multi-device
-``build_train_step_compressed_dp`` waits for ROADMAP A11.
+points set it.
+
+``build_train_step_compressed_dp(model, opt_cfg, groups=)`` is the
+reference's explicit data-parallel step over the process groups of
+``dist.groups``: each rank takes its rows of the global batch, computes
+their gradient, and the gradients are averaged by the MX-compressed
+exchange of ``core.grad_compress`` before every rank takes the same
+AdamW step on its replica of the params and state (ZeRO-1, as the
+reference).  Its three phases run in ``record_function`` spans
+("dp_step.grads", "dp_step.exchange", "dp_step.adamw"), which
+``tests/profile_dp_exchange.py`` reads.  The reference's "model" axis
+(tensor parallelism inside the step) waits for ROADMAP A11.2.
 """
 from __future__ import annotations
 
@@ -24,7 +34,10 @@ import os
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 
+from repro_torch.core.grad_compress import mx_allreduce_tree
+from repro_torch.core.spec import QuantSpec, as_spec
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
@@ -128,6 +141,50 @@ def build_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
             new_params, new_opt, omet = adamw_update(
                 opt_cfg, grads, opt_state, step, param_dtype, params)
         return new_params, new_opt, {"loss": loss, **met, **omet}
+
+    return train_step
+
+
+def build_train_step_compressed_dp(model, opt_cfg: AdamWConfig, *, groups,
+                                   spec=None,
+                                   fake_quant: bool = False) -> Callable:
+    """Returns train_step(params, opt_state, batch, step) -> (params,
+    opt_state, metrics) for one rank of ``groups`` (a
+    ``dist.groups.DPGroups``): ``batch`` is the global batch, of which the
+    rank takes rows ``[r B/n, (r+1) B/n)`` (the reference's ``P(dp)``
+    split of dim 0); the gradient of its rows is averaged over the ranks
+    by ``mx_allreduce_tree``, then AdamW updates the rank's replica of the
+    params and state in place.  Every rank returns the same metrics:
+    ``loss`` averaged over the ranks (the reference's ``pmean``),
+    ``grad_norm`` and ``lr`` of the shared update, and ``ce`` and ``aux``
+    of rank 0's rows, which is what the reference's ``shard_map`` returns
+    for these unreduced values under ``out_specs P()`` (its first
+    device's).  The exchange spec defaults to the config policy's
+    ``grads`` role, else e4m3/ocp.  At a world of one the step is
+    ``build_train_step``'s, bit for bit."""
+    cfg = model.cfg
+    spec = as_spec(spec) if spec is not None else (
+        cfg.mx.grads or QuantSpec("e4m3", "ocp"))
+    param_dtype = cfg.torch_param_dtype
+    _check_cublas(model.device)
+
+    def train_step(params, opt_state, batch, step):
+        rows = groups.batch_rows(next(iter(batch.values())).shape[0])
+        local = {k: v[rows] for k, v in batch.items()}
+        with deterministic():
+            with record_function("dp_step.grads"):
+                loss, met, grads = _grads_of(model, params, local,
+                                             fake_quant)
+            with record_function("dp_step.exchange"):
+                grads = mx_allreduce_tree(grads, groups, spec)
+                loss = groups.mean(loss)
+                ce_aux = groups.broadcast(torch.stack([met["ce"],
+                                                       met["aux"]]))
+            with record_function("dp_step.adamw"):
+                new_params, new_opt, omet = adamw_update(
+                    opt_cfg, grads, opt_state, step, param_dtype, params)
+        return new_params, new_opt, {"loss": loss, "ce": ce_aux[0],
+                                     "aux": ce_aux[1], **omet}
 
     return train_step
 

@@ -310,8 +310,15 @@ def test_launcher_trains_on_cpu(tmp_path, quant):
     assert "resumed from step_00000012" in again.stdout
 
 
-@pytest.mark.parametrize("flag", [["--compressed-dp"], ["--devices", "8"]])
+@pytest.mark.parametrize("flag", [["--compressed-dp", "--devices", "3"],
+                                  ["--devices", "-1"]])
 def test_launcher_refuses_multi_device(tmp_path, flag):
+    """The multi-device forms the launcher cannot run stop before any
+    rank starts: a global batch (8) that does not split over the ranks,
+    and a negative rank count (``--compressed-dp --devices`` itself runs:
+    tests/test_torch_train_dp.py)."""
     out = _launch(tmp_path, *flag)
     assert out.returncode == 2
-    assert "ROADMAP item A11" in out.stderr
+    want = ("--batch 8 does not split over 3 ranks" if "3" in flag
+            else "--devices takes a count of ranks")
+    assert want in out.stderr
