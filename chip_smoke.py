@@ -188,6 +188,48 @@ failure (the script then exits non-zero and prints no result line):
    beside the launcher's ``--compressed-dp --devices 2`` on the reduced
    config.
 
+10. Sharded serving (``serve_shard``, last): B2 at one rank's
+   projections of chatglm3-6b at model 2 (wq 4096 x 2048, wo 2048 x
+   4096, w1 / w3 4096 x 6848, w2 6848 x 4096, M 8) and B3 at its heads
+   (Hq 16 over Hkv 1), each timed beside its plain version, torch.matmul
+   or SDPA and its bound; B3 and B4 with q a slice of the heads from
+   ``head0`` (8 and 24 of 32, over both KV heads) against their plain
+   versions; then full-width chatglm3-6b (28 layers, e4m3 weights
+   resident, INT8 KV in pages of 16, flash) unsharded in this process:
+   the continuous engine over 8 prompts of 64-128 tokens with 32 new
+   greedy tokens, the static engine over 8 x 128 with 16 new tokens at
+   MX KV and at bf16 KV, each a driven path with exact launches; the
+   same sharded code on a mesh of one over NCCL (captured, the tokens
+   and first-step logits bit for bit; every axis has size 1 there, so
+   the layers skip their collectives, and an NCCL all-reduce and
+   all-gather captured into a graph are checked apart to replay as the
+   identity, bit for bit); then two ranks on the card (mesh (1, 2) =
+   ("data", "model"), gloo staged, eager decode), each holding its
+   shard of the weights as they are made: the same three runs, launches
+   per rank and step exact (B2 196, the KV write 28, B3 28; B4 28; B5
+   28 per bf16-KV prefill), both ranks' tokens and logits identical;
+   against the unsharded runs, two f32 twins of the continuous run (the
+   same weights at f32 activations): at f32 KV, where reordered f32
+   sums are the only difference, its first step's logits within
+   LOGITS_TOL and its tokens but where the unsharded top-2 gap at the
+   first differing step is below LOGITS_TOL; at MX KV (the KV write and
+   B3 on the rank's heads) the same within SHARD_MXKV_TOL; the bf16 runs
+   within bf16's own noise, the whole model's bf16 first-step logits'
+   distance from its f32 twin's (MX KV both; at least LOGITS_TOL):
+   their first step's logits, and flips only at unsharded top-2 gaps
+   below it (the gaps printed); a bf16 control of the row-parallel sum
+   on each rank (w2's shard, bf16 x: its outputs differ from the whole
+   weight's in at most SHARD_ROWSUM_TOL of them, where partials cast to
+   bf16 before the sum would differ in more); each rank's resident
+   weight and peak GiB, prefill seconds, decode ms per step, and the
+   collectives' ms per step from their ``tp.*`` profiler spans.  Then,
+   in the same two processes, ``--shard-pool`` on mesh (2, 1): each rank
+   the whole model,
+   half the slots and its own half of the page pool, which B3 reads
+   through local block tables: the continuous run, launches exact, the
+   ranks' tokens identical and the unsharded ones but for flips at
+   top-2 gaps below LOGITS_TOL.
+
 Every model here runs at ``attn_impl="flash"`` (attention through the
 kernels), as the reference's serving cells do.  The line before the last
 is a JSON object with one entry per kernel; the last line is
@@ -5607,6 +5649,625 @@ def static_card_vs_cpu(torch):
 
 
 # =============================================================================
+# phase 10: sharded serving (serve_shard)
+# =============================================================================
+SHARD_POLICY = "weights=e4m3@32:ocp,kv=int8@32:ocp"
+SHARD_WORLD = 2         # ranks on mesh (1, 2) = ("data", "model"), both on
+#                         the one card through gloo (staged through host
+#                         memory, so the engines decode eagerly)
+SHARD_NEW = 32          # continuous: 8 prompts of 64-128 tokens, greedy
+SHARD_STATIC = (8, 128, 16)     # static: rows, prompt tokens, new tokens
+SHARD_KN = {"wq": (4096, 2048), "wo": (2048, 4096), "w1/w3": (4096, 6848),
+            "w2": (6848, 4096)}  # one rank's projections at model 2
+SHARD_TIMEOUT = 420     # seconds for the ranks; a hung collective fails
+SHARD_F32_NEW = 8       # the f32 twins' new tokens per prompt
+SHARD_MXKV_TOL = 2e-2   # the f32 twin at MX KV against the whole model:
+#                         reordered f32 sums flip an INT8 code wherever a
+#                         value sits at a rounding boundary, a whole code
+#                         step; its first-step logits moved 0.0078 on an
+#                         H100 (PERF.md, sharded serving), so 2.5 times that
+SHARD_POOL_MESH = (2, 1)    # --shard-pool: the slots and the page pool
+#                             split over the same two ranks, as data ranks
+SHARD_ROWSUM_TOL = 0.01     # the bf16 row-sum control's mismatch share
+
+
+def _shard_inputs(vocab):
+    """The phase's 8 continuous prompts (64-128 tokens) and its static
+    batch (8 x 128), from numpy seeds 27 and 28."""
+    import numpy as np
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(64, 129, size=8)]
+    b, s, _ = SHARD_STATIC
+    static = np.random.default_rng(28).integers(
+        0, vocab, size=(b, s)).astype(np.int32)
+    return prompts, static
+
+
+def _shard_path(torch, model, params, rules=None):
+    """The phase's serving path in this process (the whole model, or one
+    rank's shard under ``rules`` and the installed mesh): the continuous
+    engine over the 8 prompts, then the static engine at MX KV (decode
+    through B4) and at bf16 KV (prefill through B5), each a driven path
+    whose launches must be exactly its steps' (B2 196, the KV write 28
+    and B3 28 per decode step; B4 28 per static MX-KV decode step; B5 28
+    per bf16-KV prefill; a captured static step's warm-up counts)."""
+    import dataclasses
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.models import Model
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    cfg = model.cfg
+    n_l = cfg.n_layers
+    _, static = _shard_inputs(cfg.vocab)
+    out = {}
+    out["continuous"], out["engine"] = _shard_continuous(torch, model,
+                                                         params, rules)
+    b, s, new = SHARD_STATIC
+    gen = GenerationConfig(max_new_tokens=new)
+    bf16 = Model(dataclasses.replace(
+        cfg, mx=QuantPolicy.parse(SHARD_POLICY.split(",")[0])),
+        device=model.device)
+    for kv, m in (("mx", model), ("bf16", bf16)):
+        st = ServeEngine(m, params, max_len=s + new + 8, rules=rules)
+        toks, launches, wall = _drive(torch, lambda: st.generate(
+            {"tokens": static}, gen))
+        dec = new - 1 + st.n_captures      # a capture's warm-up step counts
+        want = {"mx_matmul_2d": 7 * n_l * (1 + dec)}
+        if kv == "mx":
+            want.update(mx_kv_write=n_l * (1 + dec),
+                        mx_decode_attention=n_l * dec)
+        else:
+            want["flash_attention"] = n_l
+        _check_launches(f"serve_shard static {kv}-KV", launches, want)
+        out[f"static_{kv}"] = dict(
+            tokens=toks.tolist(), launches=launches, wall_s=wall,
+            prefill_s=st.phase["prefill"], decode_s=st.phase["decode"],
+            decode_ms_per_step=st.phase["decode"] / (new - 1) * 1e3,
+            captured=st.captures)
+    out["first_logits"] = _first_logits(torch, model, params,
+                                        out["engine"])
+    return out
+
+
+def _shard_continuous(torch, model, params, rules=None, name="continuous"):
+    """The continuous engine over the phase's 8 prompts with SHARD_NEW new
+    tokens, a driven path whose launches must be exactly its steps' (B2
+    196, the KV write 28 and B3 28 a decode step; B2 196 and the KV
+    write 28 a prefill batch).  Returns (its row, the engine)."""
+    from repro_torch.serve import ContinuousBatchingEngine
+    n_l = model.cfg.n_layers
+    prompts, _ = _shard_inputs(model.cfg.vocab)
+    eng = ContinuousBatchingEngine(
+        model, params, max_slots=8, page_size=16,
+        max_len=max(len(p) for p in prompts) + SHARD_NEW + 1, sync_every=8,
+        rules=rules)
+    toks, launches, wall = _drive(torch, lambda: _serve(eng, prompts,
+                                                        SHARD_NEW))
+    # a data rank prefills only the batches that hold its slots' requests
+    steps, batches = eng.n_steps, eng.n_rank_prefills
+    _check_launches(f"serve_shard {name}", launches, {
+        "mx_matmul_2d": 7 * n_l * (steps + batches),
+        "mx_kv_write": n_l * (steps + batches),
+        "mx_paged_decode_attention": n_l * steps})
+    ph = eng.phase
+    return dict(
+        tokens=[t.tolist() for t in toks], launches=launches, wall_s=wall,
+        decode_steps=steps, prefill_batches=batches,
+        prefill_s=ph["prefill"], decode_s=ph["decode"],
+        decode_ms_per_step=ph["decode"] / steps * 1e3,
+        captured=eng.captures,
+        kv_pool_gib=eng.kv_pool_nbytes / 2 ** 30,
+        pool_pages=int(next(iter(eng.pool.values())).shape[1]),
+        launches_per_step={"mx_matmul_2d": 7 * n_l, "mx_kv_write": n_l,
+                           "mx_paged_decode_attention": n_l}), eng
+
+
+def _f32_twin(torch, model, params, mx_kv: bool):
+    """The same weights at f32 activations: the MX weights as they are,
+    every fp leaf (embedding, head, norms) widened exactly to f32; the KV
+    cache MX as in ``model`` (``mx_kv``) or f32."""
+    import dataclasses
+    from repro_torch.core.mx_weight import MXWeight
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_map
+    policy = SHARD_POLICY if mx_kv else SHARD_POLICY.split(",")[0]
+
+    def widen(t):
+        if isinstance(t, MXWeight) or not t.is_floating_point():
+            return t
+        return t.float()
+
+    return (Model(dataclasses.replace(model.cfg, dtype="float32",
+                                      mx=QuantPolicy.parse(policy)),
+                  device=model.device),
+            tree_map(widen, params))
+
+
+def _first_logits(torch, model, params, eng=None):
+    """Prompt 0's last-position logits of one prefill (under ``eng``'s
+    sharding context where given)."""
+    import contextlib
+    prompt = _shard_inputs(model.cfg.vocab)[0][0]
+    with eng._ctx() if eng is not None else contextlib.nullcontext():
+        lg, _, _ = model.prefill(params, torch.from_numpy(
+            prompt[None]).to(model.device), max_len=len(prompt))
+    return lg[0, -1, :model.cfg.vocab].float().cpu()
+
+
+def _shard_f32_path(torch, model, params, rules=None, mx_kv=False):
+    """An f32 twin of the continuous run (``_f32_twin``: the same weights,
+    activations and fp leaves in f32, the KV cache f32 or, ``mx_kv``, MX
+    as in ``model``): the 8 prompts with SHARD_F32_NEW new tokens,
+    launches exact, and the first step's logits.  At f32 KV reordered
+    f32 sums are the only difference a sharded run has from the whole
+    model; attention over the f32 pool is dense (B2 196 a step and
+    prefill batch, B5 28 a prefill batch).  At MX KV the run writes the
+    rank's KV heads through the KV-write kernel and attends them through
+    B3 (B2 196 and the KV write 28 a step and prefill batch, B3 28 a
+    step), and an f32 difference at a code boundary moves a whole code
+    (SHARD_MXKV_TOL)."""
+    from repro_torch.serve import ContinuousBatchingEngine
+    m32, p32 = _f32_twin(torch, model, params, mx_kv=mx_kv)
+    n_l = m32.cfg.n_layers
+    prompts, _ = _shard_inputs(m32.cfg.vocab)
+    eng = ContinuousBatchingEngine(
+        m32, p32, max_slots=8, page_size=16,
+        max_len=max(len(p) for p in prompts) + SHARD_F32_NEW + 1,
+        sync_every=8, rules=rules)
+    toks, launches, wall = _drive(torch, lambda: _serve(eng, prompts,
+                                                        SHARD_F32_NEW))
+    steps, batches = eng.n_steps, eng.n_rank_prefills
+    want = {"mx_matmul_2d": 7 * n_l * (steps + batches)}
+    per_step = {"mx_matmul_2d": 7 * n_l}
+    if mx_kv:
+        want.update(mx_kv_write=n_l * (steps + batches),
+                    mx_paged_decode_attention=n_l * steps)
+        per_step.update(mx_kv_write=n_l, mx_paged_decode_attention=n_l)
+    else:
+        want["flash_attention"] = n_l * batches
+    _check_launches(f"serve_shard continuous f32{' MX-KV' * mx_kv}",
+                    launches, want)
+    return dict(tokens=[t.tolist() for t in toks], launches=launches,
+                wall_s=wall, decode_ms_per_step=eng.phase["decode"]
+                / steps * 1e3, prefill_s=eng.phase["prefill"],
+                launches_per_step=per_step,
+                first_logits=_first_logits(torch, m32, p32, eng))
+
+
+def _row_sum_control(torch, mesh):
+    """The bf16 control of the row-parallel sum on a rank of a "model"
+    mesh: bf16 x (8 x 13696) over chatglm3-6b's w2 (13696 x 4096, e4m3),
+    K split over "model".  ``dense(tp="row")`` sums the f32 partials
+    before the cast, so its bf16 output differs from the whole weight's
+    only where reordered f32 sums straddle a bf16 rounding boundary;
+    returns that share and the share the ranks' partials cast to bf16
+    and then summed would differ in (the fault the f32 sum rules out)."""
+    from repro_torch.core.mx_weight import MXWeight
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.dist.sharding import model_gather, set_mesh, shard_leaf
+    from repro_torch.kernels.ops import mx_matmul_resident
+    from repro_torch.models.layers import dense
+    k, n = 13696, 4096
+    gen = torch.Generator(device=mesh.device).manual_seed(33)
+    w = torch.randn(k, n, generator=gen, device=mesh.device) / math.sqrt(k)
+    x = torch.randn(8, k, generator=gen, device=mesh.device).to(
+        torch.bfloat16)
+    mw = MXWeight.quantize(w, QuantSpec.parse("e4m3@32:ocp"))
+    del w
+    with set_mesh(None):
+        whole = dense(x, mw)
+    piece = shard_leaf(mw, ("model", "data"), mesh)
+    kl = k // mesh.size("model")
+    xs = x[:, mesh.coord("model") * kl:][:, :kl].contiguous()
+    got = dense(xs, piece, tp="row", k=k)
+    parts = model_gather(mx_matmul_resident(xs, piece)[None], 0)
+    fault = parts[0].to(torch.bfloat16)
+    for p in parts[1:]:
+        fault = fault + p.to(torch.bfloat16)
+    return {"mismatch": float((got != whole).float().mean()),
+            "fault_mismatch": float((fault != whole).float().mean()),
+            "shape": f"bf16 x 8 x {k} over w2 {k} x {n}, K/{mesh.size('model')}"}
+
+
+def _tp_ms_per_step(torch, eng, steps=8):
+    """The collectives' milliseconds per decode step: ``steps`` eager
+    window steps (the slots idle after the run; every layer's work and
+    collectives still run) under the profiler, the ``tp.*`` spans'
+    CPU time summed (staged collectives end in a synchronize, so their
+    host time is their wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with eng._ctx(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.window.run(steps)
+        torch.cuda.synchronize()
+    spans = {e.key: e.cpu_time_total / 1e3 / steps
+             for e in prof.key_averages() if e.key.startswith("tp.")}
+    return sum(spans.values()), spans
+
+
+def _shard_rank(rank, world, store, out, card):
+    """One rank process of ``serve_shard`` (``dist.spawn``): its shard of
+    full-width chatglm3-6b placed as each piece is made, the phase's
+    path, the first step's logits, the collectives' time per step; rows
+    to ``out``/rank<r>.json, logits to rank<r>.pt.  Then, in the same
+    process, the ``--shard-pool`` run (``_shard_pool_run``)."""
+    import torch
+    global CARD
+    CARD = card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, 8 // world))
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.dist import close_dp, init_dp, rank_device
+    from repro_torch.dist.sharding import (make_rules, set_mesh,
+                                           shard_params, use_rules)
+    from repro_torch.launch.serve import build_model
+    mesh = init_dp(rank, (1, world), rank_device("cuda", rank), store,
+                   axes=("data", "model"))
+    try:
+        if mesh.backend != "gloo" or not mesh.staged:
+            raise AssertionError(f"{world} ranks on one card: backend "
+                                 f"{mesh.backend}, expected gloo, staged")
+        rules = make_rules(mesh.axes, fsdp_params=False,
+                           quant=QuantPolicy.parse(SHARD_POLICY))
+        with set_mesh(mesh), use_rules(rules):
+            torch.cuda.reset_peak_memory_stats()
+            (model, params), load, load_s = _drive(torch, lambda: build_model(
+                "chatglm3_6b", reduced=False, quant=SHARD_POLICY,
+                weight_resident=True, device=str(mesh.device), seed=0,
+                attn_impl="flash",
+                place=lambda t: shard_params(t, mesh, rules)))
+            _check_launches(f"serve_shard rank {rank} load", load,
+                            {"mx_quantize_2d": 7 * model.cfg.n_layers})
+            res = _shard_path(torch, model, params, rules)
+            eng = res.pop("engine")
+            tp_ms, spans = _tp_ms_per_step(torch, eng)
+            del eng
+            res["f32"] = _shard_f32_path(torch, model, params, rules)
+            res["f32_mx"] = _shard_f32_path(torch, model, params, rules,
+                                            mx_kv=True)
+            res["rowsum"] = _row_sum_control(torch, mesh)
+            torch.save({"bf16": res.pop("first_logits"),
+                        "f32": res["f32"].pop("first_logits"),
+                        "f32_mx": res["f32_mx"].pop("first_logits")},
+                       Path(out, f"rank{rank}.pt"))
+            res.update(rank=rank, load_s=load_s,
+                       weight_gib=_weight_bytes(params) / 2 ** 30,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       tp_ms_per_step=tp_ms, tp_spans_ms_per_step=spans)
+            del model, params
+    finally:
+        close_dp()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+    _free(torch)
+    _shard_pool_run(torch, rank, store + "_pool", out)
+
+
+def _shard_pool_run(torch, rank, store, out):
+    """Rank ``rank`` of ``serve_shard``'s ``--shard-pool`` run on mesh
+    SHARD_POOL_MESH = ("data", "model"), joined through ``store``: the
+    whole model (a "model" axis of 1), its run of the decode slots and
+    of the page pool (rules ``paged_pool_sharded``), the continuous run
+    with its launches exact (B3 reads the rank's own pool); its row to
+    ``out``/pool<r>.json."""
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.dist import close_dp, init_dp, rank_device
+    from repro_torch.dist.sharding import (make_rules, set_mesh,
+                                           shard_params, use_rules)
+    from repro_torch.launch.serve import build_model
+    mesh = init_dp(rank, SHARD_POOL_MESH, rank_device("cuda", rank), store,
+                   axes=("data", "model"))
+    try:
+        rules = make_rules(mesh.axes, fsdp_params=False,
+                           paged_pool_sharded=True,
+                           quant=QuantPolicy.parse(SHARD_POLICY))
+        with set_mesh(mesh), use_rules(rules):
+            model, params = build_model(
+                "chatglm3_6b", reduced=False, quant=SHARD_POLICY,
+                weight_resident=True, device=str(mesh.device), seed=0,
+                attn_impl="flash",
+                place=lambda t: shard_params(t, mesh, rules))
+            res, eng = _shard_continuous(torch, model, params, rules,
+                                         name=f"pool rank {rank}")
+            res.update(rank=rank, captured=eng.captures,
+                       slots=eng._sl)
+            del eng
+    finally:
+        close_dp()
+    Path(out, f"pool{rank}.json").write_text(json.dumps(res))
+
+
+def _nccl_captured_identity(torch):
+    """At a world of one over NCCL: an all-reduce and an all-gather on
+    the card captured into a CUDA graph (after an eager warm-up, which
+    makes NCCL's communicator) and replayed on new values must each
+    give its input back bit for bit."""
+    import torch.distributed as dist
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(8, 4096, generator=gen, device="cuda")
+    summed, gathered = x.clone(), torch.empty_like(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dist.all_reduce(summed)
+        dist.all_gather_into_tensor(gathered, x)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        summed.copy_(x)
+        dist.all_reduce(summed)
+        dist.all_gather_into_tensor(gathered, x)
+    x.copy_(torch.randn(8, 4096, generator=gen, device="cuda"))
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(summed, x) and torch.equal(gathered, x)
+
+
+def _shard_kernel_rows(torch):
+    """The kernels at a rank's shapes: B2 at the rank's projections of
+    chatglm3-6b at model 2 (M 8), B3 at its heads (Hq 16 over Hkv 1),
+    each timed beside its plain version, library call and bound; B3 and
+    B4 over a cache of every KV head with q a slice from head0 (a rank at
+    model 4), against their plain versions."""
+    from repro_torch.core.mx_weight import MXWeight
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mx_decode_attn import (
+        mx_decode_attention, mx_paged_decode_attention)
+    from repro_torch.kernels.mx_matmul import mx_matmul_2d
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    spec = QuantSpec.parse("e4m3@32:ocp")
+    rows = {"mx_matmul_2d": [], "mx_paged_decode_attention": []}
+    for pname, (k, n) in SHARD_KN.items():
+        w = (torch.randn(k, n, generator=gen, device="cuda")
+             / math.sqrt(k))
+        mw = MXWeight.quantize(w, spec)
+        del w
+        a = torch.randn(8, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        rows["mx_matmul_2d"].append(_matmul_row(
+            torch, ref, mx_matmul_2d, a, mw, mw.codes, spec,
+            f"rank's {pname} {k}x{n}", flush))
+    i8 = QuantSpec.parse("int8@32:ocp")
+    q, kc, ks, vc, vs, bt, lengths = _paged_case(torch, i8, i8, gen,
+                                                 hq=16, hkv=1)
+    rows["mx_paged_decode_attention"].append(_time_paged_attention(
+        torch, flush, (q.to(torch.bfloat16), kc, ks, vc, vs, bt, lengths),
+        i8, i8, "int8@32:ocp/int8@32:ocp"))
+    # head0: 8 of 32 q heads over both KV heads (rep 16)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    q, kc, ks, vc, vs, bt, lengths = _paged_case(torch, i8, i8, gen)
+    n = 0
+    for head0 in (8, 24):
+        for dt in (torch.float32, torch.bfloat16):
+            kw = dict(key_spec=i8, value_spec=i8, rep=16, head0=head0)
+            qs = q[:, :, head0:head0 + 8].contiguous().to(dt)
+            args = (qs, kc, ks, vc, vs, bt, lengths)
+            _attn_check(torch, mx_paged_decode_attention(*args, **kw),
+                        ref.mx_paged_decode_attention_ref(*args, **kw),
+                        worst)
+            cache = [t[bt[:, :4].to(torch.int64)].reshape(
+                8, 64, 2, -1).contiguous() for t in (kc, ks, vc, vs)]
+            for pos in (0, 37, 63):
+                _attn_check(torch, mx_decode_attention(qs, *cache, pos, **kw),
+                            ref.mx_decode_attention_ref(
+                                qs, *cache, torch.full((8,), pos,
+                                                       dtype=torch.int32,
+                                                       device="cuda"),
+                                **kw), worst)
+            n += 4
+    emit("check", kernel="mx_paged_decode_attention / mx_decode_attention",
+         what="head0 8 and 24: 8 of 32 q heads over both KV heads",
+         compared=n, max_abs_err_bf16=worst[torch.bfloat16],
+         max_abs_err_f32=worst[torch.float32],
+         criterion=f"f32 within {ATTN_TOL_F32}; bf16 within torch's bf16 "
+                   f"defaults")
+    del flush
+    return rows
+
+
+def serve_shard_phase(torch):
+    """Phase 10 (see the module docstring).  Returns (the driven runs'
+    launches summed over processes, launches per step by run, {kernel:
+    its rows at a rank's shapes})."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from repro_torch.core.spec import QuantPolicy
+    from repro_torch.dist import close_dp, init_dp, spawn
+    from repro_torch.dist.sharding import make_rules, set_mesh, use_rules
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models import Model
+    kernel_rows = _shard_kernel_rows(torch)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    (model, params), load, load_s = _drive(torch, lambda: build_model(
+        "chatglm3_6b", reduced=False, quant=SHARD_POLICY,
+        weight_resident=True, device="cuda", seed=0, attn_impl="flash"))
+    ref = _shard_path(torch, model, params)
+    ref.pop("engine")
+    ref["f32"] = _shard_f32_path(torch, model, params)
+    ref["f32_mx"] = _shard_f32_path(torch, model, params, mx_kv=True)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for key in ("continuous", "static_mx", "static_bf16", "f32", "f32_mx"):
+        add(ref[key]["launches"])
+    # the noise of bf16 itself: the whole model's bf16 first-step logits
+    # against its f32 twin's (the same weights, the same MX KV policy)
+    eps_bf16 = max(LOGITS_TOL, float((ref["first_logits"] - _first_logits(
+        torch, *_f32_twin(torch, model, params, mx_kv=True))).abs().max()))
+    emit("serve_shard", what="unsharded", load_s=load_s,
+         bf16_vs_f32_first_logits_max_abs_err=eps_bf16,
+         weight_gib=_weight_bytes(params) / 2 ** 30,
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         **{k: {x: y for x, y in v.items()
+                if x not in ("tokens", "first_logits")}
+            for k, v in ref.items() if k != "first_logits"}, card=CARD)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        tmp = Path(d)
+        # world one over NCCL: the same sharded code on mesh (1, 1),
+        # captured, the unsharded tokens bit for bit
+        mesh = init_dp(0, (1, 1), "cuda:0", str(tmp / "store1"),
+                       axes=("data", "model"))
+        try:
+            if mesh.backend != "nccl":
+                raise AssertionError(f"world one: backend {mesh.backend}")
+            rules = make_rules(mesh.axes, fsdp_params=False,
+                               quant=QuantPolicy.parse(SHARD_POLICY))
+            with set_mesh(mesh), use_rules(rules):
+                one = _shard_path(torch, model, params, rules)
+            one.pop("engine")
+            # the layers skip their collectives on axes of size 1: check
+            # apart that NCCL's own capture into a graph at world one
+            nccl_captured = _nccl_captured_identity(torch)
+        finally:
+            close_dp()
+        for key in ("continuous", "static_mx", "static_bf16"):
+            add(one[key]["launches"])
+            if not one[key]["captured"] \
+                    or one[key]["tokens"] != ref[key]["tokens"]:
+                raise AssertionError(f"serve_shard world one {key}: "
+                                     f"captured {one[key]['captured']}, "
+                                     f"tokens equal "
+                                     f"{one[key]['tokens'] == ref[key]['tokens']}")
+        if not torch.equal(one["first_logits"], ref["first_logits"]):
+            raise AssertionError("serve_shard world one: the first step's "
+                                 "logits differ from the unsharded ones")
+        if not nccl_captured:
+            raise AssertionError("serve_shard world one: a captured NCCL "
+                                 "all-reduce / all-gather is not the "
+                                 "identity")
+        emit("serve_shard", what="world one", backend=mesh.backend,
+             mesh={"data": 1, "model": 1},
+             captured=[one[k]["captured"] for k in
+                       ("continuous", "static_mx", "static_bf16")],
+             nccl_collectives_captured_identity=nccl_captured,
+             criterion="tokens and first-step logits bit for bit equal to "
+                       "the unsharded engines' (the layers skip their "
+                       "collectives at size 1); an NCCL all-reduce and "
+                       "all-gather captured into a graph, replayed, bit "
+                       "for bit the identity", card=CARD)
+        spawn(_shard_rank, SHARD_WORLD, (SHARD_WORLD, str(tmp / "store"),
+                                         d, CARD), timeout=SHARD_TIMEOUT)
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(SHARD_WORLD)]
+        saved = [torch.load(tmp / f"rank{r}.pt")
+                 for r in range(SHARD_WORLD)]
+        pool = [json.loads((tmp / f"pool{r}.json").read_text())
+                for r in range(SHARD_WORLD)]
+    prompts, static = _shard_inputs(model.cfg.vocab)
+    bf16 = Model(dataclasses.replace(model.cfg, mx=QuantPolicy.parse(
+        SHARD_POLICY.split(",")[0])), device=model.device)
+    # the first step's logits: at f32 activations and KV within
+    # LOGITS_TOL (reordered f32 sums); at f32 activations and MX KV
+    # within SHARD_MXKV_TOL (a code step where a value sits at a code
+    # boundary); in bf16 no further from the whole model's than bf16
+    # rounding itself moves them (eps_bf16, at least LOGITS_TOL)
+    want = {"bf16": ref["first_logits"], "f32": ref["f32"]["first_logits"],
+            "f32_mx": ref["f32_mx"]["first_logits"]}
+    errs = {dt: [float((r[dt] - want[dt]).abs().max()) for r in saved]
+            for dt in want}
+    tol = {"f32": LOGITS_TOL, "f32_mx": SHARD_MXKV_TOL, "bf16": eps_bf16}
+    emit("serve_shard", what="first-step logits", world=SHARD_WORLD,
+         max_abs_err=errs, tolerance=tol,
+         ranks_equal=all(torch.equal(saved[0][dt], saved[1][dt])
+                         for dt in want), card=CARD)
+    for dt in ("f32", "f32_mx", "bf16"):
+        if not max(errs[dt]) <= tol[dt]:
+            raise AssertionError(f"serve_shard: {dt} first-step logits "
+                                 f"differ from the unsharded ones by "
+                                 f"{errs[dt]} > {tol[dt]}")
+        if not all(torch.equal(r[dt], saved[0][dt]) for r in saved):
+            raise AssertionError(f"serve_shard: the ranks' {dt} "
+                                 f"first-step logits differ")
+    m32, p32 = _f32_twin(torch, model, params, mx_kv=False)
+    m32x, p32x = _f32_twin(torch, model, params, mx_kv=True)
+    per_step = {}
+    for key, m, p, inputs, gap in (
+            ("f32", m32, p32, prompts, LOGITS_TOL),
+            ("f32_mx", m32x, p32x, prompts, SHARD_MXKV_TOL),
+            ("continuous", model, params, prompts, eps_bf16),
+            ("static_mx", model, params, list(static), eps_bf16),
+            ("static_bf16", bf16, params, list(static), eps_bf16)):
+        streams = [r[key]["tokens"] for r in ranks]
+        if any(s != streams[0] for s in streams[1:]):
+            raise AssertionError(f"serve_shard {key}: the ranks' tokens "
+                                 f"differ")
+        # a stream may differ only from a step whose unsharded top-2
+        # logit gap is below the tolerance: LOGITS_TOL in f32, eps_bf16
+        # in bf16
+        flips = _flips(torch, m, p, inputs, streams[0],
+                       ref[key]["tokens"], tol=gap)
+        for r in ranks:
+            add(r[key]["launches"])
+        per_step[key] = ranks[0][key].get("launches_per_step", {})
+        captured = [r[key].get("captured", False) for r in ranks]
+        emit("serve_shard", what=key, world=SHARD_WORLD,
+             mesh={"data": 1, "model": SHARD_WORLD},
+             backend="gloo (staged)", ranks_identical=True,
+             equal_to_unsharded=streams[0] == ref[key]["tokens"],
+             flips=flips, flip_tolerance=gap,
+             prefill_s=[r[key].get("prefill_s") for r in ranks],
+             decode_ms_per_step=[r[key]["decode_ms_per_step"]
+                                 for r in ranks],
+             unsharded_decode_ms_per_step=ref[key]["decode_ms_per_step"],
+             captured=captured,
+             launches=[r[key]["launches"] for r in ranks], card=CARD)
+    # the bf16 control of the row-parallel sum, on each rank
+    ctl = [r["rowsum"] for r in ranks]
+    emit("serve_shard", what="bf16 row-sum control", world=SHARD_WORLD,
+         rows=ctl, tolerance=SHARD_ROWSUM_TOL, card=CARD)
+    for c in ctl:
+        if not c["mismatch"] <= SHARD_ROWSUM_TOL < c["fault_mismatch"]:
+            raise AssertionError(f"serve_shard bf16 row-sum control: {c} "
+                                 f"(mismatch must be at most "
+                                 f"{SHARD_ROWSUM_TOL}, the fault's above)")
+    # --shard-pool: each data rank its slots and its run of pages, B3 over
+    # its own pool; the whole model on each rank, so the tokens are the
+    # unsharded ones but for a flip at a top-2 gap below LOGITS_TOL
+    streams = [r["tokens"] for r in pool]
+    if any(t != streams[0] for t in streams[1:]):
+        raise AssertionError("serve_shard --shard-pool: the ranks' tokens "
+                             "differ")
+    flips = _flips(torch, model, params, prompts, streams[0],
+                   ref["continuous"]["tokens"])
+    whole_pages = ref["continuous"]["pool_pages"]
+    for r in pool:
+        add(r["launches"])
+        if r["pool_pages"] * len(pool) != whole_pages + len(pool) - 1:
+            raise AssertionError(f"serve_shard --shard-pool: rank "
+                                 f"{r['rank']} holds {r['pool_pages']} of "
+                                 f"{whole_pages} pages")
+    per_step["pool"] = pool[0]["launches_per_step"]
+    emit("serve_shard", what="shard_pool",
+         mesh=dict(zip(("data", "model"), SHARD_POOL_MESH)),
+         backend="gloo (staged)", ranks_identical=True,
+         equal_to_unsharded=streams[0] == ref["continuous"]["tokens"],
+         flips=flips, flip_tolerance=LOGITS_TOL,
+         pool_pages=[r["pool_pages"] for r in pool],
+         unsharded_pool_pages=whole_pages, slots=[r["slots"] for r in pool],
+         decode_ms_per_step=[r["decode_ms_per_step"] for r in pool],
+         captured=[r["captured"] for r in pool],
+         launches=[r["launches"] for r in pool], card=CARD)
+    emit("serve_shard", what="ranks", world=SHARD_WORLD,
+         weight_gib=[r["weight_gib"] for r in ranks],
+         unsharded_weight_gib=_weight_bytes(params) / 2 ** 30,
+         peak_gib=[r["peak_gib"] for r in ranks],
+         load_s=[r["load_s"] for r in ranks],
+         tp_ms_per_step=[r["tp_ms_per_step"] for r in ranks],
+         tp_spans_ms_per_step=[r["tp_spans_ms_per_step"] for r in ranks],
+         card=CARD)
+    del model, params, bf16, m32, p32, m32x, p32x
+    _free(torch)
+    return launches, per_step, kernel_rows
+
+
+# =============================================================================
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5698,7 +6359,10 @@ def main() -> int:
         "train_families", train_families_phase, torch)
     dp_launches, dp_per_step, dp_rows = timed("train_dp", train_dp_phase,
                                               torch)
-    for counts in (train_launches, fam_launches, dp_launches):
+    shard_launches, shard_per_step, shard_rows = timed(
+        "serve_shard", serve_shard_phase, torch)
+    for counts in (train_launches, fam_launches, dp_launches,
+                   shard_launches):
         for kernel, n in counts.items():
             launches[kernel] = launches.get(kernel, 0) + n
 
@@ -5773,6 +6437,13 @@ def main() -> int:
         # phase 9: the kernels at the shapes of one rank of train_dp
         kernels[-1]["train_dp_shapes"] = [{k: r.get(k) for k in shape_keys}
                                           for r in dp_rows.get(name, ())]
+        # phase 10: each rank's launches per decode step of the sharded
+        # continuous engine, and the kernels at a rank's shapes
+        kernels[-1]["serve_shard_launches_per_step"] = \
+            shard_per_step.get("continuous", {}).get(name, 0)
+        kernels[-1]["serve_shard_shapes"] = [
+            {k: r.get(k) for k in shape_keys + ("graph_ms",)}
+            for r in shard_rows.get(name, ())]
         if "multi_token" in row:    # the KV write's suffix-prefill mode,
             mt = row["multi_token"]  # launched on the prefix path
             kernels[-1]["multi_token"] = {

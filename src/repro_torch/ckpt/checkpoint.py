@@ -6,7 +6,8 @@ Layout:  <dir>/step_<N>/   arrays.npz     ("/"-joined tree path -> array)
 Writes go to ``step_<N>.tmp``, then ``os.replace``: a crash mid-save
 never corrupts the latest checkpoint.  Arrays are saved from the host;
 ``restore`` puts each back on the device and in the dtype of the
-matching leaf of ``like``.  A bf16 tensor is stored as its raw 2-byte
+matching leaf of ``like``, or, given ``shardings``, only this rank's
+shard of it (the reference's elastic restore across mesh shapes).  A bf16 tensor is stored as its raw 2-byte
 words (numpy dtype ``|V2``), the bytes the reference's numpy writes for
 a bf16 array, and restored bit for bit.
 """
@@ -91,22 +92,33 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, Dict[str, Any]]:
+def restore(ckpt_dir: str, step: int, like: Any,
+            shardings: Any = None) -> Tuple[Any, Dict[str, Any]]:
     """Restore into the structure of ``like`` (shapes must match), each
     leaf on its ``like`` leaf's device and in its dtype; returns (tree,
-    metadata)."""
+    metadata).  ``shardings`` (a tree like ``like`` of
+    ``dist.sharding.NamedSharding``: this rank's mesh and a spec per
+    leaf) is the reference's elastic path: every rank keeps its own
+    shard of each leaf, on a mesh whose shape need not be the one that
+    saved it (the arrays are saved whole)."""
+    from repro_torch.dist.sharding import shard_leaf
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     data = np.load(os.path.join(path, "arrays.npz"))
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    shard = [s for _, s in leaves_with_path(shardings)] \
+        if shardings is not None else None
     out = []
-    for pth, leaf in leaves_with_path(like):
+    for i, (pth, leaf) in enumerate(leaves_with_path(like)):
         key = path_key(pth)
         arr = data[key]
         if arr.shape != tuple(leaf.shape):
             raise ValueError(f"checkpoint {path}: {key} has shape "
                              f"{arr.shape}, expected {tuple(leaf.shape)}")
-        out.append(_from_numpy(arr, leaf))
+        t = _from_numpy(arr, leaf)
+        if shard is not None and shard[i] is not None:
+            t = shard_leaf(t, shard[i].spec, shard[i].mesh, dp=True)
+        out.append(t)
     return unflatten_like(like, out), manifest["metadata"]
 
 

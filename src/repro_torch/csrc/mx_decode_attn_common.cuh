@@ -4,9 +4,16 @@
 // kernels of mx_decode_attn_tc.cu.  Both own one (row, KV head) per
 // block, dequantize a tile of
 // tokens into shared memory, fold it into the running online softmax of
-// all rep = Hq / Hkv query heads of the group (tile_update), and write a
-// (acc, max, sum) partial per block that merge_splits_kernel combines in
-// split order.
+// the group's query heads (tile_update), and write a (acc, max, sum)
+// partial per block that merge_splits_kernel combines in split order.
+//
+// Query heads.  q holds Hq heads, the first being global head head0:
+// local head h reads KV head (head0 + h) / rep (head0 = 0 and Hq = Hkv *
+// rep: every head, query head h reading KV head h / rep).  The KV heads
+// read are glo = head0 / rep .. (head0 + Hq - 1) / rep, one block group
+// each (group_rows gives its local heads lo .. hi - 1, at most rmax =
+// min(rep, Hq) of them); a sharded rank that keeps every KV head (they
+// do not divide its model axis) runs its own q heads this way.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,6 +24,18 @@ namespace {  // internal linkage: each kernel file has its own copy
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
+
+// local query heads [lo, hi) of KV head g
+__host__ __device__ __forceinline__ void group_rows(int head0, int rep,
+                                                   int hq, int g, int& lo,
+                                                   int& hi) {
+  lo = g * rep - head0 > 0 ? g * rep - head0 : 0;
+  hi = (g + 1) * rep - head0 < hq ? (g + 1) * rep - head0 : hq;
+}
+
+__host__ __device__ __forceinline__ int rows_max(int rep, int hq) {
+  return rep < hq ? rep : hq;
+}
 
 // Fold one dequantized tile into the running softmax state.  k_s is
 // tile x (d + 1) (padded rows: no bank clash), v_s tile x d, p_s rep x
@@ -64,33 +83,37 @@ __device__ __forceinline__ void tile_update(
   }
 }
 
-// Merge the nsplit partial records of each (row, KV head) in split order
-// (deterministic) and apply the l == 0 -> 1 guard.  A record is
-// [rep x d acc | rep max | rep sum]; grid (Hkv, B).  tokens_per_split > 0
-// (the contiguous cache): only the splits holding positions <= pos wrote
-// a record, pos read from pos_p when that is not null.
+// Merge the nsplit partial records of each (row, KV head group) in split
+// order (deterministic) and apply the l == 0 -> 1 guard.  A record is
+// [rmax x d acc | rmax max | rmax sum], its first hi - lo rows used; grid
+// (groups, B).  tokens_per_split > 0 (the contiguous cache): only the
+// splits holding positions <= pos wrote a record, pos read from pos_p
+// when that is not null.
 __global__ void __launch_bounds__(kThreads) merge_splits_kernel(
     const float* __restrict__ part, float* __restrict__ out, int hq,
-    int hkv, int d, int nsplit, const int* __restrict__ pos_p, int pos,
-    int s_len, int tokens_per_split) {
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int rep = hq / hkv, rec = rep * d + 2 * rep;
-  const float* base = part + ((long long)b * hkv + g) * nsplit * rec;
+    int head0, int rep, int d, int nsplit, const int* __restrict__ pos_p,
+    int pos, int s_len, int tokens_per_split) {
+  const int gi = blockIdx.x, b = blockIdx.y;
+  int lo, hi;
+  group_rows(head0, rep, hq, head0 / rep + gi, lo, hi);
+  const int rmax = rows_max(rep, hq), rec = rmax * d + 2 * rmax;
+  const float* base =
+      part + ((long long)b * gridDim.x + gi) * nsplit * rec;
   int ns = nsplit;              // records to merge
   if (tokens_per_split > 0) {   // contiguous: the splits up to pos only
     const int live = min((pos_p != nullptr ? *pos_p : pos) + 1, s_len);
     ns = min(nsplit, (live + tokens_per_split - 1) / tokens_per_split);
   }
-  float* ob = out + ((long long)b * hq + g * rep) * d;
-  for (int i = threadIdx.x; i < rep * d; i += kThreads) {
+  float* ob = out + ((long long)b * hq + lo) * d;
+  for (int i = threadIdx.x; i < (hi - lo) * d; i += kThreads) {
     const int h = i / d;
     float m = kNegInf;
-    for (int s = 0; s < ns; ++s) m = fmaxf(m, base[s * rec + rep * d + h]);
+    for (int s = 0; s < ns; ++s) m = fmaxf(m, base[s * rec + rmax * d + h]);
     float l = 0.f, o = 0.f;
     for (int s = 0; s < ns; ++s) {
       const float* r = base + s * rec;
-      const float w = expf(r[rep * d + h] - m);
-      l = fmaf(r[rep * d + rep + h], w, l);
+      const float w = expf(r[rmax * d + h] - m);
+      l = fmaf(r[rmax * d + rmax + h], w, l);
       o = fmaf(r[i], w, o);
     }
     ob[i] = o / (l == 0.f ? 1.f : l);

@@ -6,7 +6,8 @@
 // _mx_paged_decode_attention (body _paged_kernel) for bf16 q, the serving
 // path's type; f32 q runs the CUDA-core kernels of mx_decode_attn.cu and
 // mx_paged_decode_attn.cu.  One query token per row, GQA (query head h
-// reads KV head h / rep).  Contiguous: codes (B, S, Hkv, D) one per byte,
+// reads KV head h / rep; under a first head head0, local head h reads KV
+// head (head0 + h) / rep, as in mx_decode_attn_common.cuh).  Contiguous: codes (B, S, Hkv, D) one per byte,
 // every row attends positions <= pos.  Paged: pools (P, page, Hkv, CB),
 // sub-byte codes bit-packed along D (E2M1 two per byte, low nibble
 // first; E3M2/E2M3 four per three bytes, little-endian), slot b attends
@@ -30,7 +31,8 @@
 //
 // Design.  The rep query heads of one KV head are the M of the mma: one
 // m16 tile for chatglm3-6b's 32 / 2 = 16; fewer pad with zero rows that
-// are never stored, more take ceil(rep / 16) m-tiles as separate blocks.
+// are never stored, more take ceil(rep / 16) m-tiles as separate blocks
+// (under head0, a KV head's local query heads, at most min(rep, Hq)).
 // Block (KV head x m-tile, row, split) of 4 warps walks the split's
 // positions in 16-token tiles, warp w taking tiles w, w + 4, ...; a block
 // reads its own block-table entries and length (paged) and no position
@@ -87,6 +89,7 @@ struct Args {
   float* part;              // records (B, Hkv * mtiles, nsplit, rec)
   __nv_bfloat16* out;       // (B, Hq, D)
   int hq, hkv, rep, mtiles;
+  int head0, glo, groups;   // first q head; first KV head read, KV heads
   const int* pos_p;         // contiguous: pos in device memory, or null
   int s_len, pos;           // contiguous (pos when pos_p is null)
   int page, max_pages;      // paged
@@ -372,7 +375,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ float wacc[kWarps][kRows][D + 4];   // +4: fewer bank clashes
 
   const int x = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int g = x / a.mtiles, mt = x % a.mtiles;
+  const int g = a.glo + x / a.mtiles, mt = x % a.mtiles;
+  const int lo = max(0, g * a.rep - a.head0);
+  const int nr = min(a.hq, (g + 1) * a.rep - a.head0) - lo;
   const int live = live_of<PAGED>(a, b);
   const int t0 = split * a.split_tokens;
   if (t0 >= live) return;                 // no live position in this split
@@ -389,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     tab[1][i] = a.vtab[i];
     tab[2][i] = a.stab[i];
   }
-  // Q rows gq and gq + 8 of this m-tile (zero past rep) as A fragments
+  // Q rows gq and gq + 8 of this m-tile (zero past nr) as A fragments
   // in the permuted D order: word 2kk (+1) of a row's D/4 values from
   // t*D/4 holds its k values 2t, 2t + 1 (2t + 8, 2t + 9) of k-step kk
   uint32_t qf[D / 16][4];
@@ -397,9 +402,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int h = 0; h < 2; ++h) {
     const int row = mt * kRows + gq + 8 * h;
     uint32_t w[D / 8];
-    if (row < a.rep) {
+    if (row < nr) {
       const uint4* p = reinterpret_cast<const uint4*>(
-          a.q + ((long long)b * a.hq + g * a.rep + row) * D + t * (D / 4));
+          a.q + ((long long)b * a.hq + lo + row) * D + t * (D / 4));
 #pragma unroll
       for (int i = 0; i < D / 32; ++i) {
         const uint4 v = __ldg(p + i);
@@ -482,12 +487,13 @@ template <int D, bool PAGED>
 __global__ void __launch_bounds__(D) mx_decode_attn_merge_kernel(
     const Args a) {
   const int h = blockIdx.x, b = blockIdx.y, dd = threadIdx.x;
-  const int g = h / a.rep, ri = h % a.rep;
-  const int x = g * a.mtiles + ri / kRows, r = ri % kRows;
+  const int g = (a.head0 + h) / a.rep;
+  const int ri = h - max(0, g * a.rep - a.head0);
+  const int x = (g - a.glo) * a.mtiles + ri / kRows, r = ri % kRows;
   const int live = live_of<PAGED>(a, b);
   const int ns = min(a.nsplit, (live + a.split_tokens - 1) / a.split_tokens);
   const float* base =
-      a.part + ((long long)b * a.hkv * a.mtiles + x) * a.nsplit *
+      a.part + ((long long)b * a.groups * a.mtiles + x) * a.nsplit *
                    rec_floats<D>();
   float mm = kNegInf;
   for (int s = 0; s < ns; ++s) mm = fmaxf(mm, base[s * rec_floats<D>() + r]);
@@ -504,7 +510,7 @@ __global__ void __launch_bounds__(D) mx_decode_attn_merge_kernel(
 
 template <int D, bool PAGED, int KK, int VK>
 int launch_d(const Args& a, int bsz, cudaStream_t st) {
-  const dim3 grid(a.hkv * a.mtiles, bsz, a.nsplit);
+  const dim3 grid(a.groups * a.mtiles, bsz, a.nsplit);
   mx_decode_attn_tc_kernel<D, PAGED, KK, VK><<<grid, kThreads, 0, st>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -537,8 +543,9 @@ int launch_kinds(const Args& a, int bsz, cudaStream_t st) {
 template <bool PAGED>
 int launch(Args& a, int bsz, int d, cudaStream_t st) {
   if (bsz == 0) return 0;
-  a.rep = a.hq / a.hkv;
-  a.mtiles = (a.rep + kRows - 1) / kRows;
+  a.glo = a.head0 / a.rep;
+  a.groups = (a.head0 + a.hq - 1) / a.rep - a.glo + 1;
+  a.mtiles = ((a.rep < a.hq ? a.rep : a.hq) + kRows - 1) / kRows;
   switch (d) {
     case 32: return launch_kinds<32, PAGED>(a, bsz, st);
     case 64: return launch_kinds<64, PAGED>(a, bsz, st);
@@ -549,19 +556,22 @@ int launch(Args& a, int bsz, int d, cudaStream_t st) {
 
 }  // namespace
 
-// q (B, Hq, D) bf16, 16-byte aligned; codes (B, S, Hkv, D) u8, one code
-// per byte, 16-byte aligned; scales (B, S, Hkv, D/32) u8; out like q;
-// D in {32, 64, 128}; 0 <= pos, read from pos_dev (one int32 in device
-// memory) when that is not null.  part: B * Hkv * ceil(Hq / Hkv / 16) *
-// nsplit records of 16 * (D + 2) floats; split_tokens a multiple of 64
+// q (B, Hq, D) bf16, 16-byte aligned, its first head global head head0
+// (local head h reads KV head (head0 + h) / rep; head0 + Hq <= Hkv * rep);
+// codes (B, S, Hkv, D) u8, one code per byte, 16-byte aligned; scales (B,
+// S, Hkv, D/32) u8; out like q; D in {32, 64, 128}; 0 <= pos, read from
+// pos_dev (one int32 in device memory) when that is not null.  part: B *
+// groups * ceil(min(rep, Hq) / 16) * nsplit records of 16 * (D + 2)
+// floats, groups = (head0 + Hq - 1) / rep - head0 / rep + 1; split_tokens a multiple of 64
 // with nsplit * split_tokens >= S: the grid is sized from S, so a launch
 // does not depend on pos, and the splits past min(pos + 1, S) return at
 // once and the merge skips them.
 extern "C" int mx_decode_attn_tc_launch(
     const void* q, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* pos_dev, const void* ktab, const void* vtab,
-    const void* stab, void* part, void* out, int bsz, int hq, int hkv, int d,
-    int s_len, int pos, int split_tokens, int nsplit, void* stream) {
+    const void* stab, void* part, void* out, int bsz, int hq, int hkv,
+    int head0, int rep, int d, int s_len, int pos, int split_tokens,
+    int nsplit, void* stream) {
   Args a{};
   a.q = (const __nv_bfloat16*)q;
   a.kc = (const uint8_t*)kc;
@@ -575,6 +585,8 @@ extern "C" int mx_decode_attn_tc_launch(
   a.out = (__nv_bfloat16*)out;
   a.hq = hq;
   a.hkv = hkv;
+  a.head0 = head0;
+  a.rep = rep;
   a.pos_p = (const int*)pos_dev;
   a.s_len = s_len;
   a.pos = pos;
@@ -584,7 +596,7 @@ extern "C" int mx_decode_attn_tc_launch(
   return launch<false>(a, bsz, d, (cudaStream_t)stream);
 }
 
-// q as above; pools (P, page, Hkv, CB) u8, 16-byte aligned, and (P, page,
+// q and head0 / rep as above; pools (P, page, Hkv, CB) u8, 16-byte aligned, and (P, page,
 // Hkv, D/32) u8; block_tables (B, max_pages) i32; lengths (B,) i32; kkind
 // / vkind: 0 one code per byte, 1 4-bit, 2 6-bit.  part as above with
 // nsplit * split_tokens >= max_pages * page.
@@ -592,9 +604,9 @@ extern "C" int mx_paged_decode_attn_tc_launch(
     const void* q, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* block_tables, const void* lengths,
     const void* ktab, const void* vtab, const void* stab, void* part,
-    void* out, int bsz, int hq, int hkv, int d, int page, int max_pages,
-    int cb_k, int cb_v, int kkind, int vkind, int split_tokens, int nsplit,
-    void* stream) {
+    void* out, int bsz, int hq, int hkv, int head0, int rep, int d, int page,
+    int max_pages, int cb_k, int cb_v, int kkind, int vkind,
+    int split_tokens, int nsplit, void* stream) {
   Args a{};
   a.q = (const __nv_bfloat16*)q;
   a.kc = (const uint8_t*)kc;
@@ -610,6 +622,8 @@ extern "C" int mx_paged_decode_attn_tc_launch(
   a.out = (__nv_bfloat16*)out;
   a.hq = hq;
   a.hkv = hkv;
+  a.head0 = head0;
+  a.rep = rep;
   a.page = page;
   a.max_pages = max_pages;
   a.cb_k = cb_k;

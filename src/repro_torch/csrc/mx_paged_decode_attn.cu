@@ -61,39 +61,42 @@ __global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
     const uint8_t* __restrict__ vs, const int* __restrict__ block_tables,
     const int* __restrict__ lengths, const float* __restrict__ ktab_g,
     const float* __restrict__ vtab_g, const float* __restrict__ stab_g,
-    float* __restrict__ part, int hq, int hkv, int d, int page,
-    int max_pages, int cb_k, int cb_v, int kpack, int vpack,
+    float* __restrict__ part, int hq, int hkv, int head0, int rep, int d,
+    int page, int max_pages, int cb_k, int cb_v, int kpack, int vpack,
     int pages_per_split) {
   extern __shared__ float smem[];
-  const int rep = hq / hkv;
+  const int rmax = mxattn::rows_max(rep, hq);
   const int ds = d + 1;                        // padded row: no bank clash
   float* ktab = smem;
   float* vtab = ktab + 256;
   float* stab = vtab + 256;
-  float* q_s = stab + 256;                     // rep x d
-  float* k_s = q_s + rep * d;                  // page x ds
+  float* q_s = stab + 256;                     // rmax x d
+  float* k_s = q_s + rmax * d;                 // page x ds
   float* v_s = k_s + page * ds;                // page x d
-  float* p_s = v_s + page * d;                 // rep x page
-  float* acc = p_s + rep * page;               // rep x d
-  float* m_s = acc + rep * d;                  // rep
-  float* l_s = m_s + rep;                      // rep
-  float* a_s = l_s + rep;                      // rep
+  float* p_s = v_s + page * d;                 // rmax x page
+  float* acc = p_s + rmax * page;              // rmax x d
+  float* m_s = acc + rmax * d;                 // rmax
+  float* l_s = m_s + rmax;                     // rmax
+  float* a_s = l_s + rmax;                     // rmax
 
-  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int g = head0 / rep + blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  int lo, hi;
+  mxattn::group_rows(head0, rep, hq, g, lo, hi);
+  const int nr = hi - lo;                      // query heads of this block
   const int nsplit = gridDim.z, tid = threadIdx.x;
   const int nbl = d / 32, nq = d / 4;
   const int len = lengths[b];
   const int npg = min(len / page + 1, max_pages);
   const int pg0 = split * pages_per_split;
   const int pg1 = min(npg, pg0 + pages_per_split);
-  // partial record: [rep x d acc | rep m | rep l]
-  float* out = part + (((long long)b * hkv + g) * nsplit + split) *
-                          (rep * d + 2 * rep);
+  // partial record: [rmax x d acc | rmax m | rmax l], nr rows used
+  float* out = part + (((long long)b * gridDim.x + blockIdx.x) * nsplit +
+                       split) * (rmax * d + 2 * rmax);
   if (pg0 >= pg1) {                            // no live page in this split
-    for (int i = tid; i < rep * d; i += kThreads) out[i] = 0.f;
-    for (int h = tid; h < rep; h += kThreads) {
-      out[rep * d + h] = kNegInf;
-      out[rep * d + rep + h] = 0.f;
+    for (int i = tid; i < nr * d; i += kThreads) out[i] = 0.f;
+    for (int h = tid; h < nr; h += kThreads) {
+      out[rmax * d + h] = kNegInf;
+      out[rmax * d + rmax + h] = 0.f;
     }
     return;
   }
@@ -102,12 +105,12 @@ __global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
     vtab[i] = vtab_g[i];
     stab[i] = stab_g[i];
   }
-  const float* qb = q + ((long long)b * hq + g * rep) * d;
-  for (int i = tid; i < rep * d; i += kThreads) {
+  const float* qb = q + ((long long)b * hq + lo) * d;
+  for (int i = tid; i < nr * d; i += kThreads) {
     q_s[i] = qb[i];
     acc[i] = 0.f;
   }
-  for (int h = tid; h < rep; h += kThreads) {
+  for (int h = tid; h < nr; h += kThreads) {
     m_s[h] = kNegInf;
     l_s[h] = 0.f;
   }
@@ -130,27 +133,29 @@ __global__ void __launch_bounds__(kThreads) paged_attn_split_kernel(
       }
     }
     __syncthreads();
-    mxattn::tile_update(q_s, k_s, v_s, p_s, acc, m_s, l_s, a_s, rep, d,
+    mxattn::tile_update(q_s, k_s, v_s, p_s, acc, m_s, l_s, a_s, nr, d,
                         page, len - pg * page + 1);
   }
   __syncthreads();
-  for (int i = tid; i < rep * d; i += kThreads) out[i] = acc[i];
-  for (int h = tid; h < rep; h += kThreads) {
-    out[rep * d + h] = m_s[h];
-    out[rep * d + rep + h] = l_s[h];
+  for (int i = tid; i < nr * d; i += kThreads) out[i] = acc[i];
+  for (int h = tid; h < nr; h += kThreads) {
+    out[rmax * d + h] = m_s[h];
+    out[rmax * d + rmax + h] = l_s[h];
   }
 }
 
 int launch(const void* q, const void* kc, const void* ks, const void* vc,
            const void* vs, const void* bt, const void* lengths,
            const void* ktab, const void* vtab, const void* stab, void* part,
-           void* out, int bsz, int hq, int hkv, int d, int page,
-           int max_pages, int cb_k, int cb_v, int kpack, int vpack,
+           void* out, int bsz, int hq, int hkv, int head0, int rep, int d,
+           int page, int max_pages, int cb_k, int cb_v, int kpack, int vpack,
            int pages_per_split, cudaStream_t st) {
-  const int rep = hq / hkv;
-  const size_t floats = 3 * 256 + (size_t)rep * d + (size_t)page * (d + 1) +
-                        (size_t)page * d + (size_t)rep * page +
-                        (size_t)rep * d + 3 * (size_t)rep;
+  const int rmax = mxattn::rows_max(rep, hq);
+  const int groups = (head0 + hq - 1) / rep - head0 / rep + 1;
+  const size_t floats = 3 * 256 + (size_t)rmax * d +
+                        (size_t)page * (d + 1) + (size_t)page * d +
+                        (size_t)rmax * page + (size_t)rmax * d +
+                        3 * (size_t)rmax;
   const size_t bytes = floats * sizeof(float);
   if (bytes > 48 * 1024) {
     cudaFuncSetAttribute(paged_attn_split_kernel,
@@ -158,17 +163,18 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
                          (int)bytes);
   }
   const int nsplit = (max_pages + pages_per_split - 1) / pages_per_split;
-  dim3 grid(hkv, bsz, nsplit);
+  dim3 grid(groups, bsz, nsplit);
   paged_attn_split_kernel<<<grid, kThreads, bytes, st>>>(
       (const float*)q, (const uint8_t*)kc, (const uint8_t*)ks,
       (const uint8_t*)vc, (const uint8_t*)vs, (const int*)bt,
       (const int*)lengths, (const float*)ktab, (const float*)vtab,
-      (const float*)stab, (float*)part, hq, hkv, d, page, max_pages, cb_k,
-      cb_v, kpack, vpack, pages_per_split);
+      (const float*)stab, (float*)part, hq, hkv, head0, rep, d, page,
+      max_pages, cb_k, cb_v, kpack, vpack, pages_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mxattn::merge_splits_kernel<<<dim3(hkv, bsz), kThreads, 0, st>>>(
-      (const float*)part, (float*)out, hq, hkv, d, nsplit, nullptr, 0, 0, 0);
+  mxattn::merge_splits_kernel<<<dim3(groups, bsz), kThreads, 0, st>>>(
+      (const float*)part, (float*)out, hq, head0, rep, d, nsplit, nullptr, 0,
+      0, 0);
   return (int)cudaGetLastError();
 }
 
@@ -177,18 +183,20 @@ int launch(const void* q, const void* kc, const void* ks, const void* vc,
 // q (B, Hq, D) f32; pools (P, page, Hkv, CB) u8 and
 // (P, page, Hkv, D/32) u8, code rows 4-byte aligned for one-byte codes and
 // 2-byte aligned for 4-bit codes; block_tables (B, max_pages) i32; lengths
-// (B,) i32; out like q.  kpack/vpack: 0 one code per byte, 1 4-bit, 2
-// 6-bit.  part: B * Hkv * ceil(max_pages / pages_per_split) records of
-// (Hq/Hkv) * (D + 2) floats.
+// (B,) i32; out like q, its first head global head head0 (as in
+// mx_decode_attn.cu).  kpack/vpack: 0 one code per byte, 1 4-bit, 2
+// 6-bit.  part: B * groups * ceil(max_pages / pages_per_split) records of
+// min(rep, Hq) * (D + 2) floats.
 extern "C" int mx_paged_decode_attn_launch(
     const void* q, const void* kc, const void* ks, const void* vc,
     const void* vs, const void* block_tables, const void* lengths,
     const void* ktab, const void* vtab, const void* stab, void* part,
-    void* out, int bsz, int hq, int hkv, int d, int page, int max_pages,
-    int cb_k, int cb_v, int kpack, int vpack, int pages_per_split,
-    void* stream) {
+    void* out, int bsz, int hq, int hkv, int head0, int rep, int d,
+    int page, int max_pages, int cb_k, int cb_v, int kpack, int vpack,
+    int pages_per_split, void* stream) {
   if (bsz == 0) return 0;
   return launch(q, kc, ks, vc, vs, block_tables, lengths, ktab, vtab, stab,
-                part, out, bsz, hq, hkv, d, page, max_pages, cb_k, cb_v,
-                kpack, vpack, pages_per_split, (cudaStream_t)stream);
+                part, out, bsz, hq, hkv, head0, rep, d, page, max_pages,
+                cb_k, cb_v, kpack, vpack, pages_per_split,
+                (cudaStream_t)stream);
 }

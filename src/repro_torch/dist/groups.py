@@ -1,14 +1,18 @@
-"""The data-parallel mesh as torch.distributed process groups.
+"""The device mesh as torch.distributed process groups.
 
-The port's counterpart of the reference's DP mesh axes: the
-``("pod", "data")`` part of ``launch/mesh.py``'s meshes and the manual
-``shard_map`` axes of ``core/grad_compress.py`` and
-``train/step.py::build_train_step_compressed_dp``.
+The port's counterpart of the reference's mesh axes: the
+``("pod", "data", "model")`` meshes of ``launch/mesh.py`` and the manual
+``shard_map`` axes of ``core/grad_compress.py``,
+``train/step.py::build_train_step_compressed_dp`` and
+``kernels/ops.py``'s sharded wrappers.
 
-A mesh of ``sizes`` over ``axes`` (a suffix of ``DP_AXES``, outermost
-first: ``("pod", "data")`` or ``("data",)``) is ``prod(sizes)`` ranks,
-one process each.  Rank ``r`` sits at the coordinates of ``r`` in
-row-major order, ``r = pod * |data| + data``.  For each axis the ranks
+A mesh of ``sizes`` over ``axes`` (an ordered subset of
+``("pod", "data", "model")``, outermost first; the data-parallel
+training meshes are a suffix of ``DP_AXES``, ``("pod", "data")`` or
+``("data",)``, the serving meshes ``("data", "model")``) is
+``prod(sizes)`` ranks, one process each.  Rank ``r`` sits at the coordinates of ``r`` in
+row-major order, ``r = pod * |data| + data`` (``r = data * |model| + model`` on a
+serving mesh).  For each axis the ranks
 that differ only in that coordinate form one subgroup (``new_group``
 over their sorted ranks), so a rank's index inside its "pod" group is
 its pod coordinate and inside its "data" group its data coordinate.  A
@@ -34,8 +38,10 @@ loopback TCP, so a run of them gives no wire speed.
 
 Each wire method runs in a ``torch.profiler.record_function`` span
 ("dp.to_wire", "dp.reduce_scatter", "dp.all_gather", "dp.from_wire",
-"dp.mean"), which ``tests/profile_dp_exchange.py`` reads; outside a
-profiler a span costs a few microseconds.
+"dp.mean"), which ``tests/profile_dp_exchange.py`` reads; the sharded
+serving collectives (``sum_over``, ``gather_over``, ``host_gather``)
+run in "tp.*" spans ("tp.sum", "tp.gather", "tp.host"), staging
+included; outside a profiler a span costs a few microseconds.
 
 Rendezvous goes through a ``FileStore`` at a path the caller names (a
 fresh temporary directory per run), never through a fixed port, so
@@ -54,7 +60,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from repro_torch.dist.sharding import DP_AXES
+from repro_torch.dist.sharding import DP_AXES, MESH_AXES
 
 # torch renamed the tensor-in, tensor-out collectives (the old names warn
 # where the new ones exist); take whichever this torch has
@@ -89,11 +95,24 @@ def backend_for(device: torch.device, world: int, cards: int) -> str:
     return "gloo"
 
 
+def check_axes(axes: Sequence[str], sizes: Sequence[int]) -> Tuple[str, ...]:
+    """``axes`` as a tuple, checked: an ordered subset of ``MESH_AXES``
+    with one size each."""
+    axes = tuple(axes)
+    order = [MESH_AXES.index(a) for a in axes if a in MESH_AXES]
+    if len(order) != len(axes) or order != sorted(set(order)) \
+            or len(axes) != len(sizes):
+        raise ValueError(f"mesh axes {axes} of sizes {tuple(sizes)}: "
+                         f"an ordered subset of {MESH_AXES}, one size "
+                         f"each")
+    return axes
+
+
 @dataclasses.dataclass
 class DPGroups:
-    """One rank's view of the DP mesh: its coordinates, the subgroup of
-    each axis it belongs to, the backend and whether gloo stages CUDA
-    tensors through host memory."""
+    """One rank's view of the mesh: its coordinates, the subgroup of each
+    axis it belongs to, the backend and whether gloo stages CUDA tensors
+    through host memory."""
 
     axes: Tuple[str, ...]
     sizes: Tuple[int, ...]
@@ -111,7 +130,94 @@ class DPGroups:
         return self.backend == "gloo" and self.device.type == "cuda"
 
     def size(self, axis: str) -> int:
-        return self.sizes[self.axes.index(axis)]
+        """Ranks along ``axis`` (1 for an axis the mesh does not have)."""
+        return self.sizes[self.axes.index(axis)] if axis in self.axes else 1
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as a jax mesh's ``shape``."""
+        return dict(zip(self.axes, self.sizes))
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (row-major ranks)."""
+        if axis not in self.axes:
+            return 0
+        i = self.axes.index(axis)
+        return self.rank // math.prod(self.sizes[i + 1:]) % self.sizes[i]
+
+    def index(self, entry) -> int:
+        """This rank's chunk index along a spec entry: an axis, or a tuple
+        of axes (row-major over them)."""
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        i = 0
+        for a in axes:
+            i = i * self.size(a) + self.coord(a)
+        return i
+
+    # -- the sharded serving collectives ("tp.*") --------------------------
+    def _over(self, axes, fn, x):
+        """``fn(wire tensor, group)`` over each of ``axes`` (sizes > 1) in
+        turn, on the wire; returns the result on this rank's device."""
+        axes = [a for a in ((axes,) if isinstance(axes, str) else axes)
+                if self.size(a) > 1]
+        if not axes:
+            return x
+        w = self.to_wire(x.contiguous())
+        for a in axes:
+            w = fn(w, a)
+        return self.from_wire(w)
+
+    def _gather_stack(self, w: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ``axis`` ranks' ``w`` (at least 1-D) stacked on a new
+        leading dim (the collective fills it as one concatenation along
+        dim 0, the layout every backend takes)."""
+        k = self.size(axis)
+        out = torch.empty((k * w.shape[0],) + tuple(w.shape[1:]),
+                          dtype=w.dtype, device=w.device)
+        _all_gather(out, w.contiguous(), group=self.groups[axis])
+        return out.reshape((k,) + tuple(w.shape))
+
+    def sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Sum of ``x`` over the ranks of ``axes`` (an axis or a tuple),
+        in x's dtype, staged through host memory under gloo on CUDA."""
+        def one(w, a):
+            w = w.clone() if w is x else w
+            dist.all_reduce(w, op=dist.ReduceOp.SUM, group=self.groups[a])
+            return w
+        with record_function("tp.sum"):
+            return self._over(axes, one, x)
+
+    def gather_over(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` along ``axes`` concatenated on ``dim`` in their
+        coordinate order (row-major over a tuple of axes)."""
+        dim = dim % x.dim()
+
+        def one(w, a):
+            out = self._gather_stack(w, a)
+            return torch.cat(list(out.unbind(0)), dim=dim)
+
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        with record_function("tp.gather"):
+            # the innermost axis first: chunks of an outer coordinate
+            # then hold its inner ones in order
+            return self._over(tuple(reversed(axes)), one, x)
+
+    def host_gather(self, a, axes):
+        """A host (numpy) array of every rank of ``axes`` (an axis or a
+        tuple), stacked on a new leading dim in coordinate order (gloo runs
+        it on the host; NCCL takes device tensors, so it goes through the
+        card there)."""
+        import numpy as np
+        axes = tuple(x for x in ((axes,) if isinstance(axes, str) else axes)
+                     if self.size(x) > 1)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.backend == "nccl":
+            t = t.to(self.device)
+        with record_function("tp.host"):
+            for ax in reversed(axes):       # innermost first
+                t = self._gather_stack(t, ax)
+        n = math.prod(self.size(x) for x in axes)
+        return t.cpu().numpy().reshape((n,) + np.shape(a))
 
     def batch_rows(self, batch: int) -> slice:
         """This rank's rows of a global batch of ``batch``: the
@@ -180,14 +286,17 @@ class DPGroups:
 
 
 def init_dp(rank: int, sizes: Sequence[int], device,
-            store_path: str) -> DPGroups:
+            store_path: str, axes: Optional[Sequence[str]] = None
+            ) -> DPGroups:
     """Join the process group of ``prod(sizes)`` ranks as ``rank`` through
     a FileStore at ``store_path`` (every rank names the same, fresh path)
-    and build the axis subgroups.  ``device`` is this rank's device
+    and build the axis subgroups.  ``axes`` names the mesh's axes
+    (default the DP axes of ``mesh_axes(sizes)``; a serving mesh passes
+    ``("data", "model")``).  ``device`` is this rank's device
     (``rank_device``); the backend follows from it (``backend_for``).
     Every rank must call this, in any order."""
     sizes = tuple(int(s) for s in sizes)
-    axes = mesh_axes(sizes)
+    axes = mesh_axes(sizes) if axes is None else check_axes(axes, sizes)
     world = math.prod(sizes)
     device = torch.device(device)
     cards = torch.cuda.device_count() if device.type == "cuda" else 0

@@ -42,10 +42,10 @@ SIGNATURES: Dict[str, str] = {
     "mx_kv_write_launch": "p" * 10 + "i" + "ppp" + "i" * 10 + "p",
     "mx_matmul_launch": "ppppppp" + "i" * 5 + "p",
     "mx_matmul_tc_launch": "ppppppp" + "i" * 5 + "p",
-    "mx_paged_decode_attn_launch": "p" * 12 + "i" * 11 + "p",
-    "mx_decode_attn_launch": "p" * 11 + "i" * 7 + "p",
-    "mx_paged_decode_attn_tc_launch": "p" * 12 + "i" * 12 + "p",
-    "mx_decode_attn_tc_launch": "p" * 11 + "i" * 8 + "p",
+    "mx_paged_decode_attn_launch": "p" * 12 + "i" * 13 + "p",
+    "mx_decode_attn_launch": "p" * 11 + "i" * 9 + "p",
+    "mx_paged_decode_attn_tc_launch": "p" * 12 + "i" * 14 + "p",
+    "mx_decode_attn_tc_launch": "p" * 11 + "i" * 10 + "p",
     "flash_attn_launch": "pppp" + "i" * 8 + "p",
     "flash_attn_tc_launch": "pppp" + "i" * 8 + "p",
 }

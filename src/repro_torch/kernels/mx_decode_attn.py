@@ -12,8 +12,17 @@ output cast back to bf16 (the plain version computes in f32 too).  On
 CUDA tensors each wrapper launches its kernel (or raises); on CPU
 tensors it computes the plain version,
 ``ref.mx_decode_attention_ref`` / ``ref.mx_paged_decode_attention_ref``.
+
+``head0`` names q's first head: local head h is global head head0 + h
+and reads KV head (head0 + h) // rep, so a rank that holds a slice of
+the q heads over every KV head (a sharded mesh whose "model" axis does
+not divide the KV heads) attends through the same kernels.  The default,
+None, is head 0 of q holding every head (Hq == Hkv x rep, checked); the
+kernels then run as they do at head0 0.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -107,18 +116,41 @@ def _check_tc_operands(name, q, codes) -> None:
                          f"16-byte aligned")
 
 
-def _records(b, hkv, rep, d, span, dev):
+def head_groups(hq: int, rep: int, head0: int):
+    """(KV heads read, most q heads of one) by q heads head0 .. head0 +
+    hq - 1: the kernels' block groups (every KV head and rep at head0 0
+    over all heads)."""
+    return (head0 + hq - 1) // rep - head0 // rep + 1, min(rep, hq)
+
+
+def _check_heads(name, hq, hkv, rep, head0) -> int:
+    """``head0`` as an int, checked: None needs every head (Hq == Hkv x
+    rep), an int a slice within them."""
+    if head0 is None:
+        if hq != hkv * rep:
+            raise ValueError(f"{name}: Hq={hq} does not match Hkv={hkv} x "
+                             f"rep={rep}")
+        return 0
+    if hq < 1 or rep < 1 or head0 < 0 or head0 + hq > hkv * rep:
+        raise ValueError(f"{name}: q heads {head0} .. {head0 + hq - 1} do "
+                         f"not lie within Hkv={hkv} x rep={rep}")
+    return int(head0)
+
+
+def _records(b, hq, rep, head0, d, span, dev):
     """(split_tokens, nsplit, record buffer) of a bf16 launch."""
-    mtiles = -(-rep // TC_ROWS)
-    st = split_tokens(span, b * hkv * mtiles)
+    groups, rmax = head_groups(hq, rep, head0)
+    mtiles = -(-rmax // TC_ROWS)
+    st = split_tokens(span, b * groups * mtiles)
     nsplit = -(-span // st)
-    part = torch.empty((b, hkv * mtiles, nsplit, TC_ROWS * (d + 2)),
+    part = torch.empty((b, groups * mtiles, nsplit, TC_ROWS * (d + 2)),
                        dtype=torch.float32, device=dev)
     return st, nsplit, part
 
 
 def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
-                        key_spec, value_spec, rep: int = 1) -> torch.Tensor:
+                        key_spec, value_spec, rep: int = 1,
+                        head0: Optional[int] = None) -> torch.Tensor:
     """Decode attention over a contiguous MX KV cache.
 
     q             (B, 1, Hq, D) f32 or bf16
@@ -129,6 +161,7 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
                   kernels read (the static decode step replayed from a
                   CUDA graph).  The grid is sized from S either way, so
                   the two give the same bits
+    head0         q's first global head (see the module docstring)
 
     Returns (B, 1, Hq, D) in q's dtype."""
     key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
@@ -136,10 +169,10 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
     host_pos, pos_dev = build.position("mx_decode_attention", pos, q.device)
     b, s1, hq, d = q.shape
     _, s_len, hkv, _ = k_codes.shape
-    if s1 != 1 or hq != hkv * rep or d % 32:
-        raise ValueError(f"mx_decode_attention: q {tuple(q.shape)} does not "
-                         f"match Hkv={hkv} x rep={rep} with D a multiple "
-                         f"of 32")
+    if s1 != 1 or d % 32:
+        raise ValueError(f"mx_decode_attention: q {tuple(q.shape)} needs "
+                         f"one token and D a multiple of 32")
+    head0 = _check_heads("mx_decode_attention", hq, hkv, rep, head0)
     cshape, sshape = (b, s_len, hkv, d), (b, s_len, hkv, d // 32)
     if any(tuple(t.shape) != cshape for t in (k_codes, v_codes)) \
             or any(tuple(t.shape) != sshape for t in (k_scales, v_scales)):
@@ -157,12 +190,12 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
         return ref.mx_decode_attention_ref(
             q, k_codes, k_scales, v_codes, v_scales,
             torch.full((b,), host_pos, dtype=torch.int32), key_spec=key_spec,
-            value_spec=value_spec, rep=rep)
+            value_spec=value_spec, rep=rep, head0=head0)
     if q.dtype == torch.bfloat16 and d not in TC_HEAD_DIMS:
         return mx_decode_attention(
             q.float(), k_codes, k_scales, v_codes, v_scales, pos,
             key_spec=key_spec, value_spec=value_spec,
-            rep=rep).to(torch.bfloat16)
+            rep=rep, head0=head0).to(torch.bfloat16)
     operands = (k_codes, k_scales, v_codes, v_scales)
     _check_cuda_operands("mx_decode_attention", q, operands)
     if k_codes.data_ptr() % 4 or v_codes.data_ptr() % 4:
@@ -179,17 +212,18 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     if q.dtype == torch.bfloat16:
         _check_tc_operands("mx_decode_attention", q, (k_codes, v_codes))
-        st, nsplit, part = _records(b, hkv, rep, d, s_len, dev)
+        st, nsplit, part = _records(b, hq, rep, head0, d, s_len, dev)
         err = build.lib().mx_decode_attn_tc_launch(
-            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, s_len,
-            host_pos or 0, st, nsplit, stream)
+            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, head0, rep,
+            d, s_len, host_pos or 0, st, nsplit, stream)
     else:
         nsplit = -(-s_len // TOKENS_PER_SPLIT)
-        part = torch.empty((b, hkv, nsplit, rep * (d + 2)),
+        groups, rmax = head_groups(hq, rep, head0)
+        part = torch.empty((b, groups, nsplit, rmax * (d + 2)),
                            dtype=torch.float32, device=dev)
         err = build.lib().mx_decode_attn_launch(
-            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, s_len,
-            host_pos or 0, TOKENS_PER_SPLIT, stream)
+            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, head0, rep,
+            d, s_len, host_pos or 0, TOKENS_PER_SPLIT, stream)
     build.check(err, "mx_decode_attention")
     mx_decode_attention.launches += 1
     return out
@@ -197,7 +231,8 @@ def mx_decode_attention(q, k_codes, k_scales, v_codes, v_scales, pos, *,
 
 def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
                               block_tables, lengths, *, key_spec,
-                              value_spec, rep: int = 1) -> torch.Tensor:
+                              value_spec, rep: int = 1,
+                              head0: Optional[int] = None) -> torch.Tensor:
     """Decode attention over a paged MX KV cache.
 
     q             (B, 1, Hq, D) f32 or bf16
@@ -206,6 +241,7 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
     ks/vs_pool    (n_pages, page, Hkv, D/32) u8 E8M0 scales
     block_tables  (B, max_pages) i32, rows padded with 0 (the trash page)
     lengths       (B,) i32; slot b attends positions <= lengths[b]
+    head0         q's first global head (see the module docstring)
 
     Returns (B, 1, Hq, D) in q's dtype."""
     key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
@@ -213,10 +249,10 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
     b, s1, hq, d = q.shape
     n_pages, page, hkv, cb_k = kc_pool.shape
     cb_v = vc_pool.shape[-1]
-    if s1 != 1 or hq != hkv * rep or d % 32:
+    if s1 != 1 or d % 32:
         raise ValueError(f"mx_paged_decode_attention: q {tuple(q.shape)} "
-                         f"does not match Hkv={hkv} x rep={rep} with D a "
-                         f"multiple of 32")
+                         f"needs one token and D a multiple of 32")
+    head0 = _check_heads("mx_paged_decode_attention", hq, hkv, rep, head0)
     if cb_k != key_spec.storage_nbytes(d) \
             or cb_v != value_spec.storage_nbytes(d):
         raise ValueError(f"mx_paged_decode_attention: code widths "
@@ -235,12 +271,12 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
     if q.device.type == "cpu":
         return ref.mx_paged_decode_attention_ref(
             q, kc_pool, ks_pool, vc_pool, vs_pool, block_tables, lengths,
-            key_spec=key_spec, value_spec=value_spec, rep=rep)
+            key_spec=key_spec, value_spec=value_spec, rep=rep, head0=head0)
     if q.dtype == torch.bfloat16 and d not in TC_HEAD_DIMS:
         return mx_paged_decode_attention(
             q.float(), kc_pool, ks_pool, vc_pool, vs_pool, block_tables,
             lengths, key_spec=key_spec, value_spec=value_spec,
-            rep=rep).to(torch.bfloat16)
+            rep=rep, head0=head0).to(torch.bfloat16)
     _check_cuda_operands("mx_paged_decode_attention", q, operands[1:5],
                          operands[5:])
     kkind, vkind = tables.pack_kind(key_spec), tables.pack_kind(value_spec)
@@ -260,17 +296,20 @@ def mx_paged_decode_attention(q, kc_pool, ks_pool, vc_pool, vs_pool,
     if q.dtype == torch.bfloat16:
         _check_tc_operands("mx_paged_decode_attention", q,
                            (kc_pool, vc_pool))
-        st, nsplit, part = _records(b, hkv, rep, d, max_pages * page, dev)
+        st, nsplit, part = _records(b, hq, rep, head0, d, max_pages * page,
+                                    dev)
         err = build.lib().mx_paged_decode_attn_tc_launch(
-            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, page,
-            max_pages, cb_k, cb_v, kkind, vkind, st, nsplit, stream)
+            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, head0, rep,
+            d, page, max_pages, cb_k, cb_v, kkind, vkind, st, nsplit, stream)
     else:
         nsplit = -(-max_pages // PAGES_PER_SPLIT)
-        part = torch.empty((b, hkv, nsplit, rep * (d + 2)),
+        groups, rmax = head_groups(hq, rep, head0)
+        part = torch.empty((b, groups, nsplit, rmax * (d + 2)),
                            dtype=torch.float32, device=dev)
         err = build.lib().mx_paged_decode_attn_launch(
-            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, d, page,
-            max_pages, cb_k, cb_v, kkind, vkind, PAGES_PER_SPLIT, stream)
+            *ptrs, part.data_ptr(), out.data_ptr(), b, hq, hkv, head0, rep,
+            d, page, max_pages, cb_k, cb_v, kkind, vkind, PAGES_PER_SPLIT,
+            stream)
     build.check(err, "mx_paged_decode_attention")
     mx_paged_decode_attention.launches += 1
     by = mx_paged_decode_attention.launches_by_spec

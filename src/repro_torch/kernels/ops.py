@@ -2,6 +2,18 @@
 
 Each wrapper launches its CUDA kernel for a CUDA tensor and computes the
 kernel's plain version for a CPU tensor; there is no other switch.
+
+The three ``*_ctx`` wrappers are the reference's sharding-aware entry
+points.  Where the reference wraps the kernel in ``shard_map`` over the
+installed mesh, each rank of the port already holds local tensors (its q
+heads, its slots), so a wrapper calls the kernel on them with the rank's
+first q head where its cache holds every KV head (``head0``).  Where the
+reference returns None for a layout the kernel does not take, so does
+the port, and the caller takes the reference's dense route: that is a
+route chosen from the shapes before any launch, the same on every rank,
+not a fallback; a launch that fails on a CUDA tensor raises.  A page
+pool sharded over the data axes is local to each data rank here, so the
+paged kernel reads it where the reference gathers.
 """
 from __future__ import annotations
 
@@ -106,6 +118,76 @@ def mx_matmul(a: torch.Tensor, w: MXArray) -> torch.Tensor:
         a2 = F.pad(a2, (0, kp - k))
     out = mx_matmul_2d(a2.contiguous(), w.codes, w.scales, w.spec)
     return out.reshape(lead + (n,))
+
+
+def flash_attention_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, *, head0: Optional[int] = None,
+                        rep: int = 1):
+    """Flash attention over the rank's heads (the reference's
+    ``flash_attention_ctx``).  q (B, S, Hq, D) holds the rank's q heads;
+    with ``head0`` (its first global head) k/v (B, S, Hkv, D) hold every
+    KV head, replicated over "model", and q head h reads KV head (head0 +
+    h) // rep: the GQA expansion happens on the rank with global head
+    offsets, as the reference's does per shard.  Without ``head0`` q's
+    heads group over k/v's as one device's do.  Returns None where the
+    q heads do not split into KV groups (the caller attends densely)."""
+    from repro_torch.kernels.flash_attn import flash_attention_vjp
+    if head0 is not None:
+        idx = (head0 + torch.arange(q.shape[2], device=q.device)) // rep
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    elif q.shape[2] % k.shape[2]:
+        return None
+    return flash_attention_vjp(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal)
+
+
+def mx_decode_attention_ctx(q: torch.Tensor, cache, pos, cfg,
+                            head0: Optional[int] = None):
+    """MX decode attention over the rank's contiguous cache (the
+    reference's ``mx_decode_attention_ctx``): q (B, 1, Hq, D) the rank's
+    slots and q heads, ``head0`` its first global head where the cache
+    holds every KV head.  Returns (B, 1, Hq, D), or None where the
+    kernel does not take the cache layout (the caller dequantizes and
+    attends densely)."""
+    from repro_torch.kernels.mx_decode_attn import (decode_kernel_takes,
+                                                    mx_decode_attention)
+    kk, kv = cfg.mx.kv_key, cfg.mx.kv_value
+    if not decode_kernel_takes(q.shape[-1], kk, kv,
+                               (cache["k_codes"].shape[-1],
+                                cache["v_codes"].shape[-1])):
+        return None
+    return mx_decode_attention(
+        q.contiguous(), cache["k_codes"], cache["k_scales"],
+        cache["v_codes"], cache["v_scales"], pos, key_spec=kk,
+        value_spec=kv, rep=cfg.n_heads // cfg.n_kv_heads, head0=head0)
+
+
+def mx_paged_decode_attention_ctx(q: torch.Tensor, pool, block_tables,
+                                  lengths, cfg,
+                                  head0: Optional[int] = None):
+    """Paged MX decode attention over the rank's pool (the reference's
+    ``mx_paged_decode_attention_ctx``): q (B, 1, Hq, D) the rank's slots
+    and q heads, ``head0`` as in ``mx_decode_attention_ctx``.  Returns
+    None where the kernel does not take the pool layout (the caller
+    gathers the pages and attends densely).  A pool sharded over the data
+    axes (``kv_pages``) is no exception: each data rank's pool holds
+    every page its slots' block-table rows name, in local ids
+    (``serve.paging.BlockManager(partitions=)``), so the kernel reads it
+    as it is, where the reference, whose pool is one array split across
+    devices, takes its gather route."""
+    from repro_torch.kernels.mx_decode_attn import (
+        mx_paged_decode_attention, paged_decode_kernel_takes)
+    kk, kv = cfg.mx.kv_key, cfg.mx.kv_value
+    if not paged_decode_kernel_takes(
+            q.shape[-1], kk, kv, (pool["kc_pages"].shape[-1],
+                                  pool["vc_pages"].shape[-1]),
+            pool["ks_pages"].shape[-1]):
+        return None
+    return mx_paged_decode_attention(
+        q.contiguous(), pool["kc_pages"], pool["ks_pages"],
+        pool["vc_pages"], pool["vs_pages"], block_tables, lengths,
+        key_spec=kk, value_spec=kv, rep=cfg.n_heads // cfg.n_kv_heads,
+        head0=head0)
 
 
 def quantize_weight(w: torch.Tensor, spec=None, mode: Optional[str] = None,

@@ -162,14 +162,16 @@ def _dequant_cache_ref(codes: torch.Tensor, scales: torch.Tensor,
 
 def mx_decode_attention_ref(q, k_codes, k_scales, v_codes, v_scales,
                             lengths, *, key_spec, value_spec,
-                            rep: int = 1) -> torch.Tensor:
+                            rep: int = 1, head0: int = 0) -> torch.Tensor:
     """Dense masked softmax over a dequantized contiguous cache: slot b
-    attends positions <= lengths[b].  q (B, 1, Hq, D) -> same shape."""
+    attends positions <= lengths[b].  q (B, 1, Hq, D) -> same shape; q's
+    head h is global head head0 + h and reads KV head (head0 + h) //
+    rep."""
     key_spec, value_spec = as_spec(key_spec), as_spec(value_spec)
     k = _dequant_cache_ref(k_codes, k_scales, key_spec)
     v = _dequant_cache_ref(v_codes, v_scales, value_spec)
     s, d = k.shape[1], k.shape[-1]
-    idx = torch.arange(q.shape[2], device=q.device) // rep
+    idx = (head0 + torch.arange(q.shape[2], device=q.device)) // rep
     ke = k.index_select(2, idx)
     ve = v.index_select(2, idx)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), ke) \
@@ -212,7 +214,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mx_paged_decode_attention_ref(q, kc_pool, ks_pool, vc_pool, vs_pool,
                                   block_tables, lengths, *, key_spec,
-                                  value_spec, rep: int = 1) -> torch.Tensor:
+                                  value_spec, rep: int = 1,
+                                  head0: int = 0) -> torch.Tensor:
     """Paged decode attention: gather the block-table pages into a
     contiguous layout, unpack the bit-packed codes per role, then run the
     contiguous reference."""
@@ -233,4 +236,4 @@ def mx_paged_decode_attention_ref(q, kc_pool, ks_pool, vc_pool, vs_pool,
     return mx_decode_attention_ref(
         q, codes_of(kc_pool, key_spec), gather(ks_pool),
         codes_of(vc_pool, value_spec), gather(vs_pool), lengths,
-        key_spec=key_spec, value_spec=value_spec, rep=rep)
+        key_spec=key_spec, value_spec=value_spec, rep=rep, head0=head0)

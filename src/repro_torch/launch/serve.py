@@ -33,8 +33,23 @@ the effective pool beside the allocated one; the tokens are those of a
 run without it (for a dense config; MoE capacity routing depends on
 which tokens share a prefill, ROADMAP C8).  ``--mx-kv`` / ``--mx-mode``
 are the reference's deprecated aliases for ``--quant kv=<fmt>@32:<mode>``.
-``--shard`` / ``--shard-pool`` (the reference's sharded decode) stop
-with a message naming ROADMAP A11.2.
+``--shard --devices N`` serves sharded, as the reference's ``--shard``
+does over its devices: N rank processes (``dist.spawn``) on the
+reference's ``make_test_mesh(N)`` ("model" the first of 4, 2, 1 that
+divides N, "data" the rest), each holding its shard of the weights
+(decode posture: resident, split over "model", whole over "data") and
+serving the same requests through the same engine; ``--shard-pool``
+shards the paged engine's page pool over the data axes.  On the CPU
+the ranks join over gloo; on the card each rank takes
+``cuda:(rank % cards)``, NCCL where every rank has a card of its own,
+gloo staged through host memory where ranks share one (the engines then
+decode eagerly).  Rank 0 prints; every rank's tokens are compared.  The
+GQA decoder family (dense and MoE) serves sharded; the other families
+are refused with the ROADMAP item they wait on:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
+        --reduced --device cpu --paged --weight-resident --shard \
+        --devices 2 --quant weights=e4m3@32:ocp,kv=int8@32:ocp
 Weights are random, made on the device from seed 0; with
 ``--weight-resident`` each layer is quantized to MX storage as soon as
 it is made.
@@ -89,8 +104,12 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
+import hashlib
+import io
 import json
+import tempfile
 import time
 from pathlib import Path
 from typing import List, Tuple
@@ -111,9 +130,9 @@ from repro_torch.serve.engine import KERNEL_FAIL_REFUSED
 
 
 SHARD_REFUSED = (
-    "{} (the reference's sharded decode over a device mesh, with its "
-    "page pool optionally sharded over the data axes) is not ported yet: "
-    "ROADMAP item A11.2; the port serves on one device")
+    "--shard / --shard-pool serve the GQA decoder family (dense and MoE); "
+    "{} ({}) waits on ROADMAP A11.2's remaining half: sharded serving of "
+    "the other families")
 WEIGHTS_ROLE_NEEDED = ("--weight-resident needs a 'weights' role in the "
                        "policy, e.g. --quant weights=e4m3@32:ocp")
 
@@ -126,11 +145,12 @@ def has_weights_role(cfg) -> bool:
 
 def build_model(arch: str, *, reduced: bool, quant: str,
                 weight_resident: bool, device: str = "cuda",
-                seed: int = 0, table=None,
+                seed: int = 0, table=None, place=None,
                 **overrides) -> Tuple[Model, dict]:
     """Config (under ``table``, a per-layer ``PolicyTable``, when given)
     + random weights on ``device``, quantized layer by layer, each at its
-    own policy's weights spec, when ``weight_resident``."""
+    own policy's weights spec, when ``weight_resident``; ``place`` keeps
+    a sharded rank's shard of each piece (``Model.init``)."""
     policy = QuantPolicy.parse(quant or "none")
     cfg = (load_reduced if reduced else load_config)(arch, mx=policy,
                                                       **overrides)
@@ -139,7 +159,19 @@ def build_model(arch: str, *, reduced: bool, quant: str,
     if weight_resident and not has_weights_role(cfg):
         raise ValueError(WEIGHTS_ROLE_NEEDED)
     model = Model(cfg, device=device)
-    return model, model.init(seed=seed, quantize=weight_resident)
+    return model, model.init(seed=seed, quantize=weight_resident,
+                             place=place)
+
+
+def shard_family(cfg) -> str:
+    """Why ``cfg`` cannot serve sharded ("" for the GQA decoders)."""
+    if cfg.family != "decoder":
+        return cfg.family
+    if cfg.mla:
+        return "MLA"
+    if cfg.frontend != "none":
+        return f"{cfg.frontend} frontend"
+    return ""
 
 
 def auto_policy(model: Model, params, budget: float, batch: int,
@@ -404,15 +436,22 @@ def main(argv=None) -> None:
                          "sync windows (0 = never; each sample is one "
                          "device reduction and one host transfer)")
     ap.add_argument("--shard", action="store_true",
-                    help="not ported: sharded decode over a device mesh "
-                         "(ROADMAP A11.2)")
+                    help="serve under a (data, model) mesh of --devices "
+                         "ranks with the decode sharding rules (weights "
+                         "resident, split over model)")
     ap.add_argument("--shard-pool", action="store_true",
-                    help="not ported: the page pool sharded over the data "
-                         "axes (ROADMAP A11.2)")
+                    help="shard the page pool's page dim over the data "
+                         "axes (with --shard)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks of the --shard mesh (make_test_mesh)")
     args = ap.parse_args(argv)
-    if args.shard or args.shard_pool:
-        ap.error(SHARD_REFUSED.format(
-            "--shard" if args.shard else "--shard-pool"))
+    if args.shard_pool and not args.shard:
+        ap.error("--shard-pool needs --shard")
+    if args.shard and (args.arrival != "batch" or args.quant and
+                       args.quant.startswith("auto")):
+        ap.error("--shard serves --arrival batch with a fixed policy (the "
+                 "async front end and --quant auto are not sharded yet, "
+                 "ROADMAP A11.2)")
     try:
         arrival = parse_arrival(args.arrival)
     except ValueError as e:
@@ -467,14 +506,36 @@ def main(argv=None) -> None:
         quant = f"kv={args.mx_kv}@32:{args.mx_mode}"
     if args.policy_json:
         table = PolicyTable.from_json(Path(args.policy_json).read_text())
+    if args.shard:
+        cfg = (load_reduced if args.reduced else load_config)(args.arch)
+        why = shard_family(cfg)
+        if why:
+            ap.error(SHARD_REFUSED.format(args.arch, why))
+        _serve_sharded(args, quant, table, faults)
+        return
+    _serve(args, quant, auto_budget, table, faults, arrival, ap.error)
+
+
+def _raise(msg: str):
+    raise ValueError(msg)
+
+
+def _serve(args, quant, auto_budget, table, faults, arrival, error=_raise,
+           rules=None, place=None):
+    """Build the model and serve it: the whole launcher on one device,
+    or one rank of ``--shard`` (``rules`` and ``place`` given, the mesh
+    installed); ``error`` reports a bad request (the parser's, or a
+    raise in a rank).  Returns the generated tokens (request id ->
+    tokens, or the static batch's array)."""
     t0 = time.perf_counter()
     try:
         model, params = build_model(
             args.arch, reduced=args.reduced, quant=quant,
             weight_resident=args.weight_resident and auto_budget is None,
-            device=args.device, table=table, attn_impl="flash")
+            device=args.device, table=table, attn_impl="flash",
+            place=place)
     except ValueError as e:
-        ap.error(str(e))
+        error(str(e))
     if table is not None:
         cfg = model.cfg
         print(f"[serve] policy table from {args.policy_json}: {cfg.mx}"
@@ -487,7 +548,7 @@ def main(argv=None) -> None:
                             args.save_policy)
         if args.weight_resident:
             if not has_weights_role(model.cfg):
-                ap.error(WEIGHTS_ROLE_NEEDED)
+                error(WEIGHTS_ROLE_NEEDED)
             params = model.quantize_weights(params)
     # an fp pool under the prefix cache serves at "dense", as the
     # reference's launcher does: at "flash" its cold prefill would attend
@@ -504,11 +565,10 @@ def main(argv=None) -> None:
           + f", attention {cfg.attn_impl}, built on {model.device} in "
           f"{time.perf_counter() - t0:.2f}s")
     if not args.paged:
-        _serve_static(args, model, params)
-        return
+        return _serve_static(args, model, params, rules)
     if arrival[0] != "batch":
         _serve_async(args, model, params, *arrival, faults=faults)
-        return
+        return None
     prompts = make_prompts(args.requests or 2 * args.batch, args.prompt_len,
                            args.mixed, cfg.vocab, args.shared_prefix)
     max_len = max(len(p) for p in prompts) + args.new_tokens + 1
@@ -519,7 +579,8 @@ def main(argv=None) -> None:
         gen=GenerationConfig(temperature=args.temperature, seed=args.seed),
         prefix_cache=args.prefix_cache, preempt=args.preempt,
         health_checks=not args.no_health_checks, faults=faults,
-        tracer=make_tracer(args, cfg), obs_interval=args.obs_interval)
+        tracer=make_tracer(args, cfg), obs_interval=args.obs_interval,
+        rules=rules)
     t0 = time.perf_counter()
     for p in prompts:
         eng.add_request(p, args.new_tokens)
@@ -552,6 +613,56 @@ def main(argv=None) -> None:
         print(f"[serve] sample tokens (request {first}): "
               f"{out[first][:16].tolist()}")
     write_obs(args, eng)
+    return out
+
+
+def _shard_rank(rank: int, args, quant, table, faults, store: str) -> None:
+    """One rank of ``--shard`` (``dist.spawn``): join the mesh, place
+    this rank's shard of the weights as they are made, serve, and check
+    that every rank produced the same tokens.  Only rank 0 prints."""
+    from repro_torch.dist import close_dp, init_dp, rank_device
+    from repro_torch.dist.sharding import (make_rules, set_mesh,
+                                           shard_params, use_rules)
+    from repro_torch.launch.mesh import make_test_mesh
+    shape = make_test_mesh(args.devices)
+    mesh = init_dp(rank, shape.sizes, rank_device(args.device, rank), store,
+                   axes=shape.axis_names)
+    args.device = str(mesh.device)
+    rules = make_rules(shape.axis_names, fsdp_params=False,
+                       paged_pool_sharded=args.shard_pool,
+                       quant=QuantPolicy.parse(quant or "none"))
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank \
+        else contextlib.nullcontext()
+    try:
+        with quiet, set_mesh(mesh), use_rules(rules):
+            print(f"[serve] sharded over mesh {shape.shape} "
+                  f"({mesh.world} ranks over {mesh.backend}"
+                  f"{', staged through host memory' if mesh.staged else ''}"
+                  f"; decode {'eager' if mesh.staged else 'captured'} on "
+                  f"the card)")
+            out = _serve(args, quant, None, table, faults, ("batch", ()),
+                         rules=rules,
+                         place=lambda t: shard_params(t, mesh, rules))
+            digest = hashlib.sha256(repr(
+                sorted(out.items()) if isinstance(out, dict)
+                else out.tolist()).encode()).digest()[:8]
+            got = mesh.host_gather(np.frombuffer(digest, np.uint8).copy(),
+                                   mesh.axes)
+            same = bool((got == got[0]).all())
+            print(f"[serve] ranks identical: {same} "
+                  f"(token digest {digest.hex()})")
+            if not same:
+                raise SystemExit("serve: the ranks' tokens differ")
+    finally:
+        close_dp()
+
+
+def _serve_sharded(args, quant, table, faults) -> None:
+    """``--shard --devices N``: N rank processes over make_test_mesh(N)."""
+    from repro_torch.dist import spawn
+    with tempfile.TemporaryDirectory(prefix="serve_shard_") as d:
+        spawn(_shard_rank, args.devices,
+              (args, quant, table, faults, str(Path(d) / "store")))
 
 
 def _serve_async(args, model: Model, params, kind: str, aparams,
@@ -648,7 +759,7 @@ def _serve_async(args, model: Model, params, kind: str, aparams,
     write_obs(args, eng, srv)
 
 
-def _serve_static(args, model: Model, params) -> None:
+def _serve_static(args, model: Model, params, rules=None):
     """A seeded batch of equal-length prompts through ``ServeEngine``,
     twice: the first call, then a steady one.  The batch is the
     reference launcher's ``make_concrete_batch``: ``--prompt-len`` tokens,
@@ -659,7 +770,8 @@ def _serve_static(args, model: Model, params) -> None:
     batch = make_concrete_batch(cfg, args.batch, args.prompt_len)
     batch.pop("labels")
     eng = ServeEngine(model, params,
-                      max_len=args.prompt_len + args.new_tokens + 8)
+                      max_len=args.prompt_len + args.new_tokens + 8,
+                      rules=rules)
     gen = GenerationConfig(max_new_tokens=args.new_tokens,
                            temperature=args.temperature, seed=args.seed)
     times = []
@@ -676,6 +788,7 @@ def _serve_static(args, model: Model, params) -> None:
           f"{' (MX-resident)' if args.weight_resident else ' (fp)'}, "
           f"kv cache {eng.kv_cache_nbytes / 2**20:.2f} MiB")
     print("[serve] sample output tokens:", out[0][:12].tolist())
+    return out
 
 
 if __name__ == "__main__":

@@ -25,12 +25,14 @@ waits for the host.  ``forward`` is the training forward (QAT through
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.mx_weight import MXWeight
+from repro_torch.dist.sharding import (model_gather, model_index,
+                                       model_parts, model_sum)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -140,7 +142,7 @@ def _refuse_mla_weights(cfg: ModelConfig) -> None:
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-         quantize: bool = False) -> Dict[str, Any]:
+         quantize: bool = False, place=None) -> Dict[str, Any]:
     """Random weights on ``device`` from a seeded ``torch.Generator``,
     layer by layer: the embedding at 0.02 std, projections at
     1/sqrt(fan_in) (the reference's ``embed_init``/``dense_init``).  With
@@ -148,24 +150,32 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     storage (its own policy's ``weights``; a layer without one stays fp)
     as soon as it is made, so the fp weights of only one layer exist at
     a time.  MLA refuses ``quantize``, as the reference's
-    ``quantize_weights`` does."""
+    ``quantize_weights`` does.  ``place`` (a sharded rank's
+    ``dist.sharding.shard_params`` over its mesh) is applied to each
+    piece of the tree as soon as it is made (and quantized): the rank
+    keeps only its shard, and the random draws are those of the whole
+    model, so the shards are slices of the unsharded weights."""
     if quantize:
         _refuse_mla_weights(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if place is None:
+        def place(tree):
+            return tree
     vp, d, dt = padded_vocab(cfg), cfg.d_model, cfg.torch_dtype
-    params: Dict[str, Any] = {
-        "embed": normal_init(gen, (vp, d), 0.02, dt, device), "layers": []}
+    params: Dict[str, Any] = place(
+        {"embed": normal_init(gen, (vp, d), 0.02, dt, device)})
+    params["layers"] = []
     for i in range(cfg.n_layers):
         lp = _layer_init(gen, cfg, device, cfg.moe_layer(i))
         if quantize:
             lp = _quantize_layer_tree(lp, cfg.layer_policy(i).weights)
-        params["layers"].append(lp)
+        params["layers"].append(place({"layers": [lp]})["layers"][0])
     params["norm_f"] = torch.ones(d, dtype=dt, device=device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal_init(gen, (d, vp), 1.0 / np.sqrt(d),
-                                        dt, device)
+        params.update(place({"lm_head": normal_init(
+            gen, (d, vp), 1.0 / np.sqrt(d), dt, device)}))
     return params
 
 
@@ -186,8 +196,20 @@ def quantize_weights(params, cfg: ModelConfig):
 def embed(params, cfg: ModelConfig, tokens: torch.Tensor,
           prefix_embeds=None) -> torch.Tensor:
     """Token embeddings; ``prefix_embeds`` (B, P, d), the patch
-    frontend's precomputed embeddings, go before them."""
-    x = params["embed"][tokens.to(torch.int64)].to(cfg.torch_dtype)
+    frontend's precomputed embeddings, go before them.  Under a mesh the
+    table is vocab-sharded over "model" (``param_specs``): each rank
+    looks up the tokens of its rows, zeros elsewhere, and the f32 sum
+    over "model" is each token's one row, exactly."""
+    w = params["embed"]
+    if model_parts(padded_vocab(cfg)) > 1:
+        vl = w.shape[0]
+        t = tokens.to(torch.int64) - model_index() * vl
+        mine = (t >= 0) & (t < vl)
+        rows = w[t.clamp(0, vl - 1)].to(torch.float32)
+        x = model_sum(torch.where(mine[..., None], rows, 0.0))
+        x = x.to(cfg.torch_dtype)
+    else:
+        x = w[tokens.to(torch.int64)].to(cfg.torch_dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -222,20 +244,29 @@ def head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     widen to f32.  Products of bf16 values are exact in f32, so the two
     differ only in summation order."""
     return head_logits(params, L.rms_norm(x, params["norm_f"],
-                                          cfg.norm_eps))
+                                          cfg.norm_eps),
+                       vocab=padded_vocab(cfg))
 
 
-def head_logits(params, x: torch.Tensor) -> torch.Tensor:
+def head_logits(params, x: torch.Tensor,
+                vocab: Optional[int] = None) -> torch.Tensor:
     """x (..., d) @ the LM head (the tied embedding without one) -> f32
-    logits (..., Vp); see ``head``."""
+    logits (..., Vp); see ``head``.  Under a mesh the head of ``vocab``
+    (the padded vocabulary) columns is vocab-sharded, column-parallel:
+    the rank's columns are gathered over "model" before anything samples
+    from them."""
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].T
     if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
         lead = x.shape[:-1]
         out = _HeadMM.apply(x.reshape(-1, x.shape[-1]), w)
-        return out.reshape(lead + (w.shape[-1],))
-    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+        out = out.reshape(lead + (w.shape[-1],))
+    else:
+        out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    if vocab is not None and model_parts(vocab) > 1:
+        out = model_gather(out, -1)
+    return out
 
 
 def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
@@ -285,12 +316,14 @@ def _block(i: int, lp, x, cfg: ModelConfig, *, positions=None, cache=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     """Contiguous caches, one stack per KV group (L_g, B, max_len, n_kv,
-    X); MLA's compressed caches (L_g, B, max_len, X)."""
+    X), n_kv the KV heads of the rank under an installed mesh
+    (``layers.kv_heads``); MLA's compressed caches (L_g, B, max_len,
+    X)."""
     if cfg.mla:
         return L.grouped_kv(cfg, lambda c, ld: L.init_mla_cache(
             c, batch, max_len, device, layers_dim=ld))
     return L.grouped_kv(cfg, lambda c, ld: L.init_kv_cache(
-        c, batch, max_len, c.n_kv_heads, c.hd, device, layers_dim=ld))
+        c, batch, max_len, L.kv_heads(c), c.hd, device, layers_dim=ld))
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -303,7 +336,7 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
             "paged KV serving covers the GQA decoder family; the MLA "
             "compressed cache keeps the contiguous layout")
     return L.grouped_kv(cfg, lambda c, ld: L.init_paged_kv_cache(
-        c, num_pages, page_size, c.n_kv_heads, c.hd, device,
+        c, num_pages, page_size, L.kv_heads(c), c.hd, device,
         layers_dim=ld))
 
 

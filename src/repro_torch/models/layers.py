@@ -31,6 +31,20 @@ Unlike the functional reference, cache and page-pool writes update the
 given tensors in place (the pools are the largest serving allocation;
 copying them per step would double it).
 
+Under a mesh (``dist.sharding.set_mesh`` with rules installed) every
+rank runs these layers over its local shards, which ``dist.sharding.
+shard_params`` placed by the reference's ``param_specs``: a
+column-parallel projection (``wq`` ``wk`` ``wv`` ``w1`` ``w3``) gives the
+rank's columns with no collective, a row-parallel one (``wo`` ``w2``,
+``dense(..., tp="row")``) sums its f32 partials over "model" before the
+cast, attention runs on the rank's q heads (``dist.sharding.
+head_shard``: its own KV heads where "model" divides them, else every
+KV head with the kernels' first-head argument ``head0``; a "model" size
+that does not divide the q heads is refused), and an MoE
+layer runs the rank's experts and sums the combine over "model".
+Without a mesh nothing of this runs: the layers are the one-device
+ones.
+
 Under a per-layer ``PolicyTable`` the layers whose KV specs agree form
 one group (``kv_groups``): a cache or pool holds one layer-stacked leaf
 per name and group, the first group's under the plain names and group
@@ -54,15 +68,15 @@ from repro_torch.core.convert import MXArray, mx_dequantize
 from repro_torch.core.mx_weight import MXWeight
 from repro_torch.core.pack import pack_codes, unpack_codes
 from repro_torch.core.spec import QuantPolicy, QuantSpec
-from repro_torch.kernels.flash_attn import flash_attention_vjp
-from repro_torch.kernels.mx_decode_attn import (decode_kernel_takes,
-                                                mx_decode_attention,
-                                                mx_paged_decode_attention,
-                                                paged_decode_kernel_takes)
+from repro_torch.dist.sharding import (HeadShard, head_shard, model_gather,
+                                       model_index, model_parts, model_sum)
 from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
                                              mx_paged_kv_write,
                                              mx_paged_kv_write_tokens)
-from repro_torch.kernels.ops import (fake_quantize, mx_matmul_resident,
+from repro_torch.kernels.ops import (fake_quantize, flash_attention_ctx,
+                                     mx_decode_attention_ctx,
+                                     mx_matmul_resident,
+                                     mx_paged_decode_attention_ctx,
                                      mx_quantize)
 from repro_torch.kernels.ref import token_pages
 from repro_torch.models.config import ModelConfig
@@ -93,9 +107,16 @@ def checkpointed(fn, x: torch.Tensor, on: bool):
 
 
 def dense(x: torch.Tensor, w, mx: Optional[QuantPolicy] = None,
-          fake_quant: bool = False) -> torch.Tensor:
+          fake_quant: bool = False, tp: str = "col",
+          k: Optional[int] = None) -> torch.Tensor:
     """x @ w, steered by the policy ``mx``'s ``weights`` / ``activations``
-    roles as the reference's ``dense`` is.  With ``fake_quant`` (QAT) the
+    roles as the reference's ``dense`` is.  ``tp`` is the weight's
+    tensor-parallel role (the reference's): "col" shards the output dim
+    over "model" (the rank's columns come out, no collective), "row" the
+    input dim: where the placement split the global contraction length
+    ``k`` over "model" (``model_parts(k) > 1``), x is the rank's chunk,
+    and the f32 partial products are summed over "model" before the
+    cast (``bf16_matmul_out`` off, the reference's default).  With ``fake_quant`` (QAT) the
     ``activations`` role fake-quantizes x along its last axis and, for an
     fp weight, the ``weights`` role fake-quantizes w along axis 0 (K),
     each through the converter kernel (``ops.fake_quantize``; no
@@ -106,6 +127,16 @@ def dense(x: torch.Tensor, w, mx: Optional[QuantPolicy] = None,
     the card)."""
     if fake_quant and mx is not None and mx.activations is not None:
         x = fake_quantize(x, mx.activations, axis=-1).to(x.dtype)
+    if tp == "row" and k is not None and model_parts(k) > 1:
+        if isinstance(w, MXWeight):
+            part = mx_matmul_resident(x, w)
+        else:
+            if isinstance(w, MXArray):
+                w = mx_dequantize(w)
+            elif fake_quant and mx is not None and mx.weights is not None:
+                w = fake_quantize(w, mx.weights, axis=0)
+            part = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+        return model_sum(part).to(x.dtype)
     if isinstance(w, MXWeight):
         return mx_matmul_resident(x, w).to(x.dtype)
     if isinstance(w, MXArray):
@@ -246,6 +277,49 @@ def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
     return kpos[None, None, None, None, :] <= qpos[None, None, None, :, None]
 
 
+def heads(cfg: ModelConfig) -> HeadShard:
+    """The rank's attention heads under the installed mesh (every head
+    without one)."""
+    return head_shard(cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+
+
+def kv_heads(cfg: ModelConfig) -> int:
+    """KV heads a rank's cache or pool holds under the installed mesh."""
+    return heads(cfg).n_kv
+
+
+def _project_q(p, x, cfg, sh: HeadShard, mx, fq) -> torch.Tensor:
+    b, s, _ = x.shape
+    q = dense(x, p["wq"], mx, fq)
+    return q.reshape(b, s, sh.n_heads, cfg.hd)
+
+
+def _project_kv(p, x, cfg, sh: HeadShard, mx, fq):
+    b, s, _ = x.shape
+    k = dense(x, p["wk"], mx, fq)
+    v = dense(x, p["wv"], mx, fq)
+    if sh.gather_kv:
+        k, v = model_gather(k, -1), model_gather(v, -1)
+    return (k.reshape(b, s, sh.n_kv, cfg.hd),
+            v.reshape(b, s, sh.n_kv, cfg.hd))
+
+
+def _attend(q, k, v, mask, cfg, sh: HeadShard) -> torch.Tensor:
+    """``_sdpa_gqa`` over the rank's heads: with ``sh.head0`` the cache
+    holds every KV head and q head h reads KV head (head0 + h) // rep."""
+    if sh.head0 is not None:
+        rep = cfg.n_heads // cfg.n_kv_heads
+        idx = (sh.head0 + torch.arange(q.shape[2], device=q.device)) // rep
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return _sdpa_gqa(q, k, v, mask)
+
+
+def _out_proj(p, out, cfg, sh: HeadShard, mx, fq) -> torch.Tensor:
+    """wo over the attention output (B, S, Hq * hd) of the rank's q
+    heads, row-parallel."""
+    return dense(out, p["wo"], mx, fq, tp="row", k=cfg.n_heads * cfg.hd)
+
+
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, causal: bool = True, cache=None,
               cache_pos=0, tap: Optional[dict] = None,
@@ -271,19 +345,20 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``kv_value`` roles quantize.  ``fake_quant`` (training) goes to each
     projection's ``dense``."""
     b, s, d = x.shape
-    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.hd
+    sh = heads(cfg)
+    nh = sh.n_heads
     mx, fq = cfg.mx, fake_quant
     mx_kv = mx.kv_key is not None
     flash = cfg.attn_impl == "flash"
-    q = dense(x, p["wq"], mx, fq).reshape(b, s, nh, hd)
+    q = _project_q(p, x, cfg, sh, mx, fq)
     if kv_override is not None:
         k, v = kv_override
         mask = torch.ones((1, 1, 1, s, k.shape[1]), dtype=torch.bool,
                           device=x.device)
         out = _sdpa_gqa(q, k, v, mask)
         return dense(out.reshape(b, s, nh * hd), p["wo"], mx, fq), cache
-    k = dense(x, p["wk"], mx, fq).reshape(b, s, nkv, hd)
-    v = dense(x, p["wv"], mx, fq).reshape(b, s, nkv, hd)
+    k, v = _project_kv(p, x, cfg, sh, mx, fq)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
@@ -297,15 +372,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                           device=x.device)
     if cache is not None:
         cache = cache_write(cache, k, v, cache_pos, cfg)
-        if s == 1 and mx_kv and flash and decode_kernel_takes(
-                hd, cfg.mx.kv_key, cfg.mx.kv_value,
-                (cache["k_codes"].shape[-1], cache["v_codes"].shape[-1])):
-            out = mx_decode_attention(
-                q.contiguous(), cache["k_codes"], cache["k_scales"],
-                cache["v_codes"], cache["v_scales"], cache_pos,
-                key_spec=cfg.mx.kv_key, value_spec=cfg.mx.kv_value,
-                rep=nh // nkv)
-            return dense(out.reshape(b, s, nh * hd), p["wo"], mx, fq), cache
+        out = mx_decode_attention_ctx(q, cache, cache_pos, cfg, sh.head0) \
+            if s == 1 and mx_kv and flash else None
+        if out is not None:
+            return _out_proj(p, out.reshape(b, s, nh * hd), cfg, sh, mx,
+                             fq), cache
         if s == 1:
             k, v = cache_read(cache, cfg, x.dtype, hd)
             if isinstance(cache_pos, torch.Tensor):
@@ -315,15 +386,14 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             kq, vq = cache_read(cache, cfg, x.dtype, hd)
             k, v = kq[:, :s], vq[:, :s]
             mask = _causal_mask(s, s, x.device)
-    if mask is None and flash and s > 1:
-        out = flash_attention_vjp(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True)
-    else:
+    out = flash_attention_ctx(q, k, v, causal=True, head0=sh.head0,
+                              rep=cfg.n_heads // cfg.n_kv_heads) \
+        if mask is None and flash and s > 1 else None
+    if out is None:
         if mask is None:
             mask = _causal_mask(s, k.shape[1], x.device)
-        out = _sdpa_gqa(q, k, v, mask)
-    out = dense(out.reshape(b, s, nh * hd), p["wo"], mx, fq)
-    return out, cache
+        out = _attend(q, k, v, mask, cfg, sh)
+    return _out_proj(p, out.reshape(b, s, nh * hd), cfg, sh, mx, fq), cache
 
 
 # =============================================================================
@@ -637,10 +707,10 @@ def attention_paged_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     takes the layout; an fp pool, ``"dense"``, or a layout the kernel
     does not take is gathered and attended densely."""
     b, s, d = x.shape                          # s == 1
-    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = dense(x, p["wq"]).reshape(b, s, nh, hd)
-    k = dense(x, p["wk"]).reshape(b, s, nkv, hd)
-    v = dense(x, p["wv"]).reshape(b, s, nkv, hd)
+    hd = cfg.hd
+    sh = heads(cfg)
+    q = _project_q(p, x, cfg, sh, None, False)
+    k, v = _project_kv(p, x, cfg, sh, None, False)
     cos, sin = rope_tables(lengths[:, None], hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
@@ -653,22 +723,16 @@ def attention_paged_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         pages = torch.gather(block_tables, 1,
                              (lengths // page)[:, None].to(torch.int64))[:, 0]
         pool = paged_cache_write(pool, k, v, pages, lengths % page, cfg)
-    if kk is not None and cfg.attn_impl == "flash" \
-            and paged_decode_kernel_takes(
-            hd, kk, kv, (pool["kc_pages"].shape[-1],
-                         pool["vc_pages"].shape[-1]),
-            pool["ks_pages"].shape[-1]):
-        out = mx_paged_decode_attention(
-            q.contiguous(), pool["kc_pages"], pool["ks_pages"],
-            pool["vc_pages"], pool["vs_pages"], block_tables, lengths,
-            key_spec=cfg.mx.kv_key, value_spec=cfg.mx.kv_value,
-            rep=nh // nkv)
-    else:
+    out = mx_paged_decode_attention_ctx(q, pool, block_tables, lengths, cfg,
+                                        sh.head0) \
+        if kk is not None and cfg.attn_impl == "flash" else None
+    if out is None:
         ka, va = paged_cache_gather(pool, block_tables, cfg, x.dtype, hd)
         mask = torch.arange(ka.shape[1], device=x.device)[
             None, None, None, None, :] <= lengths[:, None, None, None, None]
-        out = _sdpa_gqa(q, ka, va, mask)
-    out = dense(out.reshape(b, s, nh * hd), p["wo"])
+        out = _attend(q, ka, va, mask, cfg, sh)
+    out = _out_proj(p, out.reshape(b, s, sh.n_heads * hd), cfg, sh, None,
+                    False)
     return out, pool
 
 
@@ -698,10 +762,10 @@ def attention_paged_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     non-finite byte there (the trash page, or a padded neighbour's NaN)
     cannot leak in as 0 * NaN."""
     g, s, d = x.shape
-    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = dense(x, p["wq"]).reshape(g, s, nh, hd)
-    k = dense(x, p["wk"]).reshape(g, s, nkv, hd)
-    v = dense(x, p["wv"]).reshape(g, s, nkv, hd)
+    hd = cfg.hd
+    sh = heads(cfg)
+    q = _project_q(p, x, cfg, sh, None, False)
+    k, v = _project_kv(p, x, cfg, sh, None, False)
     positions = starts[:, None] + torch.arange(s, device=x.device,
                                                dtype=starts.dtype)[None, :]
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
@@ -715,8 +779,9 @@ def attention_paged_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     va = torch.where(live[:, :, None, None], va, 0)
     mask = kpos[None, None, None, None, :] \
         <= positions.to(torch.int64)[:, None, None, :, None]
-    out = _sdpa_gqa(q, ka, va, mask)
-    out = dense(out.reshape(g, s, nh * hd), p["wo"])
+    out = _attend(q, ka, va, mask, cfg, sh)
+    out = _out_proj(p, out.reshape(g, s, sh.n_heads * hd), cfg, sh, None,
+                    False)
     return out, pool
 
 
@@ -801,7 +866,9 @@ def any_fp_kv(cfg: ModelConfig) -> bool:
 # MLP
 # =============================================================================
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
-        fake_quant: bool = False) -> torch.Tensor:
+        fake_quant: bool = False, ff: Optional[int] = None) -> torch.Tensor:
+    """The (gated) MLP of hidden width ``ff`` (default ``cfg.d_ff``):
+    ``w1`` / ``w3`` column-parallel, ``w2`` row-parallel under a mesh."""
     mx = cfg.mx
     h = dense(x, p["w1"], mx, fake_quant)
     if cfg.gated_mlp:
@@ -809,7 +876,8 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h = F.silu(h.to(torch.float32)).to(x.dtype) * g
     else:
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return dense(h, p["w2"], mx, fake_quant)
+    return dense(h, p["w2"], mx, fake_quant, tp="row",
+                 k=cfg.d_ff if ff is None else ff)
 
 
 # =============================================================================
@@ -891,6 +959,11 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xt = x.reshape(g, gs, d)
     probs, topw, topi = moe_route(p["router"], xt, k)
     experts = torch.arange(e, device=x.device)
+    # expert-parallel over "model" (the reference's logical(xe, "batch",
+    # "model", None, None)): this rank's experts [e0, e0 + el)
+    ep = model_parts(e)
+    el = e // ep
+    e0 = model_index() * el if ep > 1 else 0
     onehot = (topi[..., None] == experts).to(torch.float32)  # (g,gs,k,e)
     pos_in_e = (torch.cumsum(onehot.reshape(g, gs * k, e), dim=1)
                 .reshape(g, gs, k, e) - 1.0) * onehot
@@ -899,10 +972,11 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     slots = torch.arange(cap, device=x.device)
     # (g, gs, k, e, cap): each kept (token, choice) hits one (e, slot)
     capoh = ((posq[..., None] == slots) & keep[..., None]).to(x.dtype)
-    disp = torch.sum(capoh, dim=2)                          # (g,gs,e,cap)
-    comb = torch.einsum("gsk,gskec->gsec", topw.to(x.dtype), capoh)
+    disp = torch.sum(capoh, dim=2)[:, :, e0:e0 + el]        # (g,gs,el,cap)
+    comb = torch.einsum("gsk,gskec->gsec", topw.to(x.dtype),
+                        capoh)[:, :, e0:e0 + el]
     xe = torch.einsum("gsec,gsd->egcd", disp, xt).contiguous()
-    xe = xe.reshape(e, g * cap, d)
+    xe = xe.reshape(el, g * cap, d)
     we, mx = p["experts"], cfg.mx
 
     def act_q(t):
@@ -914,10 +988,18 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h = _expert_mm(xe, we["w1"], mx, fake_quant)
     gte = _expert_mm(xe, we["w3"], mx, fake_quant)
     h = act_q(F.silu(h.to(torch.float32)).to(x.dtype) * gte)
-    ye = _expert_mm(h, we["w2"], mx, fake_quant).reshape(e, g, cap, d)
-    out = torch.einsum("gsec,egcd->gsd", comb, ye).reshape(b, s, d)
+    ye = _expert_mm(h, we["w2"], mx, fake_quant).reshape(el, g, cap, d)
+    if ep > 1:
+        # the combine sums over every expert: this rank's in f32, then
+        # over "model"
+        out = model_sum(torch.einsum("gsec,egcd->gsd", comb.float(),
+                                     ye.float())).to(x.dtype)
+    else:
+        out = torch.einsum("gsec,egcd->gsd", comb, ye)
+    out = out.reshape(b, s, d)
     if cfg.n_shared_experts:
-        out = out + mlp(p["shared"], x, cfg, fake_quant)
+        out = out + mlp(p["shared"], x, cfg, fake_quant,
+                        ff=cfg.moe_d_ff * cfg.n_shared_experts)
     # load-balance aux loss (Switch): e * sum_e f_e * P_e / k
     f_e = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
     p_e = torch.mean(probs, dim=(0, 1))

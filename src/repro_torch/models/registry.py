@@ -94,10 +94,17 @@ class Model:
             raise NotImplementedError(
                 f"{self.cfg.name}: {what} covers the decoder family")
 
-    def init(self, seed: int = 0, quantize: bool = False):
+    def init(self, seed: int = 0, quantize: bool = False, place=None):
+        """Random weights from ``seed`` (weight-resident MX storage with
+        ``quantize``); ``place`` (the decoder family) keeps a sharded
+        rank's shard of each piece as it is made."""
         if self.cfg.family == "decoder":
             return decoder.init(self.cfg, seed=seed, device=self.device,
-                                quantize=quantize)
+                                quantize=quantize, place=place)
+        if place is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: sharded weights cover the decoder "
+                f"family")
         if quantize:
             self._refuse_unless_decoder("weight-resident storage")
         return self.mod.init(self.cfg, seed=seed, device=self.device)

@@ -36,6 +36,29 @@ written into the pool the captured graph reads, with its sampling key,
 so its tokens are those of a run without the preemption.
 ``serve.snapshot`` checkpoints and rewinds the whole engine.
 
+Sharded serving (``rules=``, the reference's decode-posture rule table,
+with this rank's mesh installed by ``dist.sharding.set_mesh`` when the
+engine is built): every rank runs one engine over its shard of the
+params (``dist.sharding.shard_params``) and the same requests.  The
+layers split heads, MLP columns and experts over "model" with their own
+collectives; the engine splits the batch rows (static) or the decode
+slots (continuous) over the ``kv_batch`` axes where they divide, and at
+every host transfer (a prefill's first tokens, a window's tokens and
+health flags) gathers the ranks' values, so every rank's scheduler sees
+the same tokens and makes the same decisions.  Under ``kv_pages`` (the
+launcher's ``--shard-pool``) each data rank holds its own run of pages
+(``BlockManager(partitions=)``), its block-table rows in local page ids,
+and the paged attention kernel reads that pool as it is.  A mesh whose
+collectives are staged through host memory (gloo with ranks sharing a
+card) decodes eagerly: a CUDA graph cannot hold host work; the engine
+decides that from the mesh's backend (``captures``), never by trying.
+Under NCCL it captures; a captured step with an NCCL collective between
+cards is not verified yet (one card: at world one every axis has size 1
+and the layers skip their collectives; ROADMAP A11.2).  Prefix caching,
+preemption and fault
+plans need every slot's pages on every rank, so they are refused where
+the slots split over data ranks.
+
 Recovery is provable through a seeded fault plan (``serve.faults``):
 the engine consults it at the reference's sites (``stall`` and
 ``page_corrupt`` once per step, ``prefill_nan`` per admission,
@@ -62,6 +85,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.mx_weight import params_nbytes
+from repro_torch.dist.sharding import (current_mesh, rule_axes, rule_index,
+                                       rule_size, use_sharding)
 from repro_torch.models.decoder import request_keys, sample_tokens
 from repro_torch.models.health import slot_scale_poison
 from repro_torch.models.layers import (any_fp_kv, any_mx_kv, group_leaves,
@@ -103,6 +128,43 @@ def _series(attr: str) -> property:
                     lambda self, v: getattr(self, attr).set(int(v)))
 
 
+SHARDED_SLOTS_REFUSED = (
+    "prefix caching, preemption and fault plans need every slot's KV "
+    "pages on every rank; with the decode slots split over the data axes "
+    "each rank holds only its own (ROADMAP A11.2)")
+
+
+def _shard_init(eng, rules: Optional[dict]) -> None:
+    """An engine's sharding state: its rules and the mesh installed now
+    (reinstalled around every model call by ``eng._ctx()``), the data and
+    model axes, and whether decode steps are captured (on the card,
+    unless the mesh stages its collectives through host memory)."""
+    eng.rules = rules
+    eng.mesh = current_mesh() if rules is not None else None
+    if rules is not None and eng.mesh is None:
+        raise ValueError("rules= needs this rank's mesh installed "
+                         "(dist.sharding.set_mesh) while the engine is "
+                         "built")
+    eng._ctx = lambda: use_sharding(eng.rules, eng.mesh)
+    with eng._ctx():
+        eng._data_axes = rule_axes("kv_batch")
+        eng._model_axes = rule_axes("model")
+        eng._n_data, eng._i_data = rule_size("kv_batch"), \
+            rule_index("kv_batch")
+    eng.captures = eng.model.device.type == "cuda" and not (
+        eng.mesh is not None and eng.mesh.staged)
+
+
+def _split_rows(eng, n: int) -> slice:
+    """This rank's run of ``n`` batch rows or slots: split over the
+    ``kv_batch`` axes where they divide ``n``, else every row (the
+    reference's wrappers take the unsharded route there)."""
+    k = eng._n_data
+    if k == 1 or n % k:
+        return slice(0, n)
+    return slice(eng._i_data * (n // k), (eng._i_data + 1) * (n // k))
+
+
 def _stream_keys(seed: int, ids, device) -> torch.Tensor:
     """Fresh sampling keys of the requests (or static rows) ``ids``."""
     seeds = torch.tensor([request_seed(seed, int(i)) for i in ids],
@@ -118,12 +180,16 @@ class ServeEngine:
     the card one replay of a captured step per token (no host sync inside
     the decode loop), one graph per batch size, temperature and encoder
     length.  Row b samples from the stream of request id b under
-    ``gen.seed``."""
+    ``gen.seed``.  ``rules`` (the decode-posture table of
+    ``dist.sharding.make_rules``, with the rank's mesh installed while
+    the engine is built) serves sharded: see the module docstring."""
 
-    def __init__(self, model: Model, params, max_len: int):
+    def __init__(self, model: Model, params, max_len: int,
+                 rules: Optional[dict] = None):
         self.model = model
         self.params = params
         self.max_len = int(max_len)
+        _shard_init(self, rules)
         self.kv_cache_nbytes = 0     # the last generate call's cache
         self.n_captures = 0          # decode steps captured so far
         # last call, seconds; "capture" is nonzero on a new shape only
@@ -143,8 +209,8 @@ class ServeEngine:
         if key not in self._graphs:
             self._graphs[key] = StaticDecodeGraph(
                 self.model, self.params, batch=batch, max_len=self.max_len,
-                temperature=temperature, s_enc=s_enc)
-            self.n_captures += self.model.device.type == "cuda"
+                temperature=temperature, s_enc=s_enc, capture=self.captures)
+            self.n_captures += self.captures
         return self._graphs[key]
 
     def generate(self, batch: Dict[str, np.ndarray],
@@ -165,24 +231,34 @@ class ServeEngine:
         s_enc = np.shape(batch["frames"])[1] if cfg.family == "encdec" \
             else 0
         dev = self.model.device
+        rows = _split_rows(self, b)
+        if rows != slice(0, b):           # this rank's rows of the batch
+            batch = {k: np.asarray(v)[rows] for k, v in batch.items()}
+        bl = rows.stop - rows.start
         t0 = time.perf_counter()
-        graph = self._graph(b, gen.temperature, s_enc)
-        t1 = time.perf_counter()
-        logits, cache, pos = self.model.prefill(
-            self.params, batch, max_len=self.max_len, cache=graph.cache)
-        keys, tok = sample_tokens(logits[:, -1, :cfg.vocab],
-                                  _stream_keys(gen.seed, range(b), dev),
-                                  gen.temperature)
-        out = [tok.cpu()[:, None]]        # ends the prefill phase
-        t2 = time.perf_counter()
-        n = gen.max_new_tokens - 1
-        if n:
-            out.append(graph.run(tok, keys, pos, n).T.cpu())
+        with self._ctx():
+            graph = self._graph(bl, gen.temperature, s_enc)
+            t1 = time.perf_counter()
+            logits, cache, pos = self.model.prefill(
+                self.params, batch, max_len=self.max_len, cache=graph.cache)
+            keys, tok = sample_tokens(
+                logits[:, -1, :cfg.vocab],
+                _stream_keys(gen.seed, range(rows.start, rows.stop), dev),
+                gen.temperature)
+            out = [tok.cpu()[:, None]]        # ends the prefill phase
+            t2 = time.perf_counter()
+            n = gen.max_new_tokens - 1
+            if n:
+                out.append(graph.run(tok, keys, pos, n).T.cpu())
         self.phase = {"capture": t1 - t0, "prefill": t2 - t1,
                       "decode": time.perf_counter() - t2}
         self.kv_cache_nbytes = int(sum(t.numel() * t.element_size()
                                        for t in tree_leaves(cache)))
-        return torch.cat(out, dim=1).numpy()
+        toks = torch.cat(out, dim=1).numpy()
+        if bl != b:                       # every rank's rows, in order
+            toks = self.mesh.host_gather(toks, self._data_axes)
+            toks = toks.reshape(b, -1)
+        return toks
 
 
 class ContinuousBatchingEngine:
@@ -268,7 +344,8 @@ class ContinuousBatchingEngine:
                  health_checks: bool = True,
                  faults: Optional[F.FaultPlan] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 tracer: Optional[Tracer] = None, obs_interval: int = 0):
+                 tracer: Optional[Tracer] = None, obs_interval: int = 0,
+                 rules: Optional[dict] = None):
         if not model.supports_paged():
             raise NotImplementedError(
                 f"{model.cfg.name}: continuous batching needs a GQA "
@@ -288,6 +365,18 @@ class ContinuousBatchingEngine:
         self.model = model
         self.params = params
         self.device = model.device
+        _shard_init(self, rules)
+        # this rank's slots [s0, s0 + sl): a run of them under the
+        # kv_batch axes where those divide the slots, else every slot
+        rows = _split_rows(self, max_slots)
+        self._s0, self._sl = rows.start, rows.stop - rows.start
+        self._slots_split = self._sl != max_slots
+        if self._slots_split and (prefix_cache or preempt
+                                      or faults is not None):
+            raise ValueError(SHARDED_SLOTS_REFUSED)
+        pool_parts = 1
+        if self._sl != max_slots and rules.get("kv_pages"):
+            pool_parts = max_slots // self._sl
         self.gen = gen
         self.health_checks = bool(health_checks)
         self.page_size = page_size
@@ -299,13 +388,21 @@ class ContinuousBatchingEngine:
         self.max_pages_per_slot = pages_needed(max_len, page_size)
         if num_pages is None:
             # full occupancy: every slot can hold max_len, plus trash
-            num_pages = 1 + max_slots * self.max_pages_per_slot
+            # (one per run of a pool sharded over the data ranks)
+            num_pages = pool_parts \
+                + max_slots * self.max_pages_per_slot
+        elif pool_parts > 1:
+            raise ValueError("a page pool sharded over the data axes is "
+                             "sized for full occupancy: leave num_pages "
+                             "at its default")
         self.metrics = MetricsRegistry() if metrics is None else metrics
         self.tracer = tracer
         self.obs_interval = int(obs_interval)
         self.blocks = BlockManager(num_pages, page_size, max_slots,
                                    self.max_pages_per_slot,
-                                   metrics=self.metrics)
+                                   metrics=self.metrics,
+                                   partitions=pool_parts)
+        self._pool_part = self._s0 // self._sl if pool_parts > 1 else 0
         self.prefix = PrefixCache(self.blocks, metrics=self.metrics) \
             if prefix_cache else None
         self.scheduler = Scheduler(max_slots, self.blocks,
@@ -320,7 +417,9 @@ class ContinuousBatchingEngine:
             self.blocks.fault_hook = (
                 lambda n: faults.should_fire("alloc_fail") is not None)
             self.swap_store.faults = faults
-        self.pool = model.init_paged_cache(num_pages, page_size)
+        with self._ctx():
+            self.pool = model.init_paged_cache(num_pages // pool_parts,
+                                               page_size)
         self.vocab = model.cfg.vocab
         self._next_rid = 0
         self._cur_tok = np.zeros(max_slots, np.int32)
@@ -336,11 +435,13 @@ class ContinuousBatchingEngine:
         self._metrics_start = 0
         # the decode window's buffers and its captured step (on the card:
         # one CUDA graph, captured here on all-idle slots)
-        self.window = PagedDecodeGraph(
-            model, params, self.pool, slots=max_slots,
-            max_pages=self.max_pages_per_slot, max_window=self.sync_every,
-            temperature=gen.temperature, health=self.health_checks,
-            trash_page=TRASH_PAGE)
+        with self._ctx():
+            self.window = PagedDecodeGraph(
+                model, params, self.pool, slots=self._sl,
+                max_pages=self.max_pages_per_slot,
+                max_window=self.sync_every, temperature=gen.temperature,
+                health=self.health_checks, trash_page=TRASH_PAGE,
+                capture=self.captures)
         m = self.metrics
         self._c_steps = m.counter(
             "engine.steps", "device decode steps (incl. masked tail)")
@@ -350,6 +451,10 @@ class ContinuousBatchingEngine:
             "engine.generated_tokens", "tokens emitted to requests")
         self._c_prefill_batches = m.counter(
             "engine.prefill_batches", "bucket prefill calls")
+        # prefill calls this rank ran: every one without a mesh, only
+        # those holding its slots' requests where the slots split over
+        # data ranks
+        self.n_rank_prefills = 0
         self._c_hit_batches = m.counter(
             "engine.hit_prefill_batches",
             "suffix prefill calls of prefix-cache hits (also counted in "
@@ -604,23 +709,28 @@ class ContinuousBatchingEngine:
         w = self.window
         self._upload_tables()
         t1 = time.perf_counter()
+        mine = slice(self._s0, self._s0 + self._sl)
         w.state.copy_(torch.from_numpy(np.stack(
-            [self._cur_tok, self._lengths, self._remaining])))
-        w.run(window)
+            [self._cur_tok[mine], self._lengths[mine],
+             self._remaining[mine]])))
+        with self._ctx():
+            w.run(window)
+        sl = self._sl
         flags = [w.tokens[:window].reshape(-1), w.bad.to(torch.int32)]
         if self.health_checks and any_mx_kv(self.model.cfg):
             # lengths after the window: every position a slot wrote
             flags.append(slot_scale_poison(self.pool, w.block_tables,
                                            w.state[1], self.model.cfg)
                          .to(torch.int32))
+        else:
+            flags.append(torch.zeros(sl, dtype=torch.int32,
+                                     device=self.device))
         host = torch.cat(flags).cpu().numpy()   # the one transfer per window
+        toks, badl, poison = self._merge_window(
+            host[:window * sl].reshape(window, sl),
+            host[window * sl:(window + 1) * sl],
+            host[(window + 1) * sl:])
         t2 = time.perf_counter()
-        slots = w.bad.shape[0]
-        toks = host[:window * slots].reshape(window, slots)
-        badl = host[window * slots:(window + 1) * slots] != 0
-        poison = host[(window + 1) * slots:] != 0
-        if not poison.size:
-            poison = np.zeros(slots, bool)
         self._c_steps.inc(window)
         self._c_syncs.inc()
         self._h_window.observe(window)
@@ -720,13 +830,50 @@ class ContinuousBatchingEngine:
                                             page=int(pid), pos=pos)
 
     # ------------------------------------------------------------ internals
+    def _local_tables(self, tables: np.ndarray) -> np.ndarray:
+        """Block-table rows as this rank's pool holds their pages."""
+        return self.blocks.local_pages(tables, self._pool_part)
+
     def _upload_tables(self) -> None:
-        """Copy the host block table into the captured step's buffer, only
-        when the host tables changed (admission / page grant / eviction)."""
+        """Copy this rank's rows of the host block table into the captured
+        step's buffer, only when the host tables changed (admission /
+        page grant / eviction)."""
         if self._bt_version != self.blocks.version:
+            rows = self.blocks.tables[self._s0:self._s0 + self._sl]
             self.window.block_tables.copy_(
-                torch.from_numpy(self.blocks.tables))
+                torch.from_numpy(self._local_tables(rows)))
             self._bt_version = self.blocks.version
+
+    def _slot_data(self):
+        """(ranks, axes) the slots split over: the kv_batch axes, or none
+        where every rank runs every slot."""
+        if self._slots_split:
+            return self._n_data, self._data_axes
+        return 1, ()
+
+    def _local_slots(self, reqs: List[Request]) -> List[int]:
+        """Indices into ``reqs`` of the requests in this rank's slots."""
+        return [i for i, r in enumerate(reqs)
+                if self._s0 <= r.slot < self._s0 + self._sl]
+
+    def _merge_window(self, toks, bad, poison):
+        """Every slot's window tokens (window, slots) and health flags
+        from this rank's (window, sl) / (sl,): the data ranks' slots side
+        by side, and a flag raised by any "model" rank (each scans its
+        own KV heads) raised for all."""
+        if self.mesh is None:
+            return toks, bad != 0, poison != 0
+        w = toks.shape[0]
+        local = np.concatenate([toks.reshape(-1), bad, poison])
+        nd, data = self._slot_data()
+        allr = self.mesh.host_gather(local, data + self._model_axes)
+        allr = allr.reshape(nd, -1, local.size)
+        flags = allr[:, :, w * self._sl:].max(axis=1)
+        toks = allr[:, 0, :w * self._sl].reshape(nd, w, self._sl)
+        toks = toks.transpose(1, 0, 2).reshape(w, -1)
+        flags = flags.reshape(nd, 2, self._sl)
+        return (toks, flags[:, 0].reshape(-1) != 0,
+                flags[:, 1].reshape(-1) != 0)
 
     def _first_tokens(self, last: torch.Tensor, rids: List[int],
                       tables: torch.Tensor, lens: torch.Tensor):
@@ -758,15 +905,46 @@ class ContinuousBatchingEngine:
         each request's first token from its last prompt position."""
         dev = self.device
         g = tokens.shape[0]
-        logits, cache, _ = self.model.prefill(
-            self.params, torch.from_numpy(tokens).to(dev),
-            max_len=tokens.shape[1])
-        pids = torch.from_numpy(page_ids).to(dev)
-        self.model.scatter_prefill(self.pool, cache, pids)
+        self.n_rank_prefills += 1
+        with self._ctx():
+            logits, cache, _ = self.model.prefill(
+                self.params, torch.from_numpy(tokens).to(dev),
+                max_len=tokens.shape[1])
+            pids = torch.from_numpy(self._local_tables(page_ids)).to(dev)
+            self.model.scatter_prefill(self.pool, cache, pids)
         lens_d = torch.from_numpy(lens).to(dev)
         last = logits[torch.arange(g, device=dev),
                       lens_d.to(torch.int64) - 1, :self.vocab]
         return self._first_tokens(last, rids, pids, lens_d)
+
+    def _prefill_bucket(self, reqs: List[Request], tokens: np.ndarray,
+                        lens: np.ndarray, page_ids: np.ndarray):
+        """``_prefill_scatter`` of the bucket's requests in this rank's
+        slots, installing their keys; returns every request's (first
+        token, health flag), gathered over the mesh: each data rank
+        prefills its own slots' requests, and a flag raised by any
+        "model" rank counts for all."""
+        mine = self._local_slots(reqs)
+        g = len(reqs)
+        first = np.zeros(g, np.int64)
+        bad = np.zeros(g, np.int64)
+        if mine:
+            f, keys, b = self._prefill_scatter(
+                tokens[mine], lens[mine], [reqs[i].rid for i in mine],
+                page_ids[mine])
+            slots = [reqs[i].slot - self._s0 for i in mine]
+            self.window.keys[torch.tensor(slots, device=self.device)] = keys
+            first[mine], bad[mine] = f, b
+        if self.mesh is None:
+            return first, bad != 0
+        nd, data = self._slot_data()
+        allr = self.mesh.host_gather(
+            np.concatenate([first, bad]),
+            data + self._model_axes).reshape(nd, -1, 2 * g)
+        # a request's values come from its one data rank (zeros elsewhere)
+        first = allr[:, 0, :g].sum(axis=0)
+        bad = allr[:, :, g:].max(axis=1).max(axis=0)
+        return first, bad != 0
 
     def _batched_prefill(self, admitted: List[Request],
                          emitted: List[Tuple[int, int]]) -> None:
@@ -805,9 +983,7 @@ class ContinuousBatchingEngine:
             # bucket-padded prompt's excess pages scatter harmlessly
             page_ids = self.blocks.tables[slots, :lp // self.page_size]
             tb = time.perf_counter()
-            first, keys, bad = self._prefill_scatter(
-                toks, lens, [r.rid for r in reqs], page_ids)
-            self.window.keys[torch.from_numpy(slots).to(self.device)] = keys
+            first, bad = self._prefill_bucket(reqs, toks, lens, page_ids)
             self._c_prefill_batches.inc()
             self._finish_prefill(reqs, first, bad, emitted, tb)
         if hits:
@@ -872,17 +1048,22 @@ class ContinuousBatchingEngine:
             tb = time.perf_counter()
             starts_d = torch.from_numpy(starts).to(dev)
             lens_d = torch.from_numpy(lens).to(dev)
-            logits, _ = self.model.paged_prefill_suffix(
-                self.params, torch.from_numpy(toks).to(dev), starts_d,
-                lens_d, self.pool, bt)
+            with self._ctx():
+                logits, _ = self.model.paged_prefill_suffix(
+                    self.params, torch.from_numpy(toks).to(dev), starts_d,
+                    lens_d, self.pool, bt)
             last = logits[torch.arange(g, device=dev),
                           (lens_d - starts_d).to(torch.int64) - 1,
                           :self.vocab]
             first, keys, bad = self._first_tokens(
                 last, [r.rid for r in reqs], bt, lens_d)
+            if self.mesh is not None:   # a flag of any "model" rank
+                bad = self.mesh.host_gather(
+                    bad.astype(np.int64), self._model_axes).max(axis=0) != 0
             self.window.keys[slots] = keys
             self._c_prefill_batches.inc()
             self._c_hit_batches.inc()
+            self.n_rank_prefills += 1
             self._finish_prefill(reqs, first, bad, emitted, tb)
 
     def _finish_prefill(self, reqs: List[Request], first: np.ndarray,
@@ -1080,7 +1261,8 @@ class ContinuousBatchingEngine:
         window started from, as in the reference."""
         stats = sample_mx_health(
             self.pool, self.window.block_tables,
-            torch.from_numpy(self._lengths), self.model.cfg)
+            torch.from_numpy(self._lengths[self._s0:self._s0 + self._sl]),
+            self.model.cfg)
         m = self.metrics
         for role, st in stats.items():
             nb = st["scale_bytes"]

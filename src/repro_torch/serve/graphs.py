@@ -8,9 +8,13 @@ one graph launch instead of ~2260 eager kernel launches.  Before capture
 the step runs once on a side stream (the warm-up): it builds the kernel
 library, uploads the decode tables and sets kernel attributes, none of
 which may happen inside a capture.  A failed capture raises; nothing
-decodes eagerly on the card.  On the CPU there is nothing to capture and
-a call runs the step itself, so both devices run the same step function
-over the same buffers.
+falls back to eager decode on the card.  On the CPU there is nothing to
+capture and a call runs the step itself, so both devices run the same
+step function over the same buffers.  A sharded step whose collectives
+run staged through host memory (gloo on the card: host work, which a
+graph cannot hold) is built with ``capture=False`` and runs eagerly on
+the card too; the engines choose that from the mesh's backend, never by
+trying a capture.
 
 The kernel wrappers count launches on the host, so a replay counts
 nothing by itself: each replay credits every wrapper with the launches
@@ -58,14 +62,16 @@ class CapturedStep:
     ``launches`` maps each kernel wrapper to the launches one replay
     makes, and ``spec_launches`` each wrapper that counts by spec
     (``launches_by_spec``) to one replay's launches per spec (both empty
-    on the CPU, where the wrappers count as they run)."""
+    on the CPU, where the wrappers count as they run).  ``capture=False``
+    runs ``fn`` eagerly on the card as well."""
 
-    def __init__(self, fn: Callable[[], None], device: torch.device):
+    def __init__(self, fn: Callable[[], None], device: torch.device,
+                 capture: bool = True):
         self.fn = fn
         self.graph = None
         self.launches: Dict[Callable, int] = {}
         self.spec_launches: Dict[Callable, dict] = {}
-        if device.type != "cuda":
+        if device.type != "cuda" or not capture:
             return
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -134,7 +140,8 @@ class PagedDecodeGraph:
 
     def __init__(self, model, params, pool, *, slots: int, max_pages: int,
                  max_window: int, temperature: float = 0.0,
-                 health: bool = False, trash_page: int = 0):
+                 health: bool = False, trash_page: int = 0,
+                 capture: bool = True):
         dev = model.device
         self.state = torch.zeros((3, slots), dtype=torch.int32, device=dev)
         self.block_tables = torch.full((slots, max_pages), trash_page,
@@ -161,7 +168,7 @@ class PagedDecodeGraph:
 
         # captured on all-idle slots: the warm-up step writes only the
         # trash page and leaves every live page as it was
-        self.step = CapturedStep(step, dev)
+        self.step = CapturedStep(step, dev, capture)
 
     def run(self, n_steps: int) -> None:
         """``n_steps`` steps from the buffers' state (replays on the
@@ -188,7 +195,8 @@ class StaticDecodeGraph:
     batch) int32 collects what each step samples."""
 
     def __init__(self, model, params, *, batch: int, max_len: int,
-                 temperature: float = 0.0, s_enc: int = 0):
+                 temperature: float = 0.0, s_enc: int = 0,
+                 capture: bool = True):
         dev = model.device
         vocab = model.cfg.vocab
         self.cache = model.init_cache(batch, max_len, s_enc)
@@ -212,7 +220,7 @@ class StaticDecodeGraph:
 
         # the warm-up writes position 0 of the cache (and steps a
         # recurrent state), which every prefill zeroes and rewrites
-        self.step = CapturedStep(step, dev)
+        self.step = CapturedStep(step, dev, capture)
 
     def run(self, token: torch.Tensor, keys: torch.Tensor, pos: int,
             n_steps: int) -> torch.Tensor:

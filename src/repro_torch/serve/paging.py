@@ -23,6 +23,13 @@ observes another request's writes.  Preemption releases a slot through
 ``swap_out`` after the engine copied its pages to the host swap store
 (``serve.swap``).  ``fault_hook`` (the fault plan's ``alloc_fail``
 site) may fail a page grant of ``ensure``.
+
+A pool sharded over the data axes (``partitions`` > 1, the ``kv_pages``
+rule) is ``partitions`` equal runs of pages, run ``j`` held by data rank
+``j``, whose slots are the ``j``-th equal run of slots: a slot's pages
+come from its rank's run, and the first page of each run is that run's
+trash page (page 0 of run 0 is ``TRASH_PAGE``), so a rank's block-table
+rows name only pages it holds (``local_pages``).
 """
 from __future__ import annotations
 
@@ -113,9 +120,16 @@ class BlockManager:
 
     def __init__(self, num_pages: int, page_size: int, max_slots: int,
                  max_pages_per_slot: int,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None,
+                 partitions: int = 1):
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the trash page)")
+        if num_pages % partitions or max_slots % partitions:
+            raise ValueError(f"{num_pages} pages and {max_slots} slots do "
+                             f"not split into {partitions} runs")
+        self.partitions = partitions
+        self.part_pages = num_pages // partitions
+        self._part_slots = max_slots // partitions
         # page-flow counters (pages.*) — a standalone manager gets its
         # own registry, the engine shares its registry in
         self.metrics = MetricsRegistry() if metrics is None else metrics
@@ -131,8 +145,9 @@ class BlockManager:
         self.page_size = page_size
         self.max_pages_per_slot = max_pages_per_slot
         self.version = 0
-        # LIFO free list; page 0 reserved as trash
-        self._free: List[int] = list(range(num_pages - 1, TRASH_PAGE, -1))
+        # LIFO free list; page 0 (each run's first page) reserved as trash
+        self._free: List[int] = [p for p in range(num_pages - 1, TRASH_PAGE,
+                                                  -1) if p % self.part_pages]
         self.tables = np.full((max_slots, max_pages_per_slot), TRASH_PAGE,
                               np.int32)
         self._owned: List[List[int]] = [[] for _ in range(max_slots)]
@@ -153,7 +168,7 @@ class BlockManager:
     @property
     def live_pages(self) -> int:
         """Distinct non-trash pages with refcount > 0."""
-        return self.num_pages - 1 - len(self._free)
+        return self.num_pages - self.partitions - len(self._free)
 
     @property
     def mapped_pages(self) -> int:
@@ -168,6 +183,32 @@ class BlockManager:
 
     def can_allocate(self, n: int) -> bool:
         return n <= len(self._free)
+
+    def _free_in(self, slot: int) -> int:
+        """Free pages ``slot`` can be granted (its run's)."""
+        if self.partitions == 1:
+            return len(self._free)
+        part = slot // self._part_slots
+        return sum(p // self.part_pages == part for p in self._free)
+
+    def _pop_free(self, slot: int) -> int:
+        """The last freed page of ``slot``'s run (LIFO)."""
+        if self.partitions == 1:
+            return self._free.pop()
+        part = slot // self._part_slots
+        for i in range(len(self._free) - 1, -1, -1):
+            if self._free[i] // self.part_pages == part:
+                return self._free.pop(i)
+        raise PageGrantError(slot, 1)
+
+    def local_pages(self, ids, part: int):
+        """Page ids (an int array) of run ``part`` as that run's rank
+        holds them: offsets into its run, the trash page as 0."""
+        ids = np.asarray(ids)
+        if self.partitions == 1:
+            return ids
+        base = part * self.part_pages
+        return np.where(ids == TRASH_PAGE, 0, ids - base).astype(ids.dtype)
 
     def page_refcount(self, page: int) -> int:
         return int(self._table_refs[page] + self._pins[page])
@@ -205,7 +246,7 @@ class BlockManager:
     # ----------------------------------------------------------- mutations
     def _return_if_dead(self, page: int) -> None:
         if self._table_refs[page] == 0 and self._pins[page] == 0 \
-                and page != TRASH_PAGE:
+                and page % self.part_pages:
             self._free.append(page)
 
     def _map(self, slot: int, page: int, shared: bool) -> None:
@@ -219,14 +260,14 @@ class BlockManager:
         """Append ``n`` fresh private pages to ``slot``'s block-table row.
         Returns False (allocating nothing) if the pool or the row can't
         hold them."""
-        if not self.can_allocate(n) \
+        if self._free_in(slot) < n \
                 or len(self._owned[slot]) + n > self.max_pages_per_slot:
             return False
         if n:
             self.version += 1
             self._c_alloc.inc(n)
         for _ in range(n):
-            self._map(slot, self._free.pop(), False)
+            self._map(slot, self._pop_free(slot), False)
         return True
 
     def map_shared(self, slot: int, pages: Sequence[int]) -> bool:
@@ -263,7 +304,7 @@ class BlockManager:
         if not self._free:
             return None
         src = self._owned[slot][idx]
-        dst = self._free.pop()
+        dst = self._pop_free(slot)
         self.version += 1
         self._c_forks.inc()
         self.tables[slot, idx] = dst

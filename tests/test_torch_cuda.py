@@ -1864,3 +1864,82 @@ def test_hybrid_bf16_grads_on_card_held_to_f32(dev):
             e_card = float((a - r).norm() / r.norm())
             e_cpu = float((b - r).norm() / r.norm())
             assert e_card <= HYBRID_BF16_VS_F32_RATIO * e_cpu + 1e-4
+
+
+# ---------------------------------------------------------------------------
+# sharded serving: the kernels at a rank's shapes
+# ---------------------------------------------------------------------------
+SHARDED_KN = {"wq": (4096, 2048), "wo": (2048, 4096), "w1/w3": (4096, 6848),
+              "w2": (6848, 4096)}
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED_KN))
+def test_matmul_bf16_at_sharded_shapes(dev, name):
+    """One rank's projections of full-width chatglm3-6b on a (1, 2) mesh
+    (columns of wq / w1 / w3, rows of wo / w2) at a decode batch of 8,
+    e4m3 weights quantized on the card, against the plain version."""
+    k, n = SHARDED_KN[name]
+    rng = np.random.default_rng(k + n)
+    a = torch.from_numpy(rng.normal(size=(8, k)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.016)
+    mw = MXWeight.quantize(w.to(dev), QuantSpec.parse("e4m3@32:ocp"))
+    a = a.to(dev).to(torch.bfloat16)
+    got = mx_matmul_2d(a, mw.codes, mw.scales, mw.spec)
+    want = mx_matmul_2d(a.cpu(), mw.codes.cpu(), mw.scales.cpu(), mw.spec)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=tol)
+
+
+# (q heads of the rank, KV heads of the cache, rep, first q head): a rank
+# of chatglm3-6b at model 4 (8 of 32 heads over both KV heads), the
+# reduced config's at model 4, and slices that straddle a KV group
+HEAD0_CASES = [(8, 2, 16, 8), (8, 2, 16, 24), (1, 2, 2, 3), (6, 4, 4, 5),
+               (16, 2, 16, 0), (3, 2, 4, 2)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", HEAD0_CASES)
+def test_decode_attention_head0_matches_plain(dev, case, dtype):
+    """B4 over a contiguous cache holding every KV head, q a slice of the
+    heads from ``head0``: against the plain version (f32 within 2e-5,
+    bf16 within torch's bf16 defaults), at positions across splits."""
+    hq, hkv, rep, head0 = case
+    d = 128 if dtype == "bfloat16" else 64
+    ks_, vs_ = QuantSpec.parse("int8@32:ocp"), QuantSpec.parse("e2m1@32:ocp")
+    rng = np.random.default_rng(hq + head0)
+    args = _contiguous_case(rng, ks_, vs_, b=3, s=200, hq=hq, hkv=hkv, d=d)
+    args[0] = args[0].to(getattr(torch, dtype))
+    kw = dict(key_spec=ks_, value_spec=vs_, rep=rep, head0=head0)
+    on_dev = [t.to(dev) for t in args]
+    for pos in (0, 17, 64, 199):
+        want = mx_decode_attention(*args, pos, **kw)
+        got = mx_decode_attention(*on_dev, pos, **kw)
+        torch.cuda.synchronize()
+        tol = {} if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", HEAD0_CASES)
+def test_paged_attention_head0_matches_plain(dev, case, dtype):
+    """B3 over a page pool holding every KV head, q a slice of the heads
+    from ``head0``, INT8 keys and packed E2M1 values, against the plain
+    version; at head0 0 over every head the kernels give the bits of
+    the default (no head0) call."""
+    hq, hkv, rep, head0 = case
+    d = 128 if dtype == "bfloat16" else 64
+    ks_, vs_ = QuantSpec.parse("int8@32:ocp"), QuantSpec.parse("e2m1@32:ocp")
+    rng = np.random.default_rng(7 * hq + head0)
+    args = list(_paged_case(rng, ks_, vs_, hq=hq, hkv=hkv, d=d))
+    args[0] = args[0].to(getattr(torch, dtype))
+    kw = dict(key_spec=ks_, value_spec=vs_, rep=rep, head0=head0)
+    want = mx_paged_decode_attention(*args, **kw)
+    on_dev = [t.to(dev) for t in args]
+    got = mx_paged_decode_attention(*on_dev, **kw)
+    torch.cuda.synchronize()
+    tol = {} if dtype == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    if head0 == 0 and hq == hkv * rep:
+        kw.pop("head0")
+        assert torch.equal(got, mx_paged_decode_attention(*on_dev, **kw))

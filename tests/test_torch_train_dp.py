@@ -337,12 +337,14 @@ def test_launcher_failed_rank_exits_nonzero(tmp_path, capfd):
 
 @pytest.mark.parametrize("flag", ["--shard", "--shard-pool"])
 def test_serve_launcher_refuses_sharding_naming_a11(flag, capsys):
-    """The serve launcher takes ``--shard`` / ``--shard-pool`` and refuses
-    them with a message naming ROADMAP A11 (sharding waits for A11.2)."""
+    """The serve launcher serves ``--shard`` / ``--shard-pool`` for the
+    GQA decoder family (tests/test_torch_serve_shard.py) and refuses
+    them for the other families with a message naming ROADMAP A11 (their
+    sharded serving waits for A11.2's other half)."""
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit) as e:
-        main(["--arch", "chatglm3_6b", "--reduced", "--device", "cpu",
-              flag])
+        main(["--arch", "rwkv6_7b", "--reduced", "--device", "cpu",
+              "--shard"] + ([flag] if flag != "--shard" else []))
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "A11" in err and flag in err

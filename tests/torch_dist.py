@@ -1,7 +1,8 @@
 """Test-only helpers for the port's data-parallel tests.
 
 ``run_ranks(fn, sizes, tmp_path, *args)`` runs ``fn(groups, *args)`` on
-``prod(sizes)`` gloo ranks on the CPU, each a spawned process of its own
+``prod(sizes)`` gloo ranks on the CPU (a mesh over ``axes=``, by default
+the DP axes of ``sizes``), each a spawned process of its own
 that joins through a FileStore under ``tmp_path`` (so parallel test
 workers never share a rendezvous), and returns each rank's result (a
 torch-picklable object).  A rank that raises fails the test with its
@@ -32,9 +33,9 @@ from repro_torch.dist import (RankFailed, close_dp, init_dp, rank_device,
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _entry(rank, fn, sizes, store, out_dir, args):
+def _entry(rank, fn, sizes, store, out_dir, args, axes=None):
     torch.set_num_threads(1)
-    groups = init_dp(rank, sizes, rank_device("cpu", rank), store)
+    groups = init_dp(rank, sizes, rank_device("cpu", rank), store, axes)
     try:
         res = fn(groups, *args)
     finally:
@@ -42,15 +43,15 @@ def _entry(rank, fn, sizes, store, out_dir, args):
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def run_ranks(fn, sizes, tmp_path, *args, timeout=120.0):
+def run_ranks(fn, sizes, tmp_path, *args, timeout=120.0, axes=None):
     sizes = tuple(sizes)
     world = 1
     for s in sizes:
         world *= s
     d = Path(tempfile.mkdtemp(prefix=f"{fn.__name__}_", dir=tmp_path))
     try:
-        spawn(_entry, world, (fn, sizes, str(d / "store"), str(d), args),
-              timeout=timeout)
+        spawn(_entry, world, (fn, sizes, str(d / "store"), str(d), args,
+                              axes), timeout=timeout)
     except (RankFailed, TimeoutError) as e:
         raise AssertionError(f"{world} gloo ranks of {fn.__name__}: "
                              f"{e}") from None
