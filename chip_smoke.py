@@ -88,8 +88,8 @@ failure (the script then exits non-zero and prints no result line):
    that the MoE step's profile of ~24k kernels is the process's first;
    the MoE card-vs-CPU check last), each model freed before the next
    loads and its peak device memory printed: moonshot-v1-16b-a3b
-   (48 layers, 64 experts of d_ff 1408, top-6, 2 shared; about 30 GB of
-   MX weights) through the continuous engine (prefill buckets of 256,
+   (cut to MOE_LAYERS of 48 layers, 64 experts of d_ff 1408, top-6, 2
+   shared; about 30 GB of MX weights whole) through the continuous engine (prefill buckets of 256,
    greedy and T 0.8; every expert's three matmuls launched per step, the
    predicted 9,360 per step counted and confirmed by the profiler on one
    replay; a replayed window against the eager loop) and through
@@ -105,13 +105,14 @@ failure (the script then exits non-zero and prints no result line):
    512, attention through flash), ``search_kv_policy`` at 10,348 B/token
    (0.7 x uniform INT8) and ``search_weights_policy`` at 0.75 B/param,
    each table required to mix formats across layers; each served through
-   the continuous engine after quantizing per layer (launches 196 / 28 /
-   28 per step, confirmed in the graph and by the profiler, and each
+   the continuous engine after quantizing per layer (launches 7 / 1 / 1
+   a layer and step, confirmed in the graph and by the profiler, and each
    format's matmul and attention launches counted by spec; pool bytes
    exactly each layer's own account; a window against the eager loop;
    ``sync_every`` 1 = 8; prefix cache on = off), the KV table also
    through ``ServeEngine`` against the continuous engine; a uniform table
-   naming the base policy gives phase 3's continuous tokens and pool
+   naming the base policy gives the base policy's continuous tokens and
+   pool
    bytes; 2 full-width f32 layers under a mixed table, card against CPU
    (all five roles' statistics, grads through flash's autograd backward,
    the searched table's JSON, logits and tokens); and the MX matmul and
@@ -146,7 +147,7 @@ failure (the script then exits non-zero and prints no result line):
    w1, MLA's w_uq and w_dkv) bit for bit against the plain round trip in
    four formats and timed; then at published widths, bf16, flash, remat,
    8 x 512 tokens a step (seamless: as many frames; internvl2: 256 patch
-   embeddings before them): zamba2-1.2b whole (38 layers, 20 steps at
+   embeddings before them): zamba2-1.2b at 20 of its 38 layers (20 steps at
    the launcher's lr 1e-3, its held-out loss falling by 5e-3, which
    rules out a frozen optimizer; ROADMAP C13), seamless-m4t-medium
    whole, rwkv6-7b at 4 of 32 layers,
@@ -175,7 +176,8 @@ failure (the script then exits non-zero and prints no result line):
    every format x mode, each rank's output bit for bit against the same
    exchange on the CPU (the plain converter), its wall ms and
    ``exchanged_bytes``; then ``build_train_step_compressed_dp`` on
-   full-width chatglm3-6b cut to 2 layers, bf16, flash, remat, global
+   full-width chatglm3-6b cut to DP_LAYERS layers, bf16, flash, remat,
+   global
    batches of 8 x 512 split over the ranks, 3 baseline and 2 QAT steps
    (weights and activations E4M3), each driven from 0 in each rank: the
    converter's launches per step exactly the exchanged leaves plus the
@@ -206,8 +208,9 @@ failure (the script then exits non-zero and prints no result line):
    identity, bit for bit); then two ranks on the card (mesh (1, 2) =
    ("data", "model"), gloo staged, eager decode), each holding its
    shard of the weights as they are made: the same three runs, launches
-   per rank and step exact (B2 196, the KV write 28, B3 28; B4 28; B5
-   28 per bf16-KV prefill), both ranks' tokens and logits identical;
+   per rank and step exact (B2 7, the KV write 1, B3 1 a layer; B4 1;
+   B5 1 a layer per bf16-KV prefill), both ranks' tokens and logits
+   identical;
    against the unsharded runs, two f32 twins of the continuous run (the
    same weights at f32 activations): at f32 KV, where reordered f32
    sums are the only difference, its first step's logits within
@@ -230,8 +233,39 @@ failure (the script then exits non-zero and prints no result line):
    ranks' tokens identical and the unsharded ones but for flips at
    top-2 gaps below LOGITS_TOL.
 
+11. Sharded training (``train_shard``, last): B1's fake-quant of a rank's
+   gathered shards of chatglm3-6b at mesh (2, 2) (w1 4096 x 6848, w2
+   6848 x 4096) against the plain round trip in four formats, w2's K
+   shard's codes equal to the whole weight's sliced, and B5 at a rank's
+   batch and heads (2 x 512, Hq 16 / Hkv 1, D 128, bf16), each timed;
+   then ``launch.cells.build_cell`` on full-width chatglm3-6b cut to 2
+   layers, 4 x 512 a step, over four gloo ranks sharing the card (mesh
+   ("data", "model") = (2, 2)), each holding its (data, model) chunk of
+   params and AdamW state placed as they are made (16 q heads, 1 KV
+   head, 6,848 FFN columns, 32,512 vocab rows, half of each again over
+   "data"): the "optimized" cell (weights fake-quant through B1 on the
+   gathered shards, flash through B5, ``bf16_matmul_out``, remat) 3
+   steps and "baseline" 2, each driven from 0 with launches per rank and
+   step exact, ranks holding the same chunk bit-identical after each
+   step, every rank the same metrics, each rank's state about a quarter
+   of the whole, step ms, peak GiB and the "tp.*" / "fsdp.*" spans of the
+   last step; world one (the optimized cell on a mesh of one) against
+   ``build_train_step`` bit for bit, whose metrics the sharded bf16 steps
+   are held to within TS_BF16_GATE, which a control (the column-parallel
+   input's backward sum removed) fails; an f32 twin (1 layer, 2 x 128,
+   random moments) against the unsharded f32 step within TS_TWIN_TOL;
+   and the "optimized" prefill cell's batch against the unsharded
+   prefill (logits within TS_PREFILL_TOL, the share of differing KV-cache
+   codes).
+
+The CPU-bound card-against-CPU checks run as ``chip_smoke.py --check
+NAME`` subprocesses beside GPU-bound phases (``SUB_CHECKS``): phase 4's
+chatglm3-6b checks beside serve_moe and serve_yi, the other families' beside
+serve_families, serve_policy's and train's beside their own paths.
+
 Every model here runs at ``attn_impl="flash"`` (attention through the
-kernels), as the reference's serving cells do.  The line before the last
+kernels), as the reference's serving cells do, but for the baseline
+train cell and its f32 twin (the reference's cells: dense attention).  The line before the last
 is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2021,7 +2055,6 @@ def _serve(eng, prompts, new_tokens):
     return [out[r] for r in rids]
 
 
-CONTINUOUS_RUN: dict = {}   # the continuous phase's tokens and pool bytes
 
 
 def _continuous_prompts(vocab):
@@ -2085,9 +2118,6 @@ def serve_full_width(torch):
     for p, o in zip(prompts, outs):
         if len(o) != new or o.min() < 0 or o.max() >= cfg.vocab:
             raise AssertionError(f"bad output for a {len(p)}-token prompt")
-    # the serve_policy phase's uniform table must give these
-    CONTINUOUS_RUN.update(tokens=[o.tolist() for o in outs],
-                          kv_pool_nbytes=eng.kv_pool_nbytes)
     # first-prefill logits of one prompt are finite and of the full vocab
     logits, _, _ = model.prefill(params, torch.from_numpy(
         prompts[0][None]).cuda(), max_len=len(prompts[0]))
@@ -3295,10 +3325,13 @@ def serve_c5(torch):
 # phase 3, continued: the rest of the GQA family at full width
 # =============================================================================
 MOE_ARCH = "moonshot_v1_16b_a3b"
-# the prediction written before the first run of serve_moe: B2 launches
-# per decode step of full-width moonshot-v1-16b-a3b (47 MoE layers of
-# 4 + 3 x 64 + 3, one dense layer of 7)
-MOE_MATMULS_PER_STEP = 9360
+# moonshot-v1-16b-a3b's depth in serve_moe: cut to 8 of 48 layers (the
+# dense one and 7 MoE layers) for the clock (PERF.md §4)
+MOE_LAYERS = 8
+# B2 launches per decode step (one dense layer of 7, MoE layers of 4 + 3
+# x 64 + 3): 9,360 at 48 layers, the prediction written before the first
+# run of serve_moe
+MOE_MATMULS_PER_STEP = 7 + (MOE_LAYERS - 1) * (4 + 3 * 64 + 3)
 # prefill buckets of 256 tokens: a prefill batch of G prompts x bucket is
 # then always a multiple of the MoE dispatch group of 256 tokens, where
 # the reference's x.reshape(g, gs, d) (and the port's moe) refuses
@@ -3443,7 +3476,8 @@ def _static_moe(torch, model, params, new):
 
 
 def serve_moe(torch):
-    """Full-width moonshot-v1-16b-a3b (48 layers: one dense, 47 of 64
+    """Full-width moonshot-v1-16b-a3b (MOE_LAYERS of its 48 layers: one
+    dense, the rest of 64
     experts of d_ff 1408, top-6, 2 shared; random weights from a seed,
     e4m3 as each layer is made; INT8 K / E2M1 V pages) through the
     continuous engine, greedy and at T 0.8, with prefill buckets of 256;
@@ -3452,7 +3486,7 @@ def serve_moe(torch):
     weights.  ``sync_every`` 1 against 8 is not checked: at capacity 1.25
     the JAX engine does not keep that identity (a finished slot's frozen
     token still routes), tests/test_torch_archs_serve.py."""
-    model, params = _load(torch, MOE_ARCH)
+    model, params = _load(torch, MOE_ARCH, n_layers=MOE_LAYERS)
     cfg = model.cfg
     if matmuls_per_pass(cfg) != MOE_MATMULS_PER_STEP:
         raise AssertionError(f"{matmuls_per_pass(cfg)} B2 launches per "
@@ -3478,13 +3512,18 @@ def serve_moe(torch):
     return launches
 
 
+YI_LAYERS = 30          # yi-34b cut to 30 of 60 layers for the clock
+#                         (PERF.md §4)
+
+
 def serve_yi(torch):
-    """Full-width yi-34b (60 layers, d 7168, 56 heads over 8 KV heads,
+    """Full-width yi-34b (YI_LAYERS of 60 layers, d 7168, 56 heads over 8
+    KV heads,
     d_ff 20480; random weights from a seed, e4m3 as each layer is made)
     through the continuous engine, greedy; one replayed window against
     the eager loop and one replay's launches confirmed by the
     profiler."""
-    model, params = _load(torch, "yi_34b")
+    model, params = _load(torch, "yi_34b", n_layers=YI_LAYERS)
     cfg = model.cfg
     prompts = _family_prompts(cfg.vocab, 12, 16, 64, 513)
     _, launches = _continuous_run(torch, "continuous yi-34b", model, params,
@@ -3688,8 +3727,21 @@ def serve_families(torch):
     under ``kv_key``) and, where the family attends, over a bf16 cache
     (flash prefill).  Each decode step is a replay of the captured graph,
     with the eager loop's tokens and exactly the predicted launches; each
-    model is freed before the next loads.  Returns the launches of every
-    driven run by kernel."""
+    model is freed before the next loads.  ``families_card_vs_cpu`` runs
+    in a subprocess beside it (most of its time on the CPU).  Returns the
+    launches of every driven run by kernel."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        check = _sub_check("families_card_vs_cpu", Path(d))
+        try:
+            total = _serve_families_runs(torch)
+            check()
+        finally:
+            check.stop()
+    return total
+
+
+def _serve_families_runs(torch):
     import dataclasses
     from repro_torch.core.spec import QuantPolicy
     from repro_torch.models import Model
@@ -4185,9 +4237,25 @@ def serve_policy(torch, flush_bytes=256 * 2 ** 20):
     continuous engine after quantizing per layer (B1 at each layer's
     weight format; B2, the KV write and B3 at each layer's formats), with
     the identities; the KV table also through ``ServeEngine`` (B4); a
-    uniform table collapses to the continuous phase's run; card against
-    CPU on 2 layers; kernel rows at the formats the tables picked.
-    Returns the launches of its main paths and the kernel rows."""
+    uniform table collapses to the base policy's run (its weights
+    quantized as they are made, phase 3's route); card against
+    CPU on 2 layers (``_policy_card_vs_cpu``, in a subprocess beside the
+    rest); kernel rows at the formats the tables picked.  Returns the
+    launches of its main paths and the kernel rows."""
+    import tempfile
+    # the card-against-CPU check (most of its time on the CPU) in a
+    # subprocess beside the phase's driven paths
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        check = _sub_check("policy_card_vs_cpu", Path(d))
+        try:
+            out = _serve_policy_paths(torch, flush_bytes)
+            check()
+        finally:
+            check.stop()
+    return out
+
+
+def _serve_policy_paths(torch, flush_bytes):
     import numpy as np
     from repro_torch.calib import (collect_model_stats, search_kv_policy,
                                    search_weights_policy)
@@ -4270,7 +4338,8 @@ def serve_policy(torch, flush_bytes=256 * 2 ** 20):
         del qparams, m
         _free(torch)
     # a uniform table naming the base policy is the base policy's config
-    # and gives the continuous phase's tokens and pool bytes
+    # and gives the tokens and pool bytes of the base policy's weights
+    # quantized as they are made (phase 3's route, at this phase's depth)
     base = load_config("chatglm3_6b", mx=QuantPolicy.parse(POLICY),
                        attn_impl="flash")
     uni = apply_policy_table(base, PolicyTable(
@@ -4284,15 +4353,22 @@ def serve_policy(torch, flush_bytes=256 * 2 ** 20):
     _free(torch)
     run = _policy_serve(torch, "uniform table", um, uparams, prompts, 64)
     add(run["launches"])
-    if run["tokens"] != CONTINUOUS_RUN.get("tokens") \
-            or run["kv_pool_nbytes"] != CONTINUOUS_RUN.get("kv_pool_nbytes"):
+    del uparams, um
+    _free(torch)
+    bm, bparams = build_model(
+        "chatglm3_6b", reduced=False, quant=POLICY, weight_resident=True,
+        device="cuda", seed=0, attn_impl="flash")
+    want = _policy_serve(torch, "base policy", bm, bparams, prompts, 64)
+    add(want["launches"])
+    del bm, bparams
+    if run["tokens"] != want["tokens"] \
+            or run["kv_pool_nbytes"] != want["kv_pool_nbytes"]:
         raise AssertionError("the uniform table's run differs from the "
-                             "continuous phase's (tokens or pool bytes)")
+                             "base policy's (tokens or pool bytes)")
     emit("policy_collapse", identical_config=True, tokens_equal=True,
          kv_pool_nbytes=run["kv_pool_nbytes"])
-    del uparams, um, model
+    del model
     _free(torch)
-    _policy_card_vs_cpu(torch)
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     w_run = runs["weights_table"]
     b2 = _policy_matmul_rows(torch, flush, sorted(
@@ -4917,8 +4993,10 @@ def _train_launcher(tmp):
 # NAME``) beside the main process's work: most of their time is on the
 # CPU, with a few CPU threads fewer so that the work beside them keeps
 # its cores
-SUB_CHECKS = {"train_card_vs_cpu": _train_card_vs_cpu}
 SUB_CHECK_THREADS = 6
+# the train phase's check runs beside GPU-bound steps and disk writes:
+# every core
+SUB_CHECK_THREADS_BY_NAME = {"train_card_vs_cpu": 8}
 
 
 def _sub_check(name, tmp):
@@ -4951,26 +5029,28 @@ def train_phase(torch, flush_bytes=256 * 2 ** 20):
     driven runs, their launches per step by run, the converter's
     ``train_shapes`` rows)."""
     import tempfile
-    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
-    fq_rows = _fake_quant_rows(torch, flush)
-    del flush
     launches, per_step = {}, {}
-    for name, quant, steps, check, over in (
-            ("baseline", "none", TRAIN_STEPS, None, {}),
-            ("qat", TRAIN_QUANT, TRAIN_STEPS, _c9_check(torch), {}),
-            ("qat weights only", TRAIN_WEIGHTS_QUANT, 2, None,
-             dict(gate=False))):
-        run = _train_run(torch, name, quant, steps, check, **over)
-        per_step[name] = {k: n / steps for k, n in run.items() if n}
-        for k, n in run.items():
-            launches[k] = launches.get(k, 0) + n
-    _free(torch)
     # the card-against-CPU checks (most of their time on the CPU) in a
-    # subprocess and the launcher in two more, beside the resume
+    # subprocess from the start of the phase, beside the driven runs, and
+    # the launcher in two more, beside the resume
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-        running = [_sub_check("train_card_vs_cpu", Path(d)),
-                   _train_launcher(Path(d))]
+        running = [_sub_check("train_card_vs_cpu", Path(d))]
         try:
+            flush = torch.empty(flush_bytes, dtype=torch.uint8,
+                                device="cuda")
+            fq_rows = _fake_quant_rows(torch, flush)
+            del flush
+            for name, quant, steps, check, over in (
+                    ("baseline", "none", TRAIN_STEPS, None, {}),
+                    ("qat", TRAIN_QUANT, TRAIN_STEPS, _c9_check(torch), {}),
+                    ("qat weights only", TRAIN_WEIGHTS_QUANT, 2, None,
+                     dict(gate=False))):
+                run = _train_run(torch, name, quant, steps, check, **over)
+                per_step[name] = {k: n / steps for k, n in run.items() if n}
+                for k, n in run.items():
+                    launches[k] = launches.get(k, 0) + n
+            _free(torch)
+            running.append(_train_launcher(Path(d)))
             _train_resume(torch, Path(d))
             for finish in running:
                 finish()
@@ -4998,7 +5078,8 @@ def train_phase(torch, flush_bytes=256 * 2 ** 20):
 # H100).  Its held-out gate therefore rules out a frozen optimizer; it
 # does not show that zamba2 learns
 TRAIN_FAMILIES = (
-    ("zamba2_1p2b", {}, TRAIN_STEPS, TRAIN_LAUNCHER_LR),  # whole: 38 layers
+    # 20 of 38 layers (cut for the clock, PERF.md §4)
+    ("zamba2_1p2b", {"n_layers": 20}, TRAIN_STEPS, TRAIN_LAUNCHER_LR),
     ("seamless_m4t_medium", {}, 3, TRAIN_LR),       # whole: 12 + 12
     ("rwkv6_7b", {"n_layers": 4}, 3, TRAIN_LR),     # 4 of 32
     ("deepseek_v2_236b", {"n_layers": 1}, 3, TRAIN_LR),  # layer 0: MLA
@@ -5120,7 +5201,8 @@ def train_families_phase(torch, flush_bytes=256 * 2 ** 20):
 # =============================================================================
 DP_WORLD = 2            # ranks of the exchange and the step, both on one
 #                         card through gloo (staged through host memory)
-DP_LAYERS = 2           # chatglm3-6b cut to 2 of 28 layers: 0.93 G params,
+DP_LAYERS = 1           # chatglm3-6b cut to 1 of 28 layers for the clock
+#                         (PERF.md §4); 0.93 G params at 2 layers,
 #                         ~19 GB of bf16 params, f32 master, m, v and the
 #                         exchange's f32 buffer per rank, so that two ranks
 #                         fit one card beside their activations
@@ -5689,8 +5771,8 @@ def _shard_path(torch, model, params, rules=None):
     rank's shard under ``rules`` and the installed mesh): the continuous
     engine over the 8 prompts, then the static engine at MX KV (decode
     through B4) and at bf16 KV (prefill through B5), each a driven path
-    whose launches must be exactly its steps' (B2 196, the KV write 28
-    and B3 28 per decode step; B4 28 per static MX-KV decode step; B5 28
+    whose launches must be exactly its steps' (a layer's B2 7, KV write 1
+    and B3 1 per decode step; B4 1 per static MX-KV decode step; B5 1
     per bf16-KV prefill; a captured static step's warm-up counts)."""
     import dataclasses
     from repro_torch.core.spec import QuantPolicy
@@ -5731,9 +5813,9 @@ def _shard_path(torch, model, params, rules=None):
 
 def _shard_continuous(torch, model, params, rules=None, name="continuous"):
     """The continuous engine over the phase's 8 prompts with SHARD_NEW new
-    tokens, a driven path whose launches must be exactly its steps' (B2
-    196, the KV write 28 and B3 28 a decode step; B2 196 and the KV
-    write 28 a prefill batch).  Returns (its row, the engine)."""
+    tokens, a driven path whose launches must be exactly its steps' (a
+    layer's B2 7, KV write 1 and B3 1 a decode step; B2 7 and the KV
+    write 1 a prefill batch).  Returns (its row, the engine)."""
     from repro_torch.serve import ContinuousBatchingEngine
     n_l = model.cfg.n_layers
     prompts, _ = _shard_inputs(model.cfg.vocab)
@@ -5801,10 +5883,10 @@ def _shard_f32_path(torch, model, params, rules=None, mx_kv=False):
     as in ``model``): the 8 prompts with SHARD_F32_NEW new tokens,
     launches exact, and the first step's logits.  At f32 KV reordered
     f32 sums are the only difference a sharded run has from the whole
-    model; attention over the f32 pool is dense (B2 196 a step and
-    prefill batch, B5 28 a prefill batch).  At MX KV the run writes the
+    model; attention over the f32 pool is dense (a layer's B2 7 a step
+    and prefill batch, B5 1 a prefill batch).  At MX KV the run writes the
     rank's KV heads through the KV-write kernel and attends them through
-    B3 (B2 196 and the KV write 28 a step and prefill batch, B3 28 a
+    B3 (a layer's B2 7 and KV write 1 a step and prefill batch, B3 1 a
     step), and an f32 difference at a code boundary moves a whole code
     (SHARD_MXKV_TOL)."""
     from repro_torch.serve import ContinuousBatchingEngine
@@ -6268,6 +6350,564 @@ def serve_shard_phase(torch):
 
 
 # =============================================================================
+# =============================================================================
+# phase 11: sharded training (FSDP x TP) through launch/cells.py
+# =============================================================================
+TS_MESH = (2, 2)        # ("data", "model"): four gloo ranks on the one card
+TS_LAYERS = 2           # chatglm3-6b cut to 2 of 28 layers
+TS_SHAPE = (4, 512)     # the cut train cell: global batch x sequence
+TS_RUNS = (("optimized", 3), ("baseline", 2))
+TS_TWIN = (1, (2, 128))  # the f32 twin: layers, (batch, sequence)
+TS_TIMEOUT = 600        # seconds for the ranks; a hung collective fails
+# the f32 twin against the unsharded f32 step on the card: f32 sums in
+# other orders (row-parallel partials, the FSDP reduce-scatter, the norm
+# over shards); relative to the unsharded value (a master: to its leaf's
+# largest value).  Measured on the H100 (PERF.md §6): loss and
+# grad norm 0, masters 9.5e-8; the limits are ten times that or more
+TS_TWIN_TOL = {"loss": 1e-6, "grad_norm": 1e-5, "master": 1e-6}
+# bf16: a step's loss and grad norm against world one (the unsharded step,
+# bit for bit), relative; measured at most 2.9e-5, the control without
+# the column-parallel input's backward sum 0.49 (PERF.md §6)
+TS_BF16_GATE = 1e-3
+TS_PREFILL_TOL = 0.125  # bf16 prefill logits against the unsharded ones
+#                         (row sums in bf16 under bf16_matmul_out;
+#                         measured 0.054)
+TS_LOGITS_TAIL = 16     # positions of each prefill row whose logits return
+
+
+def _ts_opt():
+    from repro_torch.optim import AdamWConfig
+    # warm-up of one step; the steps run at indices 1.. (lr > 0)
+    return AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+
+
+def _ts_cell(mesh, variant, kind="train", layers=TS_LAYERS, shape=TS_SHAPE,
+             device="cuda", **over):
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models.config import ShapeSpec
+    return build_cell("chatglm3_6b", ShapeSpec(f"{kind}_shard", shape[1],
+                                               shape[0], kind),
+                      mesh, variant, n_layers_override=layers,
+                      device=device, opt_cfg=_ts_opt(), overrides=over)
+
+
+def _ts_batches(cfg, n, shape=TS_SHAPE, device="cuda"):
+    from repro_torch.data import make_batch_for
+    data = _train_data(cfg, shape)
+    return [make_batch_for(cfg, data.batch(i), device=device)
+            for i in range(1, n + 1)]
+
+
+def _ts_moments(torch, opt, like=None, shardings=None, seed=7):
+    """Random ``m`` and ``v`` (``v`` > 0) in place of zeros, drawn whole
+    from ``seed`` leaf by leaf (``like``: the whole params' stand-ins)
+    and, with ``shardings``, each cut to this rank's shard: a first step
+    from them is set by the moments, not by the sign of gradients at f32
+    noise."""
+    from repro_torch.dist.sharding import shard_leaf
+    from repro_torch.tree import leaves
+    dev = leaves(opt)[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ms, vs = leaves(opt["m"]), leaves(opt["v"])
+    shapes = [t.shape for t in leaves(like if like is not None else ms)]
+    shs = leaves(shardings) if shardings is not None else [None] * len(ms)
+    for m, v, shape, sh in zip(ms, vs, shapes, shs):
+        w = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        if sh is not None:
+            w = shard_leaf(w, sh.spec, sh.mesh, dp=True)
+        m.copy_(w)
+        v.copy_((w.abs() + 1e-3) ** 2)
+        del w
+    return opt
+
+
+def _ts_local_keys(mesh, pshard):
+    """Per leaf (``leaves`` order): the chunk this rank holds, as the
+    index along each split dim (None where whole)."""
+    from repro_torch.dist.sharding import placed_spec
+    from repro_torch.tree import leaves
+    return [tuple(None if e is None else mesh.index(e)
+                  for e in placed_spec(sh.spec, mesh))
+            for sh in leaves(pshard)]
+
+
+def _ts_train(torch, mesh, variant, steps):
+    """One driven run of the train cell on this rank: placed shards of
+    full-width chatglm3-6b at TS_LAYERS, ``steps`` steps from 0 with each
+    kernel's launches, ms per step, metrics and the digests of every
+    leaf; the last step under the profiler for the "tp.*", "fsdp.*" and
+    "train_shard.*" spans."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+    cell = _ts_cell(mesh, variant, device=str(mesh.device))
+    cfg = cell.cfg
+    params = cell.model.init(seed=0, place=lambda t: shard_params(
+        t, mesh, cell.rules))
+    lp = params["layers"][0]
+    held = dict(q_heads=lp["attn"]["wq"].shape[1] // cfg.hd,
+                kv_heads=lp["attn"]["wk"].shape[1] // cfg.hd,
+                ffn_cols=lp["mlp"]["w1"].shape[1],
+                vocab_rows=params["embed"].shape[0],
+                wq=list(lp["attn"]["wq"].shape), wo=list(lp["attn"]["wo"]
+                                                         .shape),
+                w2=list(lp["mlp"]["w2"].shape))
+    opt = adamw_init(params)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves((params, opt)))
+    whole = sum(int(math.prod(t.shape)) for t in leaves(cell.args[0]))
+    batches = _ts_batches(cfg, steps)
+    fq = cfg.mx.weights is not None
+    passes = 2 if cfg.remat else 1
+    per_step = {"mx_quantize_2d": (7 * cfg.n_layers * passes if fq else 0),
+                "flash_attention": (cfg.n_layers * passes
+                                    if cfg.attn_impl == "flash" else 0)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    met_all, ms, digests, spans = [], [], [], {}
+
+    def run():
+        nonlocal params, opt
+        for i, batch in enumerate(batches, start=1):
+            prof = profile(activities=[ProfilerActivity.CPU]) \
+                if i == steps else None
+            t0 = time.perf_counter()
+            if prof:
+                prof.__enter__()
+            params, opt, met = cell.fn(params, opt, batch, i)
+            torch.cuda.synchronize()
+            if prof:
+                prof.__exit__(None, None, None)
+                spans.update({e.key: e.cpu_time_total / 1e3
+                              for e in prof.key_averages()
+                              if e.key.split(".")[0] in
+                              ("tp", "fsdp", "train_shard", "train")})
+            ms.append((time.perf_counter() - t0) * 1e3)
+            met_all.append({k: float(v) for k, v in met.items()})
+            digests.append([leaf_digest(torch, t)
+                            for t in leaves((params, opt))])
+
+    _, launches, wall = _drive(torch, run)
+    losses = [m["loss"] for m in met_all]
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in met_all):
+        raise AssertionError(f"train_shard {variant} rank {mesh.rank}: "
+                             f"metrics {met_all}")
+    _check_launches(f"train_shard {variant} rank {mesh.rank}", launches,
+                    {k: n * steps for k, n in per_step.items()})
+    row = dict(what="train", path=variant, layers=cfg.n_layers,
+               batch=TS_SHAPE[0], seq=TS_SHAPE[1], dtype=cfg.dtype,
+               remat=cfg.remat, steps=steps, metrics=met_all, losses=losses,
+               step_ms_all=ms, step_ms=statistics.median(ms[1:]),
+               spans_ms_last_step=spans,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               state_gib=state_bytes / 2 ** 30,
+               whole_state_gib=whole * (cfg.torch_param_dtype.itemsize
+                                        + 12) / 2 ** 30,
+               held=held, launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()
+                                  if v},
+               predicted_per_step=per_step, digests=digests,
+               keys=_ts_local_keys(mesh, cell.in_shardings[0]), wall_s=wall,
+               rules={k: v for k, v in cell.rule_kw.items()})
+    del params, opt, cell, batches
+    _free(torch)
+    return row
+
+
+def _ts_control(torch, mesh):
+    """The control: the optimized cell's first step with the
+    column-parallel input's backward sum removed (``ModelCopy``'s
+    backward the identity), on fresh params: its metrics."""
+    from repro_torch.dist import groups as G
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.optim import adamw_init
+    cell = _ts_cell(mesh, "optimized", device=str(mesh.device))
+    params = cell.model.init(seed=0, place=lambda t: shard_params(
+        t, mesh, cell.rules))
+    opt = adamw_init(params)
+    real = G.ModelCopy.backward
+    G.ModelCopy.backward = staticmethod(lambda ctx, g: (g, None, None))
+    try:
+        _, _, met = cell.fn(params, opt, _ts_batches(cell.cfg, 1)[0], 1)
+    finally:
+        G.ModelCopy.backward = real
+    del params, opt, cell
+    _free(torch)
+    return {k: float(v) for k, v in met.items()}
+
+
+def _ts_twin_cell(mesh, device):
+    layers, shape = TS_TWIN
+    return _ts_cell(mesh, "baseline", layers=layers, shape=shape,
+                    device=device, dtype="float32", param_dtype="float32")
+
+
+def _ts_twin(torch, mesh, want_path):
+    """The f32 twin on this rank: its step from placed params and random
+    moments, and the largest difference of each of its master shards from
+    the unsharded step's (``want_path``, read by memory map)."""
+    from repro_torch.dist.sharding import placed_spec, shard_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves, leaves_with_path, path_key
+    cell = _ts_twin_cell(mesh, str(mesh.device))
+    params = cell.model.init(seed=0, place=lambda t: shard_params(
+        t, mesh, cell.rules))
+    opt = _ts_moments(torch, adamw_init(params), cell.args[0],
+                      cell.in_shardings[0])
+    batch = _ts_batches(cell.cfg, 1, shape=TS_TWIN[1])[0]
+    params, opt, met = cell.fn(params, opt, batch, 1)
+    deadline = time.monotonic() + TS_TIMEOUT
+    while not Path(want_path).exists():     # the main process writes it
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{want_path} never came")
+        time.sleep(0.5)
+    want = torch.load(want_path, mmap=True)
+    worst = {}
+    for (path, got), sh in zip(leaves_with_path(opt["master"]),
+                               leaves(cell.in_shardings[0])):
+        w = want["master"][path_key(path)]
+        for dim, e in enumerate(placed_spec(sh.spec, mesh)):
+            if e is not None:
+                n = w.shape[dim] // mesh.size(e)
+                w = w.narrow(dim, mesh.index(e) * n, n)
+        w = w.to(got.device)
+        worst[path_key(path)] = (float((got - w).abs().max()),
+                                 float(w.abs().max()))
+    del params, opt, cell
+    _free(torch)
+    return {"metrics": {k: float(v) for k, v in met.items()},
+            "master_max_abs": worst}
+
+
+def _ts_prefill(torch, mesh, out):
+    """One batch of the optimized prefill cell on this rank (its rows and
+    KV heads): the last TS_LOGITS_TAIL positions' logits and the cache,
+    saved to ``out``; its launches."""
+    from repro_torch.dist.sharding import shard_params
+    cell = _ts_cell(mesh, "optimized", kind="prefill",
+                    device=str(mesh.device))
+    params = cell.model.init(seed=0, place=lambda t: shard_params(
+        t, mesh, cell.rules))
+    batch = {"tokens": _ts_batches(cell.cfg, 1)[0]["tokens"]}
+    (logits, cache), launches, wall = _drive(
+        torch, lambda: cell.fn(params, batch))
+    _check_launches(f"train_shard prefill rank {mesh.rank}", launches,
+                    {"mx_kv_write": cell.cfg.n_layers})
+    torch.save({"logits": logits[:, -TS_LOGITS_TAIL:].cpu(),
+                "cache": {k: v.cpu() for k, v in cache.items()}},
+               Path(out, f"prefill{mesh.rank}.pt"))
+    del params, cell, logits, cache
+    _free(torch)
+    return {"launches": launches, "wall_s": wall}
+
+
+def _ts_check_backend(mesh):
+    if mesh.backend != "gloo" or not mesh.staged:
+        raise AssertionError(f"{mesh.world} ranks on one card: backend "
+                             f"{mesh.backend}, expected gloo, staged")
+
+
+def _ts_rank(rank, world, store, out, card):
+    """One rank process of ``train_shard`` (``dist.spawn``): the driven
+    optimized and baseline runs, the control, the f32 twin and the
+    prefill cell; rows to ``out``/rank<r>.json."""
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    global CARD
+    CARD = card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, 8 // world))
+    from repro_torch.dist import close_dp, init_dp, rank_device
+    mesh = init_dp(rank, TS_MESH, rank_device("cuda", rank), store,
+                   axes=("data", "model"))
+    try:
+        _ts_check_backend(mesh)
+        res = {"runs": [_ts_train(torch, mesh, v, n) for v, n in TS_RUNS],
+               "control": _ts_control(torch, mesh),
+               "twin": _ts_twin(torch, mesh, str(Path(out, "twin.pt"))),
+               "prefill": _ts_prefill(torch, mesh, out),
+               "coords": {a: mesh.coord(a) for a in mesh.axes}}
+    finally:
+        close_dp()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def _ts_twin_unsharded(torch, out):
+    """The f32 twin's unsharded step on the card, beside the ranks: its
+    metrics, and its updated master saved whole (host) for the ranks,
+    which wait for the file."""
+    from repro_torch.dist import world_one
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    from repro_torch.tree import leaves_with_path, path_key
+    cell = _ts_twin_cell(world_one(("data", "model"), "cuda"), "cuda")
+    params = cell.model.init(seed=0)
+    opt = _ts_moments(torch, adamw_init(params))
+    step = build_train_step(cell.model, _ts_opt())
+    batch = _ts_batches(cell.cfg, 1, shape=TS_TWIN[1])[0]
+    params, opt, met = step(params, opt, batch, 1)
+    part = Path(f"{out}.part")
+    torch.save({"master": {path_key(p): t.cpu()
+                           for p, t in leaves_with_path(opt["master"])}},
+               part)
+    part.replace(out)           # the ranks read it once it is whole
+    del params, opt, cell, step
+    _free(torch)
+    return {k: float(v) for k, v in met.items()}
+
+
+def _ts_world_one(torch):
+    """World one: the optimized train cell on a mesh of one (rules
+    installed, every axis of size 1) against the port's unsharded
+    ``build_train_step`` on the same seed's params and batches, every
+    leaf's digest after each step; returns the unsharded metrics (the
+    bf16 gate's yardstick) and the launches of the cell's run."""
+    from repro_torch.dist import world_one
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    from repro_torch.tree import leaves
+    steps = dict(TS_RUNS)["optimized"]
+    out = {}
+    for name in ("cell", "unsharded"):
+        cell = _ts_cell(world_one(("data", "model"), "cuda"), "optimized")
+        params = cell.model.init(seed=0)
+        opt = adamw_init(params)
+        fn = cell.fn if name == "cell" else build_train_step(
+            cell.model, _ts_opt(), fake_quant=True)
+        batches = _ts_batches(cell.cfg, steps)
+        mets, digests = [], []
+        for i, batch in enumerate(batches, start=1):
+            params, opt, met = fn(params, opt, batch, i)
+            mets.append({k: float(v) for k, v in met.items()})
+            digests.append([leaf_digest(torch, t)
+                            for t in leaves((params, opt))])
+        out[name] = (mets, digests)
+        del params, opt, cell, batches
+        _free(torch)
+    if out["cell"] != out["unsharded"]:
+        raise AssertionError("train_shard world one: the cell on a mesh of "
+                             "one differs from build_train_step")
+    return out["unsharded"][0]
+
+
+def _ts_prefill_unsharded(torch):
+    """The optimized prefill cell's batch through the unsharded model on
+    the card (no rules): its last positions' logits and its cache."""
+    from repro_torch.dist import world_one
+    cell = _ts_cell(world_one(("data", "model"), "cuda"), "optimized",
+                    kind="prefill")
+    params = cell.model.init(seed=0)
+    tokens = _ts_batches(cell.cfg, 1)[0]["tokens"]
+    with torch.no_grad():
+        logits, cache, _ = cell.model.prefill(params, {"tokens": tokens},
+                                              max_len=TS_SHAPE[1])
+    res = (logits[:, -TS_LOGITS_TAIL:].cpu(),
+           {k: v.cpu() for k, v in cache.items()})
+    del params, cell, logits, cache
+    _free(torch)
+    return res
+
+
+def _ts_kernel_rows(torch, flush_bytes=256 * 2 ** 20):
+    """The kernels at a rank's shapes of ``train_shard`` (mesh (2, 2)):
+    B1's fake-quant of the gathered shards (w1 4096 x 6848: K whole after
+    the FSDP gather; w2 6848 x 4096: the rank's K rows over "model", N
+    gathered) against the plain round trip, bit for bit in four formats,
+    the K-sliced shard's codes and scales equal to the whole weight's
+    sliced (its blocks line up), timed; B5 at the rank's batch and heads
+    (2 x 512, Hq 16 / Hkv 1, D 128, bf16) beside SDPA."""
+    from repro_torch.core import convert
+    from repro_torch.core.spec import QuantSpec
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows = _fake_quant_rows(torch, flush, {"rank's w1 (gathered)":
+                                           (4096, 6848),
+                                           "rank's w2 (K/model)":
+                                           (6848, 4096)})
+    w = torch.randn(13696, 4096, generator=gen, device="cuda") * 0.016
+    spec = QuantSpec("e4m3", "ocp")
+    whole = convert.mx_quantize(w, spec, axis=0)
+    from repro_torch.kernels.ops import mx_quantize
+    for r in range(TS_MESH[1]):
+        part = mx_quantize(w[r * 6848:(r + 1) * 6848], spec, axis=0)
+        if not (torch.equal(part.codes, whole.codes[r * 6848:(r + 1) * 6848])
+                and torch.equal(part.scales,
+                                whole.scales[r * 214:(r + 1) * 214])):
+            raise AssertionError(f"w2's K rows of model rank {r}: the "
+                                 f"shard's codes differ from the whole "
+                                 f"weight's sliced")
+    emit("check", kernel="mx_quantize_2d", what="w2's K shard at model 2",
+         compared=TS_MESH[1], criterion="the shard's codes and scales = "
+         "the whole weight's, sliced, bit for bit")
+    flash = _flash_row(torch, flush, gen, TS_SHAPE[0] // TS_MESH[0],
+                       TS_SHAPE[1], 32 // TS_MESH[1], 2 // TS_MESH[1], 128,
+                       "chatglm3-6b, a rank's batch and heads of "
+                       "train_shard")
+    del flush, w, whole
+    return {"mx_quantize_2d": rows, "flash_attention": [flash]}
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_shard_phase(torch):
+    """Phase 11 (see the module docstring).  Returns (the driven runs'
+    launches summed over the ranks, launches per step per rank by run,
+    {kernel: its rows at a rank's shapes})."""
+    import tempfile
+    import threading
+    from repro_torch.dist import spawn
+    kernel_rows = _ts_kernel_rows(torch)
+    _free(torch)
+    world = math.prod(TS_MESH)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        tmp = Path(d)
+        # the ranks in a thread; this process's unsharded runs beside
+        # them on the card (their host work is light)
+        failed = []
+
+        def ranks_run():
+            try:
+                spawn(_ts_rank, world, (world, str(tmp / "store"), d, CARD),
+                      timeout=TS_TIMEOUT)
+            except BaseException as e:      # re-raised below
+                failed.append(e)
+
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=ranks_run)
+        thread.start()
+        try:
+            twin_want = _ts_twin_unsharded(torch, tmp / "twin.pt")
+            one = _ts_world_one(torch)
+            pre_want = _ts_prefill_unsharded(torch)
+        finally:
+            thread.join()
+        ranks_s = time.perf_counter() - t0
+        if failed:
+            raise failed[0]
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        pre = [torch.load(tmp / f"prefill{r}.pt") for r in range(world)]
+    launches, per_step = {}, {}
+    for j, (variant, steps) in enumerate(TS_RUNS):
+        rows = [r["runs"][j] for r in ranks]
+        # ranks holding the same chunk of a leaf end each step alike
+        for i in range(steps):
+            for leaf in range(len(rows[0]["keys"])):
+                seen = {}
+                for r in rows:
+                    key = tuple(r["keys"][leaf])
+                    d = r["digests"][i][leaf]
+                    if seen.setdefault(key, d) != d:
+                        raise AssertionError(
+                            f"train_shard {variant} step {i + 1}: ranks "
+                            f"holding chunk {key} of leaf {leaf} differ")
+            mets = [r["metrics"][i] for r in rows]
+            if any(m != mets[0] for m in mets):
+                raise AssertionError(f"train_shard {variant} step {i + 1}: "
+                                     f"the ranks' metrics differ: {mets}")
+        for r in rows:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            ratio = r["state_gib"] / r["whole_state_gib"]
+            if not 0.24 <= ratio <= 0.27:
+                raise AssertionError(f"train_shard {variant}: a rank holds "
+                                     f"{ratio:.4f} of the state, not about "
+                                     f"a quarter")
+        per_step[variant] = rows[0]["launches_per_step"]
+        gate = None
+        if variant == "optimized":
+            gate = [{k: _rel(m[k], w[k]) for k in ("loss", "grad_norm")}
+                    for m, w in zip(rows[0]["metrics"], one)]
+            worst = max(max(g.values()) for g in gate)
+            if worst > TS_BF16_GATE:
+                raise AssertionError(f"train_shard optimized: metrics "
+                                     f"{gate} off world one's beyond "
+                                     f"{TS_BF16_GATE}")
+        for r in rows:
+            r.pop("digests")
+            r.pop("keys")
+        emit("train_shard", mesh=list(TS_MESH), backend="gloo (staged)",
+             card=CARD, ranks_identical=True, world_one_bitwise=True,
+             gate_vs_world_one=gate, gate=TS_BF16_GATE,
+             state_fraction=[r["state_gib"] / r["whole_state_gib"]
+                             for r in rows],
+             step_ms_by_rank=[r["step_ms"] for r in rows],
+             peak_gib_by_rank=[r["peak_gib"] for r in rows],
+             ranks_wall_s=ranks_s, **rows[0])
+    ctl = ranks[0]["control"]
+    ctl_gate = _rel(ctl["grad_norm"], one[0]["grad_norm"])
+    if ctl_gate <= TS_BF16_GATE:
+        raise AssertionError(f"train_shard control: grad norm "
+                             f"{ctl['grad_norm']} vs world one's "
+                             f"{one[0]['grad_norm']} passes the gate")
+    twin = [r["twin"] for r in ranks]
+    twin_err = {"loss": _rel(twin[0]["metrics"]["loss"], twin_want["loss"]),
+                "grad_norm": _rel(twin[0]["metrics"]["grad_norm"],
+                                  twin_want["grad_norm"]),
+                "master": max(e / max(m, 1e-30) for t in twin
+                              for e, m in t["master_max_abs"].values())}
+    bad = {k: v for k, v in twin_err.items() if v > TS_TWIN_TOL[k]}
+    if bad:
+        raise AssertionError(f"train_shard f32 twin: {bad} beyond "
+                             f"{TS_TWIN_TOL}")
+    # prefill: rank (d, m) holds rows of data rank d and KV head m
+    logits_err, differ, total = 0.0, 0, 0
+    b = TS_SHAPE[0] // TS_MESH[0]
+    for r, got in zip(ranks, pre):
+        d, m = r["coords"]["data"], r["coords"]["model"]
+        want_l = pre_want[0][d * b:(d + 1) * b]
+        logits_err = max(logits_err, float((got["logits"] - want_l).abs()
+                                           .max()))
+        for k, v in got["cache"].items():
+            w = pre_want[1][k][:, d * b:(d + 1) * b, :, m:m + 1]
+            if v.dtype == torch.uint8:
+                differ += int((v != w).sum())
+                total += v.numel()
+    if logits_err > TS_PREFILL_TOL:
+        raise AssertionError(f"train_shard prefill: logits {logits_err} "
+                             f"off the unsharded beyond {TS_PREFILL_TOL}")
+    for r in ranks:
+        for k, n in r["prefill"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    emit("train_shard_checks", card=CARD, control_metrics=ctl,
+         control_vs_world_one=ctl_gate, gate=TS_BF16_GATE,
+         world_one_metrics=one, twin_unsharded=twin_want,
+         twin_metrics=twin[0]["metrics"], twin_rel_err=twin_err,
+         twin_tol=TS_TWIN_TOL,
+         twin_master_max_abs=twin[0]["master_max_abs"],
+         prefill_logits_max_abs=logits_err, prefill_tol=TS_PREFILL_TOL,
+         prefill_code_share_differ=differ / max(total, 1),
+         prefill_launches_rank0=ranks[0]["prefill"]["launches"])
+    return launches, per_step, kernel_rows
+
+
+def serve_card_vs_cpu(torch):
+    """Phase 4's checks of chatglm3-6b: the continuous engine and
+    ``ServeEngine`` at 2 full-width f32 layers, card against CPU, each
+    with its phase_seconds row.  (Moonshot's stays in the main process:
+    its CPU side's routing sits at a near-tie that another CPU thread
+    count moves to another expert.)"""
+    for name, fn in (("card vs CPU", card_vs_cpu),
+                     ("static card vs CPU", static_card_vs_cpu)):
+        t = time.perf_counter()
+        fn(torch)
+        emit("phase_seconds", name=name, seconds=time.perf_counter() - t)
+
+
+# the card-against-CPU checks that run as ``chip_smoke.py --check NAME``
+# subprocesses beside their phases (``_sub_check``)
+SUB_CHECKS = {"serve_card_vs_cpu": serve_card_vs_cpu,
+              "train_card_vs_cpu": _train_card_vs_cpu,
+              "policy_card_vs_cpu": _policy_card_vs_cpu,
+              "families_card_vs_cpu": families_card_vs_cpu}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -6305,7 +6945,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.lib()
     if args.check:
-        torch.set_num_threads(SUB_CHECK_THREADS)
+        torch.set_num_threads(SUB_CHECK_THREADS_BY_NAME.get(
+            args.check, SUB_CHECK_THREADS))
         SUB_CHECKS[args.check](torch)
         return 0
     emit("build", nvcc_s=build.build_seconds,
@@ -6339,9 +6980,20 @@ def main() -> int:
     # this slice's paths first (the MoE step's profile of ~24k kernels is
     # the first of the process), each driven from 0: their launches join
     # the kernels line's
-    family_launches = [timed(name, path, torch) for name, path in (
-        ("serve_moe", serve_moe), ("serve_yi", serve_yi),
-        ("serve_families", serve_families))]
+    # phase 4's card-against-CPU checks (most of their time on the CPU)
+    # in a subprocess beside serve_moe and serve_yi (graph replays)
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        check = _sub_check("serve_card_vs_cpu", Path(d))
+        try:
+            family_launches = [timed(name, path, torch)
+                               for name, path in (("serve_moe", serve_moe),
+                                                  ("serve_yi", serve_yi))]
+            timed("card vs CPU checks (wait)", check)
+        finally:
+            check.stop()
+    timed("MoE card vs CPU", card_vs_cpu, torch, MOE_ARCH, new=2)
+    family_launches.append(timed("serve_families", serve_families, torch))
     launches = timed("chatglm3-6b serving", serve_full_width, torch)
     policy_launches, policy_rows = timed("serve_policy", serve_policy, torch)
     family_launches.append(policy_launches)
@@ -6349,10 +7001,6 @@ def main() -> int:
         for kernel, n in counts.items():
             launches[kernel] = launches.get(kernel, 0) + n
     timed("head dim 48", serve_c5, torch)
-    timed("card vs CPU", card_vs_cpu, torch)
-    timed("static card vs CPU", static_card_vs_cpu, torch)
-    timed("MoE card vs CPU", card_vs_cpu, torch, MOE_ARCH, new=2)
-    timed("families card vs CPU", families_card_vs_cpu, torch)
     train_launches, train_per_step, train_rows = timed("train", train_phase,
                                                        torch)
     fam_launches, fam_per_step, fam_rows = timed(
@@ -6361,8 +7009,10 @@ def main() -> int:
                                               torch)
     shard_launches, shard_per_step, shard_rows = timed(
         "serve_shard", serve_shard_phase, torch)
+    ts_launches, ts_per_step, ts_rows = timed(
+        "train_shard", train_shard_phase, torch)
     for counts in (train_launches, fam_launches, dp_launches,
-                   shard_launches):
+                   shard_launches, ts_launches):
         for kernel, n in counts.items():
             launches[kernel] = launches.get(kernel, 0) + n
 
@@ -6444,6 +7094,12 @@ def main() -> int:
         kernels[-1]["serve_shard_shapes"] = [
             {k: r.get(k) for k in shape_keys + ("graph_ms",)}
             for r in shard_rows.get(name, ())]
+        # phase 11: each rank's launches per step of the sharded train
+        # cell's runs, and the kernels at a rank's shapes
+        kernels[-1]["train_shard_launches_per_step"] = {
+            run: counts.get(name, 0) for run, counts in ts_per_step.items()}
+        kernels[-1]["train_shard_shapes"] = [
+            {k: r.get(k) for k in shape_keys} for r in ts_rows.get(name, ())]
         if "multi_token" in row:    # the KV write's suffix-prefill mode,
             mt = row["multi_token"]  # launched on the prefix path
             kernels[-1]["multi_token"] = {

@@ -41,7 +41,26 @@ Each wire method runs in a ``torch.profiler.record_function`` span
 "dp.mean"), which ``tests/profile_dp_exchange.py`` reads; the sharded
 serving collectives (``sum_over``, ``gather_over``, ``host_gather``)
 run in "tp.*" spans ("tp.sum", "tp.gather", "tp.host"), staging
-included; outside a profiler a span costs a few microseconds.
+included, and the FSDP weight gather of training and prefill in
+"fsdp.gather" / "fsdp.reduce_scatter"; outside a profiler a span costs
+a few microseconds.
+
+The collectives inside a differentiated forward are
+``torch.autograd.Function``s over those methods (``RowSum``,
+``ModelCopy``, ``Gather``), so that autograd sees them and every rank
+issues the same collectives in the same order, backward included:
+
+* ``RowSum``    sum forward, identity backward (a row-parallel
+                projection's partials; the vocab-sharded embedding);
+* ``ModelCopy`` identity forward, sum backward (the input of
+                column-parallel projections: each rank's gradient of it
+                covers only its columns);
+* ``Gather``    all-gather forward; backward the rank's own chunk where
+                what follows the gather is the same on every rank (the
+                logits), or the sum over the ranks' chunks
+                (reduce-scatter) where each rank uses the whole
+                differently (k/v read by the rank's q heads; the FSDP
+                weight gather, each data rank on its own rows).
 
 Rendezvous goes through a ``FileStore`` at a path the caller names (a
 fresh temporary directory per run), never through a fixed port, so
@@ -177,17 +196,19 @@ class DPGroups:
         _all_gather(out, w.contiguous(), group=self.groups[axis])
         return out.reshape((k,) + tuple(w.shape))
 
-    def sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+    def sum_over(self, x: torch.Tensor, axes,
+                 span: str = "tp.sum") -> torch.Tensor:
         """Sum of ``x`` over the ranks of ``axes`` (an axis or a tuple),
         in x's dtype, staged through host memory under gloo on CUDA."""
         def one(w, a):
             w = w.clone() if w is x else w
             dist.all_reduce(w, op=dist.ReduceOp.SUM, group=self.groups[a])
             return w
-        with record_function("tp.sum"):
+        with record_function(span):
             return self._over(axes, one, x)
 
-    def gather_over(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    def gather_over(self, x: torch.Tensor, axes, dim: int,
+                    span: str = "tp.gather") -> torch.Tensor:
         """The ranks' ``x`` along ``axes`` concatenated on ``dim`` in their
         coordinate order (row-major over a tuple of axes)."""
         dim = dim % x.dim()
@@ -197,10 +218,44 @@ class DPGroups:
             return torch.cat(list(out.unbind(0)), dim=dim)
 
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        with record_function("tp.gather"):
+        with record_function(span):
             # the innermost axis first: chunks of an outer coordinate
             # then hold its inner ones in order
             return self._over(tuple(reversed(axes)), one, x)
+
+    def _live(self, axes) -> Tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in axes if self.size(a) > 1)
+
+    def chunk_of(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's chunk of ``x`` along ``dim`` split over ``axes``
+        (row-major over them): the inverse of ``gather_over``."""
+        axes = self._live(axes)
+        if not axes:
+            return x
+        parts = math.prod(self.size(a) for a in axes)
+        n = x.shape[dim] // parts
+        return x.narrow(dim, self.index(axes) * n, n)
+
+    def scatter_sum_over(self, x: torch.Tensor, axes, dim: int,
+                         span: str = "tp.reduce_scatter") -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the sum of ``x`` over
+        ``axes`` (a reduce-scatter per axis, outermost first, so the
+        chunk is ``chunk_of``'s), in x's dtype."""
+        axes = self._live(axes)
+        if not axes:
+            return x
+        dim = dim % x.dim()
+        with record_function(span):
+            w = self.to_wire(x.movedim(dim, 0).contiguous())
+            for a in axes:
+                out = torch.empty((w.shape[0] // self.size(a),)
+                                  + tuple(w.shape[1:]), dtype=w.dtype,
+                                  device=w.device)
+                _reduce_scatter(out, w, op=dist.ReduceOp.SUM,
+                                group=self.groups[a])
+                w = out
+            return self.from_wire(w).movedim(0, dim).contiguous()
 
     def host_gather(self, a, axes):
         """A host (numpy) array of every rank of ``axes`` (an axis or a
@@ -219,14 +274,22 @@ class DPGroups:
         n = math.prod(self.size(x) for x in axes)
         return t.cpu().numpy().reshape((n,) + np.shape(a))
 
-    def batch_rows(self, batch: int) -> slice:
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The mesh's axes, as a jax mesh's ``axis_names``."""
+        return self.axes
+
+    def batch_rows(self, batch: int, axes=None) -> slice:
         """This rank's rows of a global batch of ``batch``: the
-        reference's ``P(dp)`` split of dim 0, ranks in order."""
-        if batch % self.world:
+        reference's ``P(axes)`` split of dim 0 (every axis of the mesh by
+        default), coordinates in row-major order."""
+        axes = self.axes if axes is None else tuple(axes)
+        n = math.prod(self.size(a) for a in axes)
+        if batch % n:
             raise ValueError(f"a global batch of {batch} does not split "
-                             f"over {self.world} ranks")
-        b = batch // self.world
-        return slice(self.rank * b, (self.rank + 1) * b)
+                             f"over {n} ranks")
+        b, i = batch // n, self.index(axes) if axes else 0
+        return slice(i * b, (i + 1) * b)
 
     # -- collectives over host or device tensors ("the wire") ------------
     def to_wire(self, x: torch.Tensor) -> torch.Tensor:
@@ -285,6 +348,63 @@ class DPGroups:
         return self.from_wire(w)
 
 
+
+# =============================================================================
+# collectives that carry gradients
+# =============================================================================
+class RowSum(torch.autograd.Function):
+    """Sum over ``axes`` forward, identity backward: the partial products
+    of a row-parallel projection (every rank's output is the whole, and
+    its gradient reaches each partial unchanged)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.sum_over(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class ModelCopy(torch.autograd.Function):
+    """Identity forward, sum over ``axes`` backward: the input of
+    column-parallel projections, whose gradient on each rank covers only
+    the rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.sum_over(g, ctx.axes), None, None
+
+
+class Gather(torch.autograd.Function):
+    """All-gather over ``axes`` on ``dim`` forward.  Backward: with
+    ``partial`` the sum of the ranks' gradients of their chunk
+    (reduce-scatter; each rank uses the whole in its own way), else the
+    rank's own chunk of the gradient (what follows is the same on every
+    rank).  ``spans`` names the forward's and the backward's profiler
+    spans."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, partial, spans):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        ctx.partial, ctx.span = partial, spans[1]
+        return mesh.gather_over(x, axes, dim, span=spans[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = ctx.mesh.scatter_sum_over(g, ctx.axes, ctx.dim,
+                                          span=ctx.span)
+        else:
+            g = ctx.mesh.chunk_of(g, ctx.axes, ctx.dim).contiguous()
+        return g, None, None, None, None, None
+
+
 def init_dp(rank: int, sizes: Sequence[int], device,
             store_path: str, axes: Optional[Sequence[str]] = None
             ) -> DPGroups:
@@ -323,6 +443,14 @@ def init_dp(rank: int, sizes: Sequence[int], device,
             if rank in members:
                 groups[axis] = g
     return DPGroups(axes, sizes, rank, device, backend, groups)
+
+
+def world_one(axes: Sequence[str], device) -> DPGroups:
+    """A mesh of one rank over ``axes`` (every size 1): it joins no
+    process group, and every collective over it is the identity."""
+    axes = check_axes(axes, (1,) * len(tuple(axes)))
+    return DPGroups(axes, (1,) * len(axes), 0, torch.device(device),
+                    "gloo", {a: None for a in axes})
 
 
 def close_dp() -> None:

@@ -26,12 +26,21 @@ reference's ``logical`` constraint has no counterpart: a local tensor
 already has the layout its names resolve to.
 
 Serving consumes ``batch``, ``kv_batch``, ``model``, ``kv_pages`` and
-``quant``, in the decode posture (``fsdp_params=False``).  ``make_rules``
-returns the reference's table key for key, but refuses the toggles
-nothing consumes yet (``seq_sharded``, ``bf16_matmul_out``,
-``pure_fsdp``), and ``shard_params`` refuses the FSDP posture: their
-consumers, training's FSDP weight gather and sequence sharding, come
-with the "model" axis in the train step (ROADMAP A11.2).
+``quant``, in the decode posture (``fsdp_params=False``: weights
+resident, split over "model" only).  Training and prefill consume
+``wgather`` too, in the FSDP posture (``fsdp_params=True``, the
+reference's ZeRO-3): ``shard_params`` also splits each weight over
+"data" as ``param_specs`` says, and each use point gathers it over the
+``wgather`` axes (``fsdp_gather``: all-gather forward, reduce-scatter
+backward), leaving its "model" dim split; ``bf16_matmul_out`` makes a
+row-parallel projection sum its partials in the activation dtype.
+The collectives that carry gradients (``model_sum``, ``model_copy``,
+``model_gather``, ``fsdp_gather``) are ``torch.autograd.Function``s over
+``dist.groups.DPGroups``' methods.  ``make_rules`` returns the
+reference's table key for key, but refuses ``seq_sharded`` (the sequence
+dim over "model") and ``pure_fsdp`` (no dim left TP-sharded): no layer
+consumes them (``A11_2``: ROADMAP A11.2, which also holds the FSDP
+posture of the MoE layer and of the other families, ``refuse_fsdp``).
 """
 from __future__ import annotations
 
@@ -48,6 +57,9 @@ Spec = Tuple[Any, ...]       # one entry per dim: None, an axis, or a tuple
 DP_AXES = ("pod", "data")       # data-parallel axes, outermost first
 TP_AXIS = "model"
 MESH_AXES = DP_AXES + (TP_AXIS,)
+
+# the ROADMAP item of what the port's sharding still refuses
+A11_2 = "ROADMAP A11.2: sharded training of MoE and the other families"
 
 # parameter containers whose leaves carry a leading layer dim in the
 # reference (its lax.scan stacks); the port's layer lists carry none
@@ -85,19 +97,19 @@ def make_rules(axes: Sequence[str], *, fsdp_params: bool = True,
     ``quant``          — a ``repro_torch.core.spec.QuantPolicy`` whose
                          per-role specs distributed consumers resolve
                          through ``quant_spec_for``.
+    ``bf16_matmul_out``— a row-parallel projection's partial products
+                         come out, and are summed over "model", in the
+                         activation dtype (halving the sum's bytes).
 
-    The reference's ``seq_sharded`` (the sequence dim over "model"),
-    ``bf16_matmul_out`` (bf16 matmul outputs, halving TP sums) and
+    The reference's ``seq_sharded`` (the sequence dim over "model") and
     ``pure_fsdp`` (the whole weight gathered per layer) have no consumer
-    in the port yet: setting one raises rather than being ignored."""
+    in the port: setting one raises rather than being ignored."""
     unported = [k for k, on in (("seq_sharded", seq_sharded),
-                                ("bf16_matmul_out", bf16_matmul_out),
                                 ("pure_fsdp", pure_fsdp)) if on]
     if unported:
         raise NotImplementedError(
             f"make_rules({', '.join(k + '=True' for k in unported)}): no "
-            f"layer consumes it yet; it comes with the \"model\" axis in "
-            f"the train step (ROADMAP A11.2)")
+            f"layer consumes it yet ({A11_2})")
     axes = tuple(axes)
     batch = tuple(a for a in DP_AXES if a in axes)
     model = tuple(a for a in axes if a == TP_AXIS)
@@ -112,7 +124,7 @@ def make_rules(axes: Sequence[str], *, fsdp_params: bool = True,
         "kv_pages": batch if paged_pool_sharded else None,
         "wgather": wgather,
         "wgather_mode": "col",
-        "bf16_matmul_out": False,
+        "bf16_matmul_out": bool(bf16_matmul_out),
         "quant": quant,
     }
 
@@ -270,16 +282,83 @@ def head_shard(n_heads: int, n_kv: int, hd: int) -> HeadShard:
 
 def model_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum of ``x`` over the "model" ranks of the installed mesh (x
-    itself without one); callers pass f32 partials."""
-    axes = rule_axes("model")
-    return current_mesh().sum_over(x, axes) if axes else x
+    itself without one): a row-parallel projection's partials, whose
+    gradient reaches each rank's partial unchanged (``RowSum``)."""
+    from repro_torch.dist.groups import RowSum
+    axes = _live("model")
+    return RowSum.apply(x, current_mesh(), axes) if axes else x
 
 
-def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+def model_copy(x: torch.Tensor) -> torch.Tensor:
+    """x entering column-parallel projections: the identity forward, its
+    gradient summed over "model" backward (``ModelCopy``; x itself
+    without a mesh)."""
+    from repro_torch.dist.groups import ModelCopy
+    axes = _live("model")
+    return ModelCopy.apply(x, current_mesh(), axes) if axes else x
+
+
+def model_gather(x: torch.Tensor, dim: int,
+                 partial: bool = False) -> torch.Tensor:
     """The "model" ranks' ``x`` concatenated on ``dim`` in coordinate
-    order (x itself without a mesh)."""
-    axes = rule_axes("model")
-    return current_mesh().gather_over(x, axes, dim) if axes else x
+    order (x itself without a mesh).  Backward: the rank's own chunk of
+    the gradient, or with ``partial`` (each rank uses the whole in its
+    own way, as its q heads read gathered k/v) its sum over the ranks
+    (``Gather``)."""
+    from repro_torch.dist.groups import Gather
+    axes = _live("model")
+    if not axes:
+        return x
+    return Gather.apply(x, current_mesh(), axes, dim, partial,
+                        ("tp.gather", "tp.reduce_scatter"))
+
+
+def weight_gather_enabled() -> bool:
+    """The installed rules gather weights at their use points (the FSDP
+    posture: ``make_rules(fsdp_params=True)``)."""
+    r = current_rules()
+    return bool(r and r.get("wgather"))
+
+
+def weight_gather_mode() -> str:
+    r = current_rules()
+    return (r or {}).get("wgather_mode", "col")
+
+
+def bf16_matmul_out_enabled() -> bool:
+    """Row-parallel partial products in the activation dtype."""
+    r = current_rules()
+    return bool(r and r.get("bf16_matmul_out"))
+
+
+def wgather_parts(n: int) -> int:
+    """Ranks a weight dim of global length ``n`` that ``param_specs``
+    puts on "data" is split over in the FSDP posture: the ``wgather``
+    axes' size where it divides ``n`` (``validated``), else 1."""
+    if not weight_gather_enabled():
+        return 1
+    k = rule_size("wgather")
+    return k if k > 1 and n % k == 0 else 1
+
+
+def fsdp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole of a weight's FSDP-split ``dim`` (its "data" entry):
+    all-gathered over the ``wgather`` axes forward, the gradient summed
+    over them and split again backward (reduce-scatter; each data rank
+    computed it from its own rows), in "fsdp.*" spans.  x itself where
+    no axis splits it."""
+    from repro_torch.dist.groups import Gather
+    axes = _live("wgather")
+    if not axes:
+        return x
+    return Gather.apply(x, current_mesh(), axes, dim, True,
+                        ("fsdp.gather", "fsdp.reduce_scatter"))
+
+
+def _live(name: str) -> Tuple[str, ...]:
+    """The axes of ``name`` of size > 1 on the installed mesh."""
+    mesh = current_mesh()
+    return tuple(a for a in rule_axes(name) if mesh.size(a) > 1)
 
 
 # =============================================================================
@@ -355,7 +434,8 @@ def validated(spec: Spec, shape: Sequence[int], sizes) -> Spec:
 
 
 # =============================================================================
-# shard placement (decode posture: weights resident, split over "model")
+# shard placement (decode posture: split over "model"; FSDP posture: over
+# "data" too)
 # =============================================================================
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
@@ -382,6 +462,23 @@ def _check_mx_row_gather(k: int, block: int, ms: int) -> None:
             f"store this weight unquantized")
 
 
+def _check_qat_row_shard(k: int, kl: int, blocks, ms: int) -> None:
+    """QAT on a row-parallel matmul fake-quantizes the rank's K shard (of
+    an fp weight under the ``weights`` role, of x under ``activations``)
+    by itself: its MX blocks are the whole K's only where the shard's
+    length is a multiple of the block, so any other split is refused
+    (quantizing before the K split waits on ROADMAP A11.2)."""
+    for block in blocks:
+        if kl % block:
+            raise ValueError(
+                f"row-parallel QAT cannot fake-quantize this K shard: K={k} "
+                f"over the 'model' axis size {ms} leaves {kl} rows a rank, "
+                f"not a multiple of the block {block}, so the shard's MX "
+                f"blocks would not be the whole weight's — pick a 'model' "
+                f"size that leaves K/model a multiple of {block} "
+                f"({A11_2})")
+
+
 def _slice(t: torch.Tensor, dim: int, parts: int, index: int):
     n = t.shape[dim] // parts
     return t.narrow(dim, index * n, n).contiguous()
@@ -400,48 +497,102 @@ def _local_spec(spec: Spec, sizes: Dict[str, int], dp: bool) -> Spec:
     return tuple(keep(e) for e in spec)
 
 
+def placed_spec(spec: Spec, mesh, dp: bool = True) -> Spec:
+    """The spec a rank's shard of a leaf follows, placed by the validated
+    ``spec`` on ``mesh``: only the axes of size > 1 that the posture
+    splits ("model", and with ``dp`` the data axes: the FSDP posture)."""
+    return _local_spec(spec, dict(mesh.shape), dp)
+
+
+def placed_axes(spec: Spec, mesh, dp: bool = True) -> Tuple[str, ...]:
+    """The axes of size > 1 a leaf placed by the validated ``spec`` is
+    split over on ``mesh`` (``placed_spec``)."""
+    out: Tuple[str, ...] = ()
+    for e in placed_spec(spec, mesh, dp):
+        if e is not None:
+            out += e if isinstance(e, tuple) else (e,)
+    return out
+
+
+def _mx_shape(x) -> Tuple[int, ...]:
+    """The global (..., K padded, N) shape an MX weight's spec covers."""
+    from repro_torch.core.mx_weight import MXWeight
+    if isinstance(x, MXWeight):
+        return tuple(x.scales.shape[:-2]) + (x.kp, x.n)
+    return tuple(x.codes.shape)
+
+
 def shard_leaf(x, spec: Spec, mesh, dp: bool = False):
-    """This rank's shard of one leaf (a tensor or an ``MXWeight``) placed
-    by ``spec`` (``param_specs``'s entry for it) on ``mesh``: each dim
-    whose (validated) entry names mesh axes keeps this rank's contiguous
-    chunk, in coordinate order.  An ``MXWeight`` is quantized whole and
-    sliced: its codes and scales follow the spec of the (..., K, N)
-    weight, K through the code rows and the scale rows alike (block
-    aligned), N as columns, so the shard equals quantizing the weight's
-    slice bit for bit.  A row-parallel MX weight whose K the model axis
-    divides while K//block is not divided raises (the reference's
-    ``_check_mx_row_gather``)."""
+    """This rank's shard of one leaf (a tensor, an ``MXWeight`` or an
+    ``MXArray`` quantized along its rows) placed by ``spec``
+    (``param_specs``'s entry for it) on ``mesh``: each dim whose
+    validated entry names mesh axes keeps this rank's contiguous chunk,
+    in coordinate order ("model" only, and with ``dp`` the data axes
+    too: the FSDP posture).  An MX weight is quantized whole and sliced:
+    its codes and scales follow the spec of the (..., K, N) weight, K
+    through the code rows and the scale rows alike (block aligned), N
+    as columns, so the shard equals quantizing the weight's slice bit
+    for bit.  A K split whose K//block rows do not split alike raises
+    (on "model" the reference's ``_check_mx_row_gather``)."""
+    from repro_torch.core.convert import MXArray
     from repro_torch.core.mx_weight import MXWeight
     sizes = dict(mesh.shape)
-    if isinstance(x, MXWeight):
-        nd = x.scales.dim()
-        kp = x.kp
-        shape = tuple(x.scales.shape[:-2]) + (kp, x.n)
-        spec = validated(spec, shape, sizes)
-        spec = _local_spec(spec, sizes, dp)
-        if spec[-2] is not None:
-            _check_mx_row_gather(kp, x.block, _entry_size(sizes, spec[-2]))
-        codes, scales, k, n = x.codes, x.scales, x.k, x.n
+    if isinstance(x, (MXWeight, MXArray)):
+        if isinstance(x, MXArray) and x.axis != x.codes.dim() - 2:
+            raise NotImplementedError(
+                "shard_leaf places an MXArray quantized along its rows "
+                "(..., K, N)")
+        shape = _mx_shape(x)
+        nd = len(shape)
+        spec = _local_spec(validated(spec, shape, sizes), sizes, dp)
+        block = x.block
+        codes, scales = x.codes, x.scales
         for dim, e in enumerate(spec):
             if e is None:
                 continue
             parts = _entry_size(sizes, e)
             idx = mesh.index(e)
-            if dim == nd - 2 and x.k != kp:
-                raise NotImplementedError(
-                    f"a row-parallel MX weight of K={x.k} padded to {kp}: "
-                    f"the port shards K only where it is a block multiple")
+            if dim == nd - 2:
+                _check_mx_k_split(shape[-2], block, parts, e)
+                if isinstance(x, MXWeight) and x.k != x.kp:
+                    raise NotImplementedError(
+                        f"an MX weight of K={x.k} padded to {x.kp}: the "
+                        f"port shards K only where it is a block multiple")
             codes = _slice(codes, dim, parts, idx)
             scales = _slice(scales, dim, parts, idx)
-            if dim == nd - 2:
-                k //= parts
-            if dim == nd - 1:
-                n //= parts
-        return dataclasses.replace(x, codes=codes, scales=scales, k=k, n=n)
+        if isinstance(x, MXArray):
+            return dataclasses.replace(x, codes=codes, scales=scales,
+                                       orig_len=codes.shape[-2])
+        return dataclasses.replace(
+            x, codes=codes, scales=scales, n=scales.shape[-1],
+            k=x.k if spec[-2] is None else scales.shape[-2] * block)
     spec = _local_spec(validated(spec, tuple(x.shape), sizes), sizes, dp)
     for dim, e in enumerate(spec):
         if e is not None:
             x = _slice(x, dim, _entry_size(sizes, e), mesh.index(e))
+    return x
+
+
+def _check_mx_k_split(k: int, block: int, parts: int, entry) -> None:
+    """An MX weight's K (codes) split over ``parts`` ranks of ``entry``
+    needs its K//block scale rows split alike."""
+    if entry == TP_AXIS:
+        _check_mx_row_gather(k, block, parts)
+    elif (k // block) % parts:
+        raise ValueError(
+            f"FSDP placement cannot split this MX weight's K={k} over "
+            f"{entry!r} of size {parts}: its scales' axis (K//block="
+            f"{k // block}, block={block}) does not split alike — pad K "
+            f"to a multiple of {parts * block} or store it unquantized")
+
+
+def gather_leaf(x, spec: Spec, mesh):
+    """The whole leaf from every rank's shard ``x`` placed by ``spec``
+    (a local spec, ``placed_spec``): gathered over each split dim's axes
+    (the inverse of ``shard_leaf``; a collective every rank calls)."""
+    for dim, e in enumerate(spec):
+        if e is not None:
+            x = mesh.gather_over(x.contiguous(), e, dim)
     return x
 
 
@@ -451,27 +602,49 @@ def shard_leaf(x, spec: Spec, mesh, dp: bool = False):
 # the whole product bit for bit)
 REPLICATED = frozenset({"router"})
 
+# what the FSDP posture places and its use points gather: the GQA
+# decoder family's dense layers
+FSDP_REFUSED = ("{}: the FSDP posture (training and prefill sharded over "
+                "a mesh) covers the dense GQA decoders; {} waits on " + A11_2)
+
+
+def refuse_fsdp(cfg) -> None:
+    """Raise where ``cfg`` is not a dense GQA decoder (the MoE layer,
+    whose expert stacks are ("model", "data"), MLA, the patch frontend,
+    the hybrid, RWKV6, the encoder-decoder)."""
+    what = None
+    if cfg.family != "decoder":
+        what = f"the {cfg.family} family"
+    elif cfg.n_experts:
+        what = "the MoE layer"
+    elif cfg.mla:
+        what = "MLA"
+    elif cfg.frontend != "none":
+        what = f"the {cfg.frontend} frontend"
+    if what is not None:
+        raise NotImplementedError(FSDP_REFUSED.format(cfg.name, what))
+
 
 def shard_params(params, mesh, rules: Optional[Rules] = None):
-    """This rank's shard of a whole param tree in the decode posture:
-    ``param_specs`` validated against ``mesh`` (``validated``), split over
-    "model" and replicated over the data axes; ``REPLICATED`` leaves
-    whole.  Rules of the FSDP posture (``fsdp_params=True``, whose
-    weights would also split over "data") are refused: no layer gathers
-    them yet (ROADMAP A11.2)."""
-    if rules and rules.get("wgather"):
-        raise NotImplementedError(
-            "shard_params places the decode posture (make_rules(..., "
-            "fsdp_params=False)); the FSDP weight gather comes with the "
-            "\"model\" axis in the train step (ROADMAP A11.2)")
+    """This rank's shard of a whole param tree: ``param_specs`` validated
+    against ``mesh`` (``validated``), split over "model" and, in the
+    FSDP posture (rules with ``wgather``: ``make_rules(fsdp_params=
+    True)``), over "data" as well, each rank then holding its (data,
+    model) chunk; in the decode posture replicated over the data axes.
+    ``REPLICATED`` leaves stay whole.  The FSDP posture of an MoE
+    layer's expert stacks raises (``FSDP_REFUSED``)."""
+    dp = bool(rules and rules.get("wgather"))
     specs = param_specs(params)
 
     def walk(tree, spec):
         if isinstance(tree, dict):
+            if dp and "experts" in tree:
+                raise NotImplementedError(FSDP_REFUSED.format(
+                    "an MoE layer", "the MoE layer"))
             return {k: tree[k] if k in REPLICATED else walk(v, spec[k])
                     for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v, s) for v, s in zip(tree, spec)]
-        return shard_leaf(tree, spec, mesh)
+        return shard_leaf(tree, spec, mesh, dp)
 
     return walk(params, specs)

@@ -13,7 +13,11 @@ the port, and the caller takes the reference's dense route: that is a
 route chosen from the shapes before any launch, the same on every rank,
 not a fallback; a launch that fails on a CUDA tensor raises.  A page
 pool sharded over the data axes is local to each data rank here, so the
-paged kernel reads it where the reference gathers.
+paged kernel reads it where the reference gathers.  In sharded training
+(``launch/cells.py``) ``flash_attention_ctx`` runs the flash kernel's
+forward on the rank's heads (its backward the dense recompute of
+``flash_attention_vjp``), and ``fake_quantize`` the converter on the
+rank's gathered weight shard.
 """
 from __future__ import annotations
 

@@ -7,12 +7,14 @@ a per-tensor-role ``QuantPolicy`` (``repro_torch.core.spec``): weights,
 kv_key and kv_value each carry an optional ``QuantSpec``, so INT8 keys
 can pair with E2M1 values. A per-layer ``PolicyTable``
 (``apply_policy_table``) gives each layer its own policy:
-``layer_cfg(i)`` is layer ``i``'s uniform view.
+``layer_cfg(i)`` is layer ``i``'s uniform view.  ``ShapeSpec`` and
+``SHAPES`` are the reference's cells' input shapes
+(``launch/cells.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -149,6 +151,11 @@ class ModelConfig:
         return emb + layers
 
     @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch supports 500k-token decode (SSM/hybrid/linear)."""
+        return self.family in ("hybrid", "rwkv")
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -181,3 +188,34 @@ def apply_policy_table(cfg: ModelConfig, table) -> ModelConfig:
             f"model has {cfg.n_layers} layers (indices 0.."
             f"{cfg.n_layers - 1})")
     return dataclasses.replace(cfg, mx=table.default, mx_table=table)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape) cell (``launch/cells.py``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                     LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[ShapeSpec, ...]:
+    """long_500k only for sub-quadratic archs (the reference's rule)."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.sub_quadratic:
+        out.append(LONG_500K)
+    return tuple(out)

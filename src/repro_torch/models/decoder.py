@@ -31,8 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.mx_weight import MXWeight
-from repro_torch.dist.sharding import (model_gather, model_index,
-                                       model_parts, model_sum)
+from repro_torch.dist.sharding import (fsdp_gather, model_copy,
+                                       model_gather, model_index,
+                                       model_parts, model_sum,
+                                       wgather_parts)
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -51,7 +53,20 @@ def padded_vocab(cfg: ModelConfig) -> int:
 # =============================================================================
 # parameters
 # =============================================================================
-def normal_init(gen: torch.Generator, shape, std: float, dtype, device):
+def seeded_generator(device, seed: int) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on
+    the meta device (no data: the shapes alone, for a cell's stand-ins),
+    which has no generator."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def normal_init(gen: Optional[torch.Generator], shape, std: float, dtype,
+                device):
     """N(0, std^2) in f32 from ``gen``, stored in ``dtype`` (as the
     reference's ``dense_init``/``embed_init``)."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
@@ -158,8 +173,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if quantize:
         _refuse_mla_weights(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(device, seed)
     if place is None:
         def place(tree):
             return tree
@@ -199,8 +213,12 @@ def embed(params, cfg: ModelConfig, tokens: torch.Tensor,
     frontend's precomputed embeddings, go before them.  Under a mesh the
     table is vocab-sharded over "model" (``param_specs``): each rank
     looks up the tokens of its rows, zeros elsewhere, and the f32 sum
-    over "model" is each token's one row, exactly."""
+    over "model" is each token's one row, exactly (its gradient reaches
+    each rank's rows unchanged).  Under the FSDP posture the table's
+    "data"-split d dim is gathered first (``fsdp_gather``)."""
     w = params["embed"]
+    if wgather_parts(cfg.d_model) > 1:
+        w = fsdp_gather(w, 1)
     if model_parts(padded_vocab(cfg)) > 1:
         vl = w.shape[0]
         t = tokens.to(torch.int64) - model_index() * vl
@@ -254,17 +272,28 @@ def head_logits(params, x: torch.Tensor,
     logits (..., Vp); see ``head``.  Under a mesh the head of ``vocab``
     (the padded vocabulary) columns is vocab-sharded, column-parallel:
     the rank's columns are gathered over "model" before anything samples
-    from them."""
+    from them (x enters through ``model_copy``; backward, each rank takes
+    its columns' gradient of the logits, which every rank computes
+    alike).  Under the FSDP posture the head's "data"-split d dim is
+    gathered first (``fsdp_gather``)."""
     w = params.get("lm_head")
     if w is None:
-        w = params["embed"].T
+        w = params["embed"]
+        if wgather_parts(x.shape[-1]) > 1:
+            w = fsdp_gather(w, 1)
+        w = w.T
+    elif wgather_parts(x.shape[-1]) > 1:
+        w = fsdp_gather(w, 0)
+    split = vocab is not None and model_parts(vocab) > 1
+    if split:
+        x = model_copy(x)
     if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
         lead = x.shape[:-1]
         out = _HeadMM.apply(x.reshape(-1, x.shape[-1]), w)
         out = out.reshape(lead + (w.shape[-1],))
     else:
         out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
-    if vocab is not None and model_parts(vocab) > 1:
+    if split:
         out = model_gather(out, -1)
     return out
 

@@ -20,8 +20,8 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decoder import (embed, head, normal_init,
-                                        padded_vocab)
+from repro_torch.models.decoder import (embed, head, normal_init, padded_vocab,
+                                        seeded_generator)
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"
@@ -29,8 +29,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"
     """Random weights on ``device`` from a seeded ``torch.Generator``, at
     the reference's shapes, dtypes and scales."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(device, seed)
     d, dt, vp = cfg.d_model, cfg.torch_dtype, padded_vocab(cfg)
     hd, nh, nkv, ff = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
 

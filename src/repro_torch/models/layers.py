@@ -68,8 +68,15 @@ from repro_torch.core.convert import MXArray, mx_dequantize
 from repro_torch.core.mx_weight import MXWeight
 from repro_torch.core.pack import pack_codes, unpack_codes
 from repro_torch.core.spec import QuantPolicy, QuantSpec
-from repro_torch.dist.sharding import (HeadShard, head_shard, model_gather,
-                                       model_index, model_parts, model_sum)
+from repro_torch.dist.sharding import (HeadShard, _check_mx_row_gather,
+                                       _check_qat_row_shard,
+                                       bf16_matmul_out_enabled,
+                                       current_mesh, current_rules,
+                                       fsdp_gather, head_shard, model_copy,
+                                       model_axis_size, model_gather,
+                                       model_index, model_parts, model_sum,
+                                       use_sharding, weight_gather_enabled,
+                                       wgather_parts)
 from repro_torch.kernels.mx_kv_write import (mx_cache_kv_write,
                                              mx_paged_kv_write,
                                              mx_paged_kv_write_tokens)
@@ -100,42 +107,110 @@ def checkpointed(fn, x: torch.Tensor, on: bool):
     ``torch.utils.checkpoint`` (non-reentrant; the reference's
     ``jax.checkpoint`` of a scan step), so that the backward pass
     recomputes ``fn``, kernel launches included, where it needs a tensor
-    that ``fn`` saved."""
+    that ``fn`` saved.  The recompute runs under the rules and mesh
+    installed now (a CUDA backward runs on autograd's own thread, which
+    sees no thread-local rules): a sharded layer gathers again as its
+    forward did."""
     if not (on and torch.is_grad_enabled()):
         return fn(x)
-    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    rules, mesh = current_rules(), current_mesh()
+
+    def run(x):
+        with use_sharding(rules, mesh):
+            return fn(x)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+
+
+def _gather_mx(w, dim: int):
+    """An ``MXWeight`` / ``MXArray`` with its codes and scales gathered
+    over the ``wgather`` axes on ``dim`` (-2: K rows, -1: N columns):
+    the u8 codes move, not dequantized values."""
+    codes = fsdp_gather(w.codes, dim)
+    scales = fsdp_gather(w.scales, dim)
+    if isinstance(w, MXWeight):
+        return dataclasses.replace(w, codes=codes, scales=scales,
+                                   k=w.k if dim == -1 else
+                                   scales.shape[-2] * w.block,
+                                   n=codes.shape[-1])
+    return dataclasses.replace(w, codes=codes, scales=scales,
+                               orig_len=w.orig_len if dim == -1
+                               else codes.shape[-2])
+
+
+def gather_weight(w, tp: str, k: int, n: Optional[int]):
+    """The FSDP use-point gather (the reference's ``_gather_spec`` in its
+    "col" mode): the weight's "data"-split dim made whole over the
+    ``wgather`` axes, its "model"-split dim left split.  ``param_specs``
+    puts "data" on K of a column-parallel weight (``k`` its global
+    length, the input's width) and on N of a row-parallel one (``n``);
+    a dim the placement left whole (``wgather_parts``) is not gathered.
+    An MX weight's K is its block-padded length, as the placement's."""
+    mxw = isinstance(w, (MXWeight, MXArray))
+    if tp == "row":
+        if n is None:
+            raise ValueError("dense(tp='row') gathers N under the FSDP "
+                             "posture: pass the global output width n=")
+        dim, size = -1, n
+    else:
+        dim, size = -2, _code_len(k, w.block) if mxw else k
+    if wgather_parts(size) == 1:
+        return w
+    return _gather_mx(w, dim) if mxw else fsdp_gather(w, w.dim() + dim)
 
 
 def dense(x: torch.Tensor, w, mx: Optional[QuantPolicy] = None,
           fake_quant: bool = False, tp: str = "col",
-          k: Optional[int] = None) -> torch.Tensor:
+          k: Optional[int] = None, n: Optional[int] = None) -> torch.Tensor:
     """x @ w, steered by the policy ``mx``'s ``weights`` / ``activations``
     roles as the reference's ``dense`` is.  ``tp`` is the weight's
     tensor-parallel role (the reference's): "col" shards the output dim
     over "model" (the rank's columns come out, no collective), "row" the
     input dim: where the placement split the global contraction length
     ``k`` over "model" (``model_parts(k) > 1``), x is the rank's chunk,
-    and the f32 partial products are summed over "model" before the
-    cast (``bf16_matmul_out`` off, the reference's default).  With ``fake_quant`` (QAT) the
+    and the partial products are summed over "model" before the cast
+    (``dist.sharding.model_sum``: sum forward, identity backward), in
+    f32, or with ``bf16_matmul_out`` in x's dtype (the reference's
+    ``preferred_element_type``).  Under the FSDP posture the weight is
+    first gathered over the ``wgather`` axes (``gather_weight``; ``n`` is
+    a row-parallel weight's global output width), an MX weight's u8
+    codes and scales as they are, after the reference's
+    ``_check_mx_row_gather``.  With ``fake_quant`` (QAT) the
     ``activations`` role fake-quantizes x along its last axis and, for an
-    fp weight, the ``weights`` role fake-quantizes w along axis 0 (K),
-    each through the converter kernel (``ops.fake_quantize``; no
-    gradient passes, ROADMAP C9).  ``MXWeight``: the weight-resident
-    route through the dequant x matmul kernel (f32 accumulate);
-    ``MXArray`` (quantized along K): dequantized, then multiplied; fp
-    weight: ``torch.matmul`` in the activation dtype (f32 accumulate on
-    the card)."""
+    fp weight, the ``weights`` role fake-quantizes the (gathered) w
+    along axis 0 (K), each through the converter kernel
+    (``ops.fake_quantize``; no gradient passes, ROADMAP C9); a
+    row-parallel K shard that is no block multiple is refused
+    (``_check_qat_row_shard``: its blocks would not be the whole K's).
+    ``MXWeight``: the weight-resident route through the dequant x matmul
+    kernel (f32 accumulate); ``MXArray`` (quantized along K):
+    dequantized, then multiplied; fp weight: ``torch.matmul`` in the
+    activation dtype (f32 accumulate on the card)."""
+    mxw = isinstance(w, (MXWeight, MXArray))
+    if fake_quant and mx is not None and tp == "row" and k is not None \
+            and model_parts(k) > 1:
+        _check_qat_row_shard(k, x.shape[-1], [
+            s.block for s in (mx.activations, None if mxw else mx.weights)
+            if s is not None], model_axis_size())
     if fake_quant and mx is not None and mx.activations is not None:
         x = fake_quantize(x, mx.activations, axis=-1).to(x.dtype)
+    if weight_gather_enabled():
+        if tp == "row" and k is not None and mxw:
+            _check_mx_row_gather(_code_len(k, w.block), w.block,
+                                 model_axis_size())
+        w = gather_weight(w, tp, x.shape[-1], n)
     if tp == "row" and k is not None and model_parts(k) > 1:
+        low = bf16_matmul_out_enabled()
         if isinstance(w, MXWeight):
             part = mx_matmul_resident(x, w)
+            part = part.to(x.dtype) if low else part
         else:
             if isinstance(w, MXArray):
                 w = mx_dequantize(w)
             elif fake_quant and mx is not None and mx.weights is not None:
                 w = fake_quantize(w, mx.weights, axis=0)
-            part = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+            part = torch.matmul(x, w.to(x.dtype)) if low else \
+                torch.matmul(x.to(torch.float32), w.to(torch.float32))
         return model_sum(part).to(x.dtype)
     if isinstance(w, MXWeight):
         return mx_matmul_resident(x, w).to(x.dtype)
@@ -289,17 +364,31 @@ def kv_heads(cfg: ModelConfig) -> int:
 
 
 def _project_q(p, x, cfg, sh: HeadShard, mx, fq) -> torch.Tensor:
+    """q of the rank's heads; x is the block's input after ``model_copy``
+    (column-parallel)."""
     b, s, _ = x.shape
     q = dense(x, p["wq"], mx, fq)
     return q.reshape(b, s, sh.n_heads, cfg.hd)
 
 
-def _project_kv(p, x, cfg, sh: HeadShard, mx, fq):
+def _project_kv(p, x, xc, cfg, sh: HeadShard, mx, fq):
+    """k/v of the KV heads the rank's cache holds.  Column-parallel wk /
+    wv read ``xc`` (x after ``model_copy``); gathered over "model" where
+    their columns split but not by whole KV heads, each rank's q heads
+    then reading the whole (backward: the ranks' gradients summed).
+    Where wk / wv stay whole on every rank (``head0`` and no gather),
+    they read x itself and k/v pass ``model_copy``: each rank's q heads
+    read only some KV heads, so their gradients sum over "model"."""
     b, s, _ = x.shape
-    k = dense(x, p["wk"], mx, fq)
-    v = dense(x, p["wv"], mx, fq)
+    whole = sh.head0 is not None and not sh.gather_kv
+    src = x if whole else xc
+    k = dense(src, p["wk"], mx, fq)
+    v = dense(src, p["wv"], mx, fq)
     if sh.gather_kv:
-        k, v = model_gather(k, -1), model_gather(v, -1)
+        k, v = model_gather(k, -1, partial=True), \
+            model_gather(v, -1, partial=True)
+    elif whole:
+        k, v = model_copy(k), model_copy(v)
     return (k.reshape(b, s, sh.n_kv, cfg.hd),
             v.reshape(b, s, sh.n_kv, cfg.hd))
 
@@ -317,7 +406,8 @@ def _attend(q, k, v, mask, cfg, sh: HeadShard) -> torch.Tensor:
 def _out_proj(p, out, cfg, sh: HeadShard, mx, fq) -> torch.Tensor:
     """wo over the attention output (B, S, Hq * hd) of the rank's q
     heads, row-parallel."""
-    return dense(out, p["wo"], mx, fq, tp="row", k=cfg.n_heads * cfg.hd)
+    return dense(out, p["wo"], mx, fq, tp="row", k=cfg.n_heads * cfg.hd,
+                 n=cfg.d_model)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -351,14 +441,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     mx, fq = cfg.mx, fake_quant
     mx_kv = mx.kv_key is not None
     flash = cfg.attn_impl == "flash"
-    q = _project_q(p, x, cfg, sh, mx, fq)
+    xc = model_copy(x)
+    q = _project_q(p, xc, cfg, sh, mx, fq)
     if kv_override is not None:
         k, v = kv_override
         mask = torch.ones((1, 1, 1, s, k.shape[1]), dtype=torch.bool,
                           device=x.device)
         out = _sdpa_gqa(q, k, v, mask)
         return dense(out.reshape(b, s, nh * hd), p["wo"], mx, fq), cache
-    k, v = _project_kv(p, x, cfg, sh, mx, fq)
+    k, v = _project_kv(p, x, xc, cfg, sh, mx, fq)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
@@ -710,7 +801,7 @@ def attention_paged_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     hd = cfg.hd
     sh = heads(cfg)
     q = _project_q(p, x, cfg, sh, None, False)
-    k, v = _project_kv(p, x, cfg, sh, None, False)
+    k, v = _project_kv(p, x, x, cfg, sh, None, False)
     cos, sin = rope_tables(lengths[:, None], hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin, cfg.rope_frac)
     k = apply_rope(k, cos, sin, cfg.rope_frac)
@@ -765,7 +856,7 @@ def attention_paged_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     hd = cfg.hd
     sh = heads(cfg)
     q = _project_q(p, x, cfg, sh, None, False)
-    k, v = _project_kv(p, x, cfg, sh, None, False)
+    k, v = _project_kv(p, x, x, cfg, sh, None, False)
     positions = starts[:, None] + torch.arange(s, device=x.device,
                                                dtype=starts.dtype)[None, :]
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
@@ -868,16 +959,18 @@ def any_fp_kv(cfg: ModelConfig) -> bool:
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
         fake_quant: bool = False, ff: Optional[int] = None) -> torch.Tensor:
     """The (gated) MLP of hidden width ``ff`` (default ``cfg.d_ff``):
-    ``w1`` / ``w3`` column-parallel, ``w2`` row-parallel under a mesh."""
+    ``w1`` / ``w3`` column-parallel (x through ``model_copy``), ``w2``
+    row-parallel under a mesh."""
     mx = cfg.mx
-    h = dense(x, p["w1"], mx, fake_quant)
+    xc = model_copy(x)
+    h = dense(xc, p["w1"], mx, fake_quant)
     if cfg.gated_mlp:
-        g = dense(x, p["w3"], mx, fake_quant)
+        g = dense(xc, p["w3"], mx, fake_quant)
         h = F.silu(h.to(torch.float32)).to(x.dtype) * g
     else:
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
     return dense(h, p["w2"], mx, fake_quant, tp="row",
-                 k=cfg.d_ff if ff is None else ff)
+                 k=cfg.d_ff if ff is None else ff, n=x.shape[-1])
 
 
 # =============================================================================

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -73,6 +73,45 @@ def make_concrete_batch(cfg: ModelConfig, b: int, s: int,
                 "tokens": ints((b, st)),
                 "labels": ints((b, st + cfg.prefix_len))}
     return {"tokens": ints((b, s)), "labels": ints((b, s))}
+
+
+# =============================================================================
+# input specs (tensors on the meta device: shapes and dtypes, no storage)
+# =============================================================================
+def batch_specs(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    """Training / prefill batch stand-ins of one (arch x shape) cell (the
+    reference's ``batch_specs``): meta tensors of its shapes and
+    dtypes."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(shp, dtype=i32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if cfg.family == "encdec":
+        se, sd = s // 2, s // 2
+        return {"frames": spec((b, se, cfg.d_model), torch.bfloat16),
+                "tokens": spec((b, sd)), "labels": spec((b, sd))}
+    if cfg.frontend == "patch" and cfg.prefix_len:
+        st = s - cfg.prefix_len
+        return {"prefix_embeds": spec((b, cfg.prefix_len, cfg.d_model),
+                                      torch.bfloat16),
+                "tokens": spec((b, st)),
+                "labels": spec((b, st + cfg.prefix_len))}
+    return {"tokens": spec((b, s)), "labels": spec((b, s))}
+
+
+def decode_specs(cfg: ModelConfig, shape) -> Dict[str, Any]:
+    """Decode-step stand-ins (the reference's ``decode_specs``): one new
+    token against a ``seq_len``-deep cache, in the port's cache layout
+    (``Model.init_cache`` on the meta device)."""
+    b, s = shape.global_batch, shape.seq_len
+    s_enc = s // 2 if cfg.family == "encdec" else 0
+    max_len = s // 2 if cfg.family == "encdec" else s
+    cache = Model(cfg, device="meta").init_cache(b, max_len, s_enc)
+    return {"token": torch.empty((b,), dtype=torch.int32, device="meta"),
+            "cache": cache,
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def _on(x, device) -> torch.Tensor:

@@ -17,8 +17,8 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decoder import (embed, head_logits,
-                                        normal_init, padded_vocab)
+from repro_torch.models.decoder import (embed, head_logits, normal_init,
+                                        padded_vocab, seeded_generator)
 
 
 def _layer_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
@@ -34,8 +34,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"
     """Random weights on ``device`` from a seeded ``torch.Generator``, at
     the reference's shapes, dtypes and scales."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(device, seed)
     d, dt, vp = cfg.d_model, cfg.torch_dtype, padded_vocab(cfg)
 
     def normal(shape, std, dtype=dt):

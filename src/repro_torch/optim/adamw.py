@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -86,11 +86,28 @@ def adamw_init(params) -> Dict[str, Any]:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, split=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares in f32 (``None`` leaves add
-    nothing)."""
-    sq = [torch.sum(torch.square(g.to(_F32))) for g in leaves(tree)
-          if g is not None]
+    nothing).  Over a sharded tree (``split``: the mesh axes each leaf
+    is split over, one tuple per leaf in ``leaves`` order; ``mesh`` this
+    rank's ``DPGroups``) each leaf's sum of squares is summed over the
+    axes it is split on, once per distinct shard, and counted once over
+    those it is replicated on, so every rank gets the whole tree's norm;
+    the leaves are then added in the same order as without a mesh."""
+    sq = [None if g is None else torch.sum(torch.square(g.to(_F32)))
+          for g in leaves(tree)]
+    if split is not None:
+        by_axes: Dict[Tuple[str, ...], list] = {}
+        for i, (axes, v) in enumerate(zip(split, sq)):
+            live = tuple(a for a in axes if mesh.size(a) > 1)
+            if v is not None and live:
+                by_axes.setdefault(live, []).append(i)
+        for axes, idx in by_axes.items():     # the same order on every rank
+            tot = mesh.sum_over(torch.stack([sq[i] for i in idx]), axes,
+                                span="train.norm")
+            for j, i in enumerate(idx):
+                sq[i] = tot[j]
+    sq = [v for v in sq if v is not None]
     if not sq:
         return torch.zeros((), dtype=_F32)
     return torch.sqrt(sum(sq[1:], sq[0]))
@@ -104,7 +121,8 @@ UPDATE_SLICE = 1 << 24
 UPDATE_SLICE_CPU = 1 << 20
 
 
-def adamw_update(cfg: AdamWConfig, grads, state, step, param_dtype, params
+def adamw_update(cfg: AdamWConfig, grads, state, step, param_dtype, params,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step, in place, as the reference's jitted step donates
     its buffers: the new ``m``, ``v`` and ``master`` are written into
@@ -115,8 +133,12 @@ def adamw_update(cfg: AdamWConfig, grads, state, step, param_dtype, params
     are updated one at a time, a large one in slices of
     ``UPDATE_SLICE`` elements (``UPDATE_SLICE_CPU`` on the CPU), so the
     extra memory is a few of those slices, not the state.  A caller that
-    needs the old values clones them first."""
-    gnorm = global_norm(grads)
+    needs the old values clones them first.  ``gnorm`` is the
+    gradients' global norm where the caller has it (a sharded step's,
+    ``global_norm(grads, split, mesh)``), else ``global_norm(grads)``;
+    the update itself is elementwise, so a rank updates its shards."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = _lr(cfg, step)
     t = _step_f32(step) + 1.0

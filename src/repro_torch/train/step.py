@@ -24,8 +24,13 @@ exchange of ``core.grad_compress`` before every rank takes the same
 AdamW step on its replica of the params and state (ZeRO-1, as the
 reference).  Its three phases run in ``record_function`` spans
 ("dp_step.grads", "dp_step.exchange", "dp_step.adamw"), which
-``tests/profile_dp_exchange.py`` reads.  The reference's "model" axis
-(tensor parallelism inside the step) waits for ROADMAP A11.2.
+``tests/profile_dp_exchange.py`` reads; it has no "model" axis.
+
+Under installed rules and a mesh (``launch.cells``' train cell),
+``build_train_step`` is one rank's share of the reference's GSPMD step,
+FSDP x TP (``_sharded_step``): the rank's rows of the global batch, its
+shards of params and AdamW state, weights gathered over "data" at their
+use points and the layers tensor-parallel over "model".
 """
 from __future__ import annotations
 
@@ -38,17 +43,19 @@ from torch.profiler import record_function
 
 from repro_torch.core.grad_compress import mx_allreduce_tree
 from repro_torch.core.spec import QuantSpec, as_spec
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.dist.sharding import current_mesh, current_rules
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     global_norm)
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
 CUBLAS_WORKSPACE = ":4096:8"
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab: int) -> torch.Tensor:
-    """Mean CE over valid positions (labels in [0, vocab); -1 = masked), in
-    f32; the log-partition runs over every (padded-vocab) column, and a
-    padded column is never a valid label."""
+def cross_entropy_parts(logits: torch.Tensor, labels: torch.Tensor,
+                        vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of CE over valid positions, their count): labels in [0,
+    vocab), -1 = masked; f32, the log-partition over every
+    (padded-vocab) column, a padded column never a valid label."""
     logits = logits.to(torch.float32)
     labels = labels.to(torch.int64)
     valid = (labels >= 0) & (labels < vocab)
@@ -56,17 +63,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labs[..., None])[..., 0]
     ce = (logz - gold) * valid
-    return torch.sum(ce) / torch.clamp(torch.sum(valid), min=1)
+    return torch.sum(ce), torch.sum(valid)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Mean CE over valid positions (``cross_entropy_parts``)."""
+    total, count = cross_entropy_parts(logits, labels, vocab)
+    return total / torch.clamp(count, min=1)
 
 
 def _loss_fn(model, params, batch, *, fake_quant: bool,
-             aux_weight: float = 0.01):
+             aux_weight: float = 0.01, count_sum=None, parts: int = 1):
+    """(loss, {"ce", "aux"}).  A sharded step passes ``count_sum`` (the
+    valid count summed over the batch axes, so that the ranks' CE shares
+    add up to the global batch's CE) and ``parts`` (the ranks the aux
+    loss is averaged over); without them the one-device loss."""
     logits, aux = model.forward(params, batch, fake_quant=fake_quant)
     labels = batch["labels"]
     # the forward emits one logit per input position; labels are already
     # next-token-shifted by the pipeline
     s = min(logits.shape[1], labels.shape[1])
-    ce = cross_entropy(logits[:, :s], labels[:, :s], model.cfg.vocab)
+    total, count = cross_entropy_parts(logits[:, :s], labels[:, :s],
+                                       model.cfg.vocab)
+    if count_sum is not None:
+        count = count_sum(count)
+    ce = total / torch.clamp(count, min=1)
+    if parts != 1:
+        aux = aux / parts
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -91,30 +115,46 @@ def _check_cublas(device: torch.device) -> None:
             "before the process first uses cuBLAS")
 
 
-def _grads_of(model, params, batch, fake_quant: bool):
+def _grads_of(model, params, batch, fake_quant: bool, **loss_kw):
     """(loss, {"ce", "aux"}, grads): grads a tree of the params' structure,
     each leaf the gradient in its param's dtype or None where the loss
-    does not reach it."""
+    does not reach it; ``loss_kw`` goes to ``_loss_fn``."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     p = unflatten_like(params, flat)
     with torch.enable_grad():
-        loss, met = _loss_fn(model, p, batch, fake_quant=fake_quant)
+        loss, met = _loss_fn(model, p, batch, fake_quant=fake_quant,
+                             **loss_kw)
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
     met = {k: v.detach() for k, v in met.items()}
     return loss.detach(), met, unflatten_like(params, list(gs))
 
 
 def build_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
-                     fake_quant: bool = False) -> Callable:
+                     fake_quant: bool = False, shardings=None) -> Callable:
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics); metrics hold ``loss``, ``ce``, ``aux`` (the last
     microbatch's), ``grad_norm`` and ``lr`` as 0-dim f32 tensors.  The
     step updates ``params`` and ``opt_state`` in place and returns them,
-    as the reference's donating step does."""
+    as the reference's donating step does.
+
+    Called under installed rules and a mesh (``dist.sharding.use_rules``
+    and ``set_mesh``, as ``launch.cells``' train cell calls it) the step
+    is one rank's of the sharded step (``_sharded_step``): ``params`` and
+    ``opt_state`` are the rank's shards, placed by ``shardings`` (a tree
+    like ``params`` of ``dist.sharding.NamedSharding``, the cell's), and
+    ``batch`` is the global batch.  Without a mesh it is the one-device
+    step."""
     param_dtype = model.cfg.torch_param_dtype
     _check_cublas(model.device)
 
     def train_step(params, opt_state, batch, step):
+        if current_rules() is not None and current_mesh() is not None:
+            if microbatches != 1:
+                raise NotImplementedError(
+                    "the sharded step takes one microbatch (the "
+                    "reference's cells build it so)")
+            return _sharded_step(model, opt_cfg, params, opt_state, batch,
+                                 step, fake_quant, shardings)
         with deterministic():
             if microbatches == 1:
                 loss, met, grads = _grads_of(model, params, batch,
@@ -143,6 +183,75 @@ def build_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
         return new_params, new_opt, {"loss": loss, **met, **omet}
 
     return train_step
+
+
+def _sharded_step(model, opt_cfg: AdamWConfig, params, opt_state, batch,
+                  step, fake_quant: bool, shardings):
+    """One rank's step of the reference's ``build_train_step`` under its
+    mesh (FSDP x TP; the GSPMD step of the train cell).
+
+    The rank takes its rows of the global batch over the "batch" axes
+    (("pod", "data") on the mesh), and runs the forward on its shards:
+    the use points gather weights over "data" and keep "model" split
+    (``models/layers.py``), and their collectives carry gradients.  The
+    loss is the reference's CE over the global batch: the rank's masked
+    CE sum over the valid count summed over the batch axes, so that the
+    ranks' losses add up to it, plus the MoE aux loss averaged (0 for a
+    dense model).  After the backward, each leaf's gradient holds the
+    sum over the "data" ranks where the leaf is split over "data" (the
+    FSDP gather's reduce-scatter); over the batch axes a leaf is not
+    split on (every leaf over "pod", the norms over "data" too) it is
+    summed here, in f32, one flat buffer per set of axes.  The global
+    norm adds each distinct shard once (``optim.global_norm``) and AdamW
+    updates the rank's shards.  Every rank returns the same ``loss``,
+    ``ce``, ``aux``, ``grad_norm`` and ``lr``.  Every rank issues the
+    same collectives in the same order (the gradients that are None are
+    None on every rank).  Spans: "train_shard.grads", ".sync",
+    ".adamw"."""
+    from repro_torch.dist.sharding import placed_axes, rule_axes
+    if shardings is None:
+        raise ValueError("a sharded train step places its leaves by the "
+                         "cell's shardings: build_train_step(..., "
+                         "shardings=)")
+    mesh, rules = current_mesh(), current_rules()
+    dp = tuple(a for a in rule_axes("batch") if mesh.size(a) > 1)
+    n_dp = 1
+    for a in dp:
+        n_dp *= mesh.size(a)
+    split = [placed_axes(sh.spec, mesh, bool(rules.get("wgather")))
+             for sh in leaves(shardings)]
+    rows = mesh.batch_rows(next(iter(batch.values())).shape[0], dp)
+    local = {k: v[rows] for k, v in batch.items()}
+    with deterministic():
+        with record_function("train_shard.grads"):
+            loss, met, grads = _grads_of(
+                model, params, local, fake_quant, parts=n_dp,
+                count_sum=lambda c: mesh.sum_over(c, dp,
+                                                  span="train.count"))
+        with record_function("train_shard.sync"):
+            gs = leaves(grads)
+            by_axes: Dict[Tuple[str, ...], list] = {}
+            for i, (g, axes) in enumerate(zip(gs, split)):
+                over = tuple(a for a in dp if a not in axes)
+                if g is not None and over:
+                    by_axes.setdefault(over, []).append(i)
+            for over, idx in by_axes.items():
+                buf = torch.cat([gs[i].reshape(-1).to(torch.float32)
+                                 for i in idx])
+                buf = mesh.sum_over(buf, over, span="train.grad_sum")
+                for i, part in zip(idx, torch.split(
+                        buf, [gs[i].numel() for i in idx])):
+                    gs[i] = part.view(gs[i].shape)
+            met = mesh.sum_over(torch.stack([loss, met["ce"], met["aux"]]),
+                                dp, span="train.metrics")
+            grads = unflatten_like(params, gs)
+            gnorm = global_norm(grads, split, mesh)
+        with record_function("train_shard.adamw"):
+            new_params, new_opt, omet = adamw_update(
+                opt_cfg, grads, opt_state, step, model.cfg.torch_param_dtype,
+                params, gnorm=gnorm)
+    return new_params, new_opt, {"loss": met[0], "ce": met[1],
+                                 "aux": met[2], **omet}
 
 
 def build_train_step_compressed_dp(model, opt_cfg: AdamWConfig, *, groups,

@@ -1943,3 +1943,57 @@ def test_paged_attention_head0_matches_plain(dev, case, dtype):
     if head0 == 0 and hq == hkv * rep:
         kw.pop("head0")
         assert torch.equal(got, mx_paged_decode_attention(*on_dev, **kw))
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e2m1", "int8"])
+def test_fake_quant_of_gathered_shard_matches_plain(dev, fmt):
+    """Sharded training at mesh (2, 2) of chatglm3-6b: B1's fake-quant of
+    a rank's gathered shards (w1 4096 x 6848: K whole after the FSDP
+    gather; w2's K rows over "model", 6848 x 4096) equals the plain round
+    trip bit for bit, and the K shard's codes and scales equal the whole
+    weight's, sliced: its blocks line up ((K / 2) % 32 == 0)."""
+    from repro_torch.core import convert
+    from repro_torch.kernels.ops import fake_quantize, mx_quantize
+    rng = np.random.default_rng(9)
+    spec = QuantSpec(fmt, "ocp")
+    for k, n in ((4096, 6848), (6848, 4096)):
+        w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)
+                             * 0.016)
+        before = mx_quantize_2d.launches
+        got = fake_quantize(w.to(dev), spec, axis=0)
+        assert mx_quantize_2d.launches == before + 1
+        want = convert.quantize_dequantize(w, spec, axis=0)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+    w2 = torch.from_numpy(rng.normal(size=(13696, 4096)).astype(np.float32)
+                          * 0.016).to(dev)
+    whole = mx_quantize(w2, spec, axis=0)
+    for r in range(2):
+        part = mx_quantize(w2[r * 6848:(r + 1) * 6848], spec, axis=0)
+        assert torch.equal(part.codes, whole.codes[r * 6848:(r + 1) * 6848])
+        assert torch.equal(part.scales, whole.scales[r * 214:(r + 1) * 214])
+
+
+def test_flash_at_a_rank_heads_of_train_shard(dev):
+    """B5 on one rank of sharded training at mesh (2, 2): its batch of
+    2 x 512 and its heads (Hq 16 over Hkv 1, D 128), causal, bf16,
+    against the plain version within the bf16 tolerance (2e-2), and its
+    autograd route (``flash_attention_vjp``) giving the plain backward's
+    gradients."""
+    from repro_torch.kernels.flash_attn import flash_attention_vjp
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, 512, h, 128, generator=g, device=dev)
+               .to(torch.bfloat16) for h in (16, 1, 1))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    qs, ks, vs = (t.float().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention_vjp(qs, ks, vs, causal=True)
+    out.square().sum().backward()
+    qp, kp, vp = (t.float().requires_grad_(True) for t in (q, k, v))
+    ref.flash_attention_ref(qp, kp, vp, True).square().sum().backward()
+    for a, b in ((qs, qp), (ks, kp), (vs, vp)):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-3, atol=1e-3)

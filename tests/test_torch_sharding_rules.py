@@ -55,24 +55,28 @@ def test_make_rules_multi_pod_decode():
 
 
 # the reference's toggles no port layer reads: they raise rather than
-# being silently ignored (a bf16_matmul_out=True caller would get f32 sums)
-UNPORTED = (dict(seq_sharded=True), dict(bf16_matmul_out=True),
+# being silently ignored (seq_sharded would leave the sequence whole)
+UNPORTED = (dict(seq_sharded=True),
             dict(pure_fsdp=True, paged_pool_sharded=True))
 
 
 @pytest.mark.parametrize("axes", [("data",), ("data", "model"),
                                   ("pod", "data", "model"), ("model",)])
 @pytest.mark.parametrize("kw", [{}, dict(fsdp_params=False),
-                                dict(paged_pool_sharded=True)] +
+                                dict(paged_pool_sharded=True),
+                                dict(bf16_matmul_out=True)] +
                          list(UNPORTED))
 def test_make_rules_matches_reference(axes, kw):
     """Key for key, every keyword the port consumes, with and without a
-    policy; a toggle nothing consumes yet raises, naming it and A11.2."""
+    policy; only seq_sharded and pure_fsdp raise, naming the toggle and
+    the ROADMAP item of sharded training's remainder."""
     pol = QuantPolicy.parse("grads=e4m3@32:ocp")
     if kw in UNPORTED:
         with pytest.raises(NotImplementedError) as e:
             S.make_rules(axes, **kw)
-        assert next(iter(kw)) in str(e.value) and "A11.2" in str(e.value)
+        assert next(iter(kw)) in str(e.value) and S.A11_2 in str(e.value)
+        assert "A11.2: sharded training of MoE and the other families" \
+            in str(e.value)
         return
     assert S.make_rules(axes, **kw) == R.make_rules(axes, **kw)
     got = S.make_rules(axes, quant=pol, **kw)
@@ -80,14 +84,32 @@ def test_make_rules_matches_reference(axes, kw):
 
 
 def test_shard_params_refuses_fsdp_posture():
-    """No layer gathers FSDP-sharded weights yet: shard_params places
-    the decode posture only."""
-    mesh = _Mesh({"data": 2, "model": 2})
-    params = {"wq": torch.zeros(8, 8)}
-    with pytest.raises(NotImplementedError, match="A11.2"):
-        S.shard_params(params, mesh, S.make_rules(("data", "model")))
-    rules = S.make_rules(("data", "model"), fsdp_params=False)
-    assert S.shard_params(params, mesh, rules)["wq"].shape == (8, 4)
+    """The FSDP posture gives each rank its (data, model) chunk: a
+    column-parallel weight ("data", "model") splits K over "data" and N
+    over "model", a row-parallel one ("model", "data") the other way
+    round, the vocab-sharded embedding its rows over "model" and d over
+    "data"; a norm stays whole.  The decode posture splits over "model"
+    only.  An MoE layer's expert stacks are refused, naming A11.2."""
+    w = torch.arange(8 * 8, dtype=torch.float32).reshape(8, 8)
+    params = {"embed": w.clone(), "norm_f": torch.ones(8),
+              "layers": [{"attn": {"wq": w.clone(), "wo": w.clone()}}]}
+    rules = S.make_rules(("data", "model"))
+    for d in range(2):
+        for m in range(2):
+            mesh = _Mesh({"data": 2, "model": 2}, {"data": d, "model": m})
+            got = S.shard_params(params, mesh, rules)
+            rows, cols = slice(4 * d, 4 * d + 4), slice(4 * m, 4 * m + 4)
+            assert torch.equal(got["layers"][0]["attn"]["wq"], w[rows, cols])
+            rows, cols = slice(4 * m, 4 * m + 4), slice(4 * d, 4 * d + 4)
+            assert torch.equal(got["layers"][0]["attn"]["wo"], w[rows, cols])
+            assert torch.equal(got["embed"], w[rows, cols])
+            assert torch.equal(got["norm_f"], params["norm_f"])
+    decode = S.make_rules(("data", "model"), fsdp_params=False)
+    assert S.shard_params(params, mesh, decode)["layers"][0]["attn"][
+        "wq"].shape == (8, 4)
+    moe = {"layers": [{"moe": {"router": w, "experts": {"w1": w[None]}}}]}
+    with pytest.raises(NotImplementedError, match="A11.2: sharded training"):
+        S.shard_params(moe, mesh, rules)
 
 
 def test_toggles_and_mesh_queries():
